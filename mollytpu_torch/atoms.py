@@ -1,0 +1,51 @@
+"""Per-atom parameter tensors, structure of arrays
+(counterpart of mollytpu/atoms.py)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Atoms:
+    """(N,) tensors: mass (u), charge (e), sigma (nm), epsilon (kJ/mol) and
+    an int32 force-field type id."""
+
+    mass: torch.Tensor
+    charge: torch.Tensor
+    sigma: torch.Tensor
+    epsilon: torch.Tensor
+    atom_type: torch.Tensor = None
+
+    def to(self, device=None, dtype=None):
+        def cast(t, floating=True):
+            if t is None:
+                return None
+            return t.to(device=device, dtype=dtype if floating else None)
+
+        return Atoms(cast(self.mass), cast(self.charge), cast(self.sigma),
+                     cast(self.epsilon), cast(self.atom_type, False))
+
+
+def make_atoms(n=None, mass=1.0, charge=0.0, sigma=0.0, epsilon=0.0,
+               atom_type=None, dtype=torch.float32, device=None):
+    """Broadcast scalars or sequences to (N,) tensors."""
+
+    def arr(x, dt=dtype):
+        t = torch.as_tensor(x, dtype=dt, device=device)
+        if t.ndim == 0:
+            if n is None:
+                raise ValueError("n must be given when all params are scalars")
+            t = torch.full((n,), t.item(), dtype=dt, device=device)
+        return t
+
+    mass_t = arr(mass)
+    n_atoms = mass_t.shape[0]
+    if atom_type is None:
+        type_t = torch.zeros((n_atoms,), dtype=torch.int32, device=device)
+    else:
+        type_t = arr(atom_type, torch.int32)
+    return Atoms(mass=mass_t, charge=arr(charge), sigma=arr(sigma),
+                 epsilon=arr(epsilon), atom_type=type_t)

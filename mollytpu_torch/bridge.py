@@ -1,0 +1,125 @@
+"""Build the port's System from a JAX-package System whose arrays were
+fetched to the host (``jax.device_get(sys)``): the "weights" of a run
+(atom parameters, exclusions, PME moduli, constraints) carried over as
+numpy arrays. Duck-typed on attribute and class names, so the port never
+imports the JAX package; the parity tests use it to hand both packages the
+same system.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .atoms import Atoms
+from .boundary import Orthorhombic
+from .ops.blockpairs import BlockPairFinder
+from .ops.constraints import SHAKERattle
+from .ops.cutoffs import DistanceCutoff
+from .ops.ewald import PME, EwaldExclusionCorrection
+from .ops.general import LJDispersionCorrection
+from .ops.pairwise import CoulombEwald, LennardJones
+from .system import EXCL_WINDOW, Exclusions, System
+
+
+def _tensor(x, dtype=None, device=None):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def pairs_from_bitmap(bits, far):
+    """(i < j) pairs encoded by (N+1, 2) windowed bitmaps plus far pairs."""
+    b = np.asarray(bits).view(np.uint32)[:-1]
+    out = []
+    for w in range(2):
+        for k in range(32):
+            rows = np.nonzero((b[:, w] >> np.uint32(k)) & np.uint32(1))[0]
+            partners = rows + (w * 32 + k - EXCL_WINDOW)
+            keep = partners > rows
+            out.append(np.stack([rows[keep], partners[keep]], axis=1))
+    out.append(np.asarray(far, dtype=np.int64).reshape(-1, 2))
+    pairs = np.concatenate(out).astype(np.int64)
+    return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+
+
+def _pairwise(inter):
+    name = type(inter).__name__
+    if name == "LennardJones":
+        return LennardJones(cutoff=DistanceCutoff(
+            float(inter.cutoff.dist_cutoff)),
+            use_neighbors=bool(inter.use_neighbors),
+            weight_special=float(inter.weight_special))
+    if name == "CoulombEwald":
+        return CoulombEwald(dist_cutoff=float(inter.dist_cutoff),
+                            error_tol=float(inter.error_tol),
+                            use_neighbors=bool(inter.use_neighbors),
+                            weight_special=float(inter.weight_special),
+                            coulomb_const=float(inter.coulomb_const),
+                            alpha=float(inter.alpha))
+    raise NotImplementedError(f"pairwise interaction {name} is not ported")
+
+
+def _general(gi, dtype, device):
+    name = type(gi).__name__
+    if name == "PME":
+        if np.asarray(gi.excl_i).size:
+            raise NotImplementedError("PME with in-mesh exclusions")
+        return PME(dist_cutoff=float(gi.dist_cutoff),
+                   error_tol=float(gi.error_tol), order=int(gi.order),
+                   mesh_dims=tuple(int(k) for k in gi.mesh_dims),
+                   coulomb_const=float(gi.coulomb_const),
+                   epsilon_r=float(gi.epsilon_r), alpha=float(gi.alpha),
+                   moduli_x=_tensor(gi.moduli_x, dtype, device),
+                   moduli_y=_tensor(gi.moduli_y, dtype, device),
+                   moduli_z=_tensor(gi.moduli_z, dtype, device))
+    if name == "EwaldExclusionCorrection":
+        return EwaldExclusionCorrection.setup(
+            pairs_from_bitmap(gi.bits, gi.far), float(gi.alpha),
+            ke=float(gi.coulomb_const), device=device)
+    if name == "LJDispersionCorrection":
+        return LJDispersionCorrection(float(gi.factor_6), float(gi.factor_12),
+                                      float(gi.dist_cutoff))
+    raise NotImplementedError(f"general interaction {name} is not ported")
+
+
+def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
+                       n_steps=None):
+    """The port's System for a host-side JAX System ``tree``. dtype
+    defaults to the coordinates' dtype; a BlockPairFinder is attached when
+    dist_neighbors (the list radius) is given."""
+    coords = np.asarray(tree.coords)
+    dtype = dtype or (torch.float64 if coords.dtype == np.float64
+                      else torch.float32)
+    a = tree.atoms
+    atoms = Atoms(mass=_tensor(a.mass, dtype, device),
+                  charge=_tensor(a.charge, dtype, device),
+                  sigma=_tensor(a.sigma, dtype, device),
+                  epsilon=_tensor(a.epsilon, dtype, device),
+                  atom_type=(None if a.atom_type is None
+                             else _tensor(a.atom_type, torch.int32, device)))
+    boundary = Orthorhombic(_tensor(tree.boundary.side_lengths, dtype,
+                                    device))
+    e = tree.exclusions
+    exclusions = Exclusions(*(_tensor(getattr(e, f), device=device) for f in (
+        "excl_i", "excl_j", "spec_i", "spec_j", "excl_table", "spec_table",
+        "excl_bits", "spec_bits", "far_excl", "far_spec")))
+    constraints = []
+    for c in tree.constraints:
+        pairs = np.stack([np.asarray(c.idx_i), np.asarray(c.idx_j)], axis=1)
+        constraints.append(SHAKERattle.build(pairs, np.asarray(c.dists),
+                                             dtype=dtype, device=device))
+    if any(np.asarray(s.atom_idx).shape[0] for s in tree.specific_lists):
+        raise NotImplementedError("bonded terms are not ported yet")
+    finder = None
+    n = coords.shape[0]
+    if dist_neighbors is not None:
+        finder = BlockPairFinder.setup(boundary, dist_neighbors, n, atoms,
+                                       n_steps=n_steps or 1)
+    return System(atoms=atoms, coords=_tensor(coords, dtype, device),
+                  boundary=boundary,
+                  velocities=_tensor(tree.velocities, dtype, device),
+                  pairwise_inters=tuple(_pairwise(i)
+                                        for i in tree.pairwise_inters),
+                  general_inters=tuple(_general(g, dtype, device)
+                                       for g in tree.general_inters),
+                  constraints=tuple(constraints), exclusions=exclusions,
+                  neighbor_finder=finder, n_dof=int(tree.n_dof))

@@ -1,0 +1,53 @@
+"""Force and energy dispatch (counterpart of mollytpu/forces.py:45-116):
+the pair kernel over the cluster-pair list first, then the general
+interactions (PME, Ewald exclusion correction, dispersion correction)."""
+
+from __future__ import annotations
+
+import torch
+
+from .ops.pair_kernel import block_nonbonded, build_pair_spec
+
+
+def _check_no_bonded(sys):
+    if sys.specific_lists:
+        raise NotImplementedError(
+            "bonded terms are not ported yet (ops/bonded.py)")
+
+
+def _pair(sys, neighbors, compute_energy):
+    if neighbors is None:
+        raise ValueError("pairwise interactions present but neighbors is None")
+    spec = build_pair_spec(sys.pairwise_inters)
+    return block_nonbonded(spec, sys.coords, sys.boundary, sys.atoms,
+                           sys.exclusions, neighbors,
+                           compute_energy=compute_energy)
+
+
+def potential_energy(sys, neighbors=None, step_n=0):
+    """Total potential energy (kJ/mol), a scalar tensor."""
+    _check_no_bonded(sys)
+    e = torch.zeros((), dtype=sys.coords.dtype, device=sys.device)
+    if sys.pairwise_inters:
+        _, e_nb, _ = _pair(sys, neighbors, True)
+        e = e + e_nb
+    for gi in sys.general_inters:
+        e = e + gi.energy(sys.coords, sys.boundary, sys.atoms)
+    return e
+
+
+def forces_virial(sys, neighbors=None, step_n=0, needs_virial=False):
+    """(forces (N, 3) kJ/mol/nm, virial (3, 3) kJ/mol)."""
+    _check_no_bonded(sys)
+    fs = torch.zeros_like(sys.coords)
+    vir = torch.zeros((3, 3), dtype=sys.coords.dtype, device=sys.device)
+    if sys.pairwise_inters:
+        f, _, v = _pair(sys, neighbors, needs_virial)
+        fs, vir = fs + f, vir + v
+    for gi in sys.general_inters:
+        f, v = gi.force_virial(sys.coords, sys.boundary, sys.atoms,
+                               needs_virial=needs_virial)
+        # in place: the accumulator is this function's own tensor
+        fs.add_(f)
+        vir.add_(v)
+    return fs, vir

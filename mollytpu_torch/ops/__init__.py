@@ -1,0 +1,1 @@
+"""Subpackage of mollytpu_torch (mirrors mollytpu.ops)."""

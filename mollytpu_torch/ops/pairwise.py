@@ -1,0 +1,50 @@
+"""Pairwise interaction parameters (counterpart of mollytpu/ops/pairwise.py
+for the two interactions of the PME main path).
+
+These are descriptions, not evaluators: ops/pair_kernel.py turns them into
+the pair kernel's spec. Other potentials arrive with later kernel modes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from ..units import COULOMB_CONST
+from .cutoffs import NoCutoff
+from .mixing import GeometricMixing, LorentzMixing
+
+
+@dataclasses.dataclass(frozen=True)
+class LennardJones:
+    """4 eps ((s/r)^12 - (s/r)^6), 1-4 pairs scaled by weight_special."""
+
+    cutoff: object = NoCutoff()
+    use_neighbors: bool = False
+    sigma_mixing: object = LorentzMixing()
+    epsilon_mixing: object = GeometricMixing()
+    weight_special: float = 1.0
+
+
+def ewald_alpha(dist_cutoff, error_tol=0.0005):
+    """alpha = sqrt(-log(2 tol)) / r_c (OpenMM convention)."""
+    return math.sqrt(-math.log(2.0 * error_tol)) / dist_cutoff
+
+
+@dataclasses.dataclass(frozen=True)
+class CoulombEwald:
+    """Real-space Ewald ke q_i q_j erfc(alpha r) / r; 1-4 pairs get plain
+    Coulomb times weight_special (their reciprocal part is removed by
+    EwaldExclusionCorrection)."""
+
+    dist_cutoff: float = 1.0
+    error_tol: float = 0.0005
+    use_neighbors: bool = False
+    weight_special: float = 1.0
+    coulomb_const: float = COULOMB_CONST
+    alpha: float = None
+
+    def __post_init__(self):
+        if self.alpha is None:
+            object.__setattr__(self, "alpha",
+                               ewald_alpha(self.dist_cutoff, self.error_tol))

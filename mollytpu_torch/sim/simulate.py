@@ -1,0 +1,98 @@
+"""The simulation loop (counterpart of mollytpu/sim/simulate.py:43-131).
+
+A chunk of n steps runs as the JAX package schedules its scan: steps up to
+the next rebuild boundary, then periods of r = finder.n_steps steps each
+followed by one unconditional rebuild, then the tail. Here it is a Python
+loop of eager steps.
+
+Stale lists fail loudly. A rebuild happens at the coordinates of the last
+force evaluation made with the old list, so at every rebuild (and at the
+end of the chunk) ops.blockpairs.unlisted_min_distance checks that
+evaluation exactly: the closest atom pair the old list left out must lie
+beyond the cutoff. The run raises at the end of the chunk otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.blockpairs import unlisted_min_distance
+from ..ops.neighbors import find_neighbors
+from ..ops.pair_kernel import build_pair_spec
+
+
+class StaleNeighborList(RuntimeError):
+    """A pair inside the cutoff was missing from the neighbor list."""
+
+
+def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
+              noise=None):
+    """Advance n steps from step number step0. ``noise`` is an optional
+    callable step_n -> (N, 3) standard-normal tensor that replaces the
+    generator's draws. Returns (sys, neighbors, aux, closest distance of
+    an unlisted atom pair at the checked evaluations, in nm)."""
+    finder = sys.neighbor_finder
+    r = finder.n_steps if finder is not None and neighbors is not None else 1
+    cutoff = (build_pair_spec(sys.pairwise_inters).cutoff
+              if sys.pairwise_inters else 0.0)
+    closest = torch.full((), float("inf"), dtype=sys.coords.dtype,
+                         device=sys.device)
+
+    def steps(sys, aux, first, k):
+        for step_n in range(first, first + k):
+            sys, aux = simulator.step(
+                sys, neighbors, aux, step_n, generator=generator,
+                noise=None if noise is None else noise(step_n))
+        return sys, aux
+
+    def check(sys):
+        nonlocal closest
+        closest = torch.minimum(closest, unlisted_min_distance(
+            neighbors, sys.coords, sys.boundary, cutoff))
+
+    def rebuild(sys, step_n):
+        check(sys)
+        return find_neighbors(finder, sys.coords, sys.boundary,
+                              sys.exclusions, step_n)
+
+    if r <= 1:
+        for step_n in range(step0, step0 + n):
+            sys, aux = steps(sys, aux, step_n, 1)
+            if neighbors is not None:
+                neighbors = rebuild(sys, step_n + 1)
+    else:
+        pre = min((-step0) % r, n)
+        n_periods = (n - pre) // r
+        tail = n - pre - n_periods * r
+        if pre:
+            sys, aux = steps(sys, aux, step0, pre)
+            neighbors = rebuild(sys, step0 + pre)
+        for k in range(n_periods):
+            first = step0 + pre + k * r
+            sys, aux = steps(sys, aux, first, r)
+            neighbors = rebuild(sys, first + r)
+        if tail:
+            sys, aux = steps(sys, aux, step0 + pre + n_periods * r, tail)
+            check(sys)
+    closest = float(closest)
+    if closest < cutoff:
+        raise StaleNeighborList(
+            f"an atom pair {closest:.4f} nm apart was missing from the "
+            f"neighbor list (cutoff {cutoff} nm): rebuild more often or "
+            "widen the skin")
+    return sys, neighbors, aux, closest
+
+
+def simulate(sys, simulator, n_steps, generator=None, neighbors=None,
+             aux=None, init_step=0, noise=None):
+    """Run n_steps of MD. Returns (sys, neighbors, aux) so that a later call
+    with init_step advanced continues the same trajectory."""
+    if neighbors is None:
+        neighbors = find_neighbors(sys.neighbor_finder, sys.coords,
+                                   sys.boundary, sys.exclusions, init_step)
+    if aux is None:
+        aux = simulator.init_aux(sys, neighbors)
+    sys, neighbors, aux, _ = run_chunk(simulator, sys, neighbors, aux,
+                                       init_step, n_steps,
+                                       generator=generator, noise=noise)
+    return sys, neighbors, aux

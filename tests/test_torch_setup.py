@@ -1,0 +1,123 @@
+"""mollytpu_torch.models.setup.system_from_pdb against the JAX package's
+system_from_pdb on the same PDB and the in-repo TIP3P XML. Setup is host
+numpy in both packages, so everything must match exactly (integers) or to
+1e-12 (floats: the same float64 arithmetic in the same order)."""
+
+import numpy as np
+import pytest
+
+import mollytpu_torch as pt
+from mollytpu_torch.bridge import pairs_from_bitmap
+from torch_parity import BOXES, box_path, jax_system, np64, port_system
+
+TOL = 1e-12
+
+
+@pytest.fixture(params=sorted(BOXES))
+def systems(request):
+    return jax_system(request.param), port_system(request.param)
+
+
+def test_waterbox_reproduces_bench_tiny_box(tmp_path):
+    """water_box_pdb(64, spacing=6.5) is bench._tiny_waterbox_pdb's box."""
+    import bench
+    ours = pt.water_box_pdb(str(tmp_path / "w.pdb"), 64, spacing=6.5)
+    with open(ours) as a, open(bench._tiny_waterbox_pdb()) as b:
+        assert a.read() == b.read()
+
+
+def test_liquid_box_geometry():
+    path = box_path("liquid512")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    side = float(lines[0][6:15]) / 10.0
+    # CRYST1 keeps 0.001 A of a ~25 A side: 1.2e-4 relative in the volume
+    assert side ** 3 * pt.models.waterbox.WATER_DENSITY == pytest.approx(
+        512, rel=5e-4)
+    assert sum(ln.startswith("HETATM") for ln in lines) == 3 * 512
+
+
+def test_atom_parameters_match(systems):
+    js, ps = systems
+    for field in ("mass", "charge", "sigma", "epsilon"):
+        np.testing.assert_allclose(np64(getattr(ps.atoms, field)),
+                                   np64(getattr(js.atoms, field)),
+                                   rtol=0, atol=TOL, err_msg=field)
+    np.testing.assert_array_equal(ps.atoms.atom_type.numpy(),
+                                  np.asarray(js.atoms.atom_type))
+    np.testing.assert_allclose(np64(ps.coords), np64(js.coords), atol=TOL)
+    np.testing.assert_allclose(np64(ps.boundary.side_lengths),
+                               np64(js.boundary.side_lengths), atol=TOL)
+    assert ps.n_dof == js.n_dof
+
+
+def test_exclusion_tables_match(systems):
+    js, ps = systems
+    for field in ("excl_i", "excl_j", "spec_i", "spec_j", "excl_table",
+                  "spec_table", "excl_bits", "spec_bits", "far_excl",
+                  "far_spec"):
+        np.testing.assert_array_equal(
+            getattr(ps.exclusions, field).numpy(),
+            np.asarray(getattr(js.exclusions, field)), err_msg=field)
+
+
+def test_constraints_match(systems):
+    js, ps = systems
+    (jc,), (pc,) = js.constraints, ps.constraints
+    np.testing.assert_array_equal(pc.idx_i.numpy(), np.asarray(jc.idx_i))
+    np.testing.assert_array_equal(pc.idx_j.numpy(), np.asarray(jc.idx_j))
+    np.testing.assert_allclose(np64(pc.dists), np64(jc.dists), atol=TOL)
+    assert [b.pattern for b in pc.clusters] == [b.pattern
+                                               for b in jc.clusters]
+    for pb, jb in zip(pc.clusters, jc.clusters):
+        np.testing.assert_array_equal(pb.atoms.numpy(), np.asarray(jb.atoms))
+        np.testing.assert_allclose(np64(pb.dists), np64(jb.dists), atol=TOL)
+    # water bonds and angles all became constraints in both packages
+    assert [s.n_terms for s in js.specific_lists] == [0, 0]
+    assert ps.specific_lists == ()
+
+
+def test_pme_and_corrections_match(systems):
+    js, ps = systems
+    jpme, jexcl, jdisp = js.general_inters
+    ppme, pexcl, pdisp = ps.general_inters
+    assert type(ppme).__name__ == "PME"
+    assert ppme.mesh_dims == jpme.mesh_dims
+    assert ppme.alpha == pytest.approx(jpme.alpha, rel=TOL)
+    for ax in "xyz":
+        np.testing.assert_allclose(np64(getattr(ppme, "moduli_" + ax)),
+                                   np64(getattr(jpme, "moduli_" + ax)),
+                                   atol=TOL)
+    # the JAX correction stores a union bitmap; the port a sparse pair list
+    np.testing.assert_array_equal(
+        np.stack([pexcl.pair_i.numpy(), pexcl.pair_j.numpy()], axis=1),
+        pairs_from_bitmap(np.asarray(jexcl.bits), np.asarray(jexcl.far)))
+    assert pexcl.alpha == pytest.approx(jexcl.alpha, rel=TOL)
+    assert pdisp.factor_6 == pytest.approx(jdisp.factor_6, rel=TOL)
+    assert pdisp.factor_12 == pytest.approx(jdisp.factor_12, rel=TOL)
+
+
+def test_pairwise_parameters_match(systems):
+    js, ps = systems
+    (jlj, jew), (plj, pew) = js.pairwise_inters, ps.pairwise_inters
+    assert plj.cutoff.dist_cutoff == jlj.cutoff.dist_cutoff
+    assert plj.weight_special == jlj.weight_special
+    assert pew.weight_special == jew.weight_special
+    assert pew.alpha == pytest.approx(jew.alpha, rel=TOL)
+    assert pew.coulomb_const == jew.coulomb_const
+
+
+@pytest.mark.parametrize("kwargs, what", [
+    (dict(nonbonded_method="cutoff"), "only 'pme'"),
+    (dict(constraints="allbonds"), "constraints="),
+    (dict(implicit_solvent="obc2"), "implicit solvent"),
+    (dict(constraints="none"), "bonded terms are not ported"),
+])
+def test_unported_options_raise(kwargs, what):
+    args = dict(rigid_water=True, constraints="hbonds")
+    args.update(kwargs)
+    if kwargs.get("constraints") == "none":
+        args["rigid_water"] = False
+    with pytest.raises(NotImplementedError, match=what):
+        pt.system_from_pdb(box_path("tiny64"), pt.ForceField(pt.TIP3P_XML),
+                           **args)

@@ -1,0 +1,95 @@
+"""Shared helpers of the tests/test_torch_*.py parity tests: the same water
+boxes built by the JAX package (the reference) and by mollytpu_torch, and
+the JAX pair list / kernel call as tests/test_kernel_consistency.py uses it
+(BlockPairFinder with block=32, lanes=128; Pallas in interpret mode)."""
+
+import functools
+import os
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import mollytpu as mt
+from mollytpu.models.forcefield import ForceField as JaxForceField
+from mollytpu.models.setup import system_from_pdb as jax_system_from_pdb
+from mollytpu.ops.blockpairs import BlockPairFinder as JaxBlockPairFinder
+from mollytpu.ops.neighbors import find_neighbors as jax_find_neighbors
+
+import mollytpu_torch as pt
+from mollytpu_torch.ops.neighbors import find_neighbors
+
+LIST_RADIUS = 1.15   # bench.py: 1.0 nm cutoff + 0.15 nm skin
+CADENCE = 20
+
+#: the two water boxes of the parity tests: the bench tiny box (64 waters
+#: on a 6.5 A lattice, 26 A box) and 512 waters at liquid density
+BOXES = {"tiny64": dict(n_waters=64, spacing=6.5),
+         "liquid512": dict(n_waters=512)}
+
+@functools.lru_cache(maxsize=None)
+def _scratch_dir():
+    return tempfile.mkdtemp(prefix="mollytpu_torch_tests_")
+
+
+def box_path(name):
+    path = os.path.join(_scratch_dir(), name + ".pdb")
+    if not os.path.exists(path):
+        pt.water_box_pdb(path, **BOXES[name])
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def jax_system(name):
+    """JAX-built f64 PME water box with its block-pair finder attached."""
+    sys = jax_system_from_pdb(
+        box_path(name), JaxForceField(pt.TIP3P_XML), nonbonded_method="pme",
+        dtype=jnp.float64, constraints="hbonds", rigid_water=True,
+        dist_neighbors=LIST_RADIUS, build_cache=False)
+    finder = JaxBlockPairFinder.setup(
+        sys.boundary, LIST_RADIUS, sys.n_atoms, n_steps=CADENCE,
+        coords=sys.coords, atoms=sys.atoms, block=32, lanes=128)
+    return sys.update(neighbor_finder=finder)
+
+
+@functools.lru_cache(maxsize=None)
+def port_system(name):
+    """The same box built by mollytpu_torch, f64 on the CPU."""
+    return pt.system_from_pdb(
+        box_path(name), pt.ForceField(pt.TIP3P_XML), dtype=torch.float64,
+        constraints="hbonds", rigid_water=True, dist_neighbors=LIST_RADIUS,
+        neighbor_n_steps=CADENCE)
+
+
+def jax_neighbors(sys):
+    return jax_find_neighbors(sys.neighbor_finder, sys.coords, sys.boundary,
+                              sys.exclusions, 0)
+
+
+def port_neighbors(sys):
+    return find_neighbors(sys.neighbor_finder, sys.coords, sys.boundary,
+                          sys.exclusions, 0)
+
+
+@jax.jit
+def jax_forces_virial(sys, nbs):
+    return mt.forces_virial(sys, nbs, needs_virial=True)
+
+
+@jax.jit
+def jax_potential_energy(sys, nbs):
+    return mt.potential_energy(sys, nbs)
+
+
+def np64(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().astype(np.float64)
+    return np.array(jax.device_get(x), dtype=np.float64)
+
+
+def max_rel(a, b):
+    """max |a - b| over max(1, max |a|): the force and virial metric."""
+    a, b = np64(a), np64(b)
+    return float(np.max(np.abs(a - b)) / max(1.0, np.max(np.abs(a))))
