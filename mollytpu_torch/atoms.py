@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from .config import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Atoms:
@@ -31,7 +33,9 @@ class Atoms:
 
 def make_atoms(n=None, mass=1.0, charge=0.0, sigma=0.0, epsilon=0.0,
                atom_type=None, dtype=torch.float32, device=None):
-    """Broadcast scalars or sequences to (N,) tensors."""
+    """Broadcast scalars or sequences to (N,) tensors on ``device`` (the
+    CUDA card unless the caller names another)."""
+    device = resolve_device(device)
 
     def arr(x, dt=dtype):
         t = torch.as_tensor(x, dtype=dt, device=device)

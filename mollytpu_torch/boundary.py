@@ -1,14 +1,26 @@
-"""Orthorhombic periodic boxes and minimum-image math
-(counterpart of mollytpu/boundary.py; triclinic boxes are not ported yet).
+"""Periodic boxes and minimum-image math (counterpart of mollytpu/boundary.py
+and of the box helpers of mollytpu/ops/blockpairs.py:55-129).
 
-Infinite side lengths mark non-periodic axes, as in the JAX package.
+Infinite side lengths mark non-periodic axes of an Orthorhombic box, as in
+the JAX package. A Triclinic box is a lower-triangular basis whose rows are
+the box vectors a = (h11, 0, 0), b = (h21, h22, 0), c = (h31, h32, h33).
+
+Two minimum images live here. ``displacement`` is the JAX package's own
+(per-axis rounding, fractional rounding for a Triclinic box); ``mic`` is
+the pair kernel's back-substitution form over the 9-float ``mic_row``
+(round out the c image, then b, then a). Both give the shortest image for
+every pair closer than half the smallest perpendicular width in a reduced
+box (a test checks it against 125 images for the boxes used).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from .config import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,15 +57,138 @@ class Orthorhombic:
     def fractional(self, x):
         return x / self.side_lengths
 
+    def perp_widths(self):
+        """Widths of the cell normal to each face, as Python floats: the
+        side lengths (inf for an open axis)."""
+        return [float(s) for s in self.side_lengths.tolist()]
+
+    def mic_row(self):
+        """The kernel's 9 floats h11, h21, h22, h31, h32, h33, 1/h11, 1/h22,
+        1/h33 on the host; an open axis gets side 0 and inverse 0, so the
+        minimum image leaves it alone."""
+        s = [L if math.isfinite(L) else 0.0 for L in self.perp_widths()]
+        return (s[0], 0.0, s[1], 0.0, 0.0, s[2],
+                *(1.0 / L if L else 0.0 for L in s))
+
     def to(self, device=None, dtype=None):
         return Orthorhombic(self.side_lengths.to(device=device, dtype=dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class Triclinic:
+    """Triclinic box: ``basis`` is a (3, 3) lower-triangular tensor whose rows
+    are the box vectors (a along x, b in the xy plane), as in the JAX
+    package. ``displacement`` rounds fractional coordinates (the JAX
+    package's ``approx_images=True``)."""
+
+    basis: torch.Tensor
+
+    def __post_init__(self):
+        # the inverse once, on the host in float64: a per-call linalg.inv on
+        # the card would wait for its error check every step
+        inv = torch.linalg.inv(self.basis.detach().to("cpu", torch.float64))
+        object.__setattr__(self, "_inv", inv.to(self.basis.device,
+                                                self.basis.dtype))
+
+    def volume(self):
+        # lower-triangular: the determinant is the diagonal's product
+        return torch.abs(torch.prod(torch.diagonal(self.basis)))
+
+    def box_matrix(self):
+        return self.basis
+
+    @property
+    def side_lengths(self):
+        """Diagonal of the basis (the JAX package's bounding sizes)."""
+        return torch.diagonal(self.basis)
+
+    def center(self):
+        return self.basis.sum(dim=0) / 2
+
+    def fractional(self, x):
+        # x = f @ basis  =>  f = x @ inv(basis)
+        return x @ self._inv
+
+    def from_fractional(self, f):
+        return f @ self.basis
+
+    def displacement(self, xi, xj):
+        f = self.fractional(xj - xi)
+        return self.from_fractional(f - torch.round(f))
+
+    def wrap(self, x):
+        f = self.fractional(x)
+        return self.from_fractional(f - torch.floor(f))
+
+    def perp_widths(self):
+        """V / |face area| along each axis normal, as Python floats
+        (mollytpu/ops/blockpairs.py:90-104)."""
+        h = self.basis.detach().to("cpu", torch.float64)
+        vol = abs(float(torch.linalg.det(h)))
+        return [vol / float(torch.linalg.vector_norm(torch.linalg.cross(
+            h[(k + 1) % 3], h[(k + 2) % 3]))) for k in range(3)]
+
+    def mic_row(self):
+        """The kernel's 9 floats (mollytpu/ops/blockpairs.py:107-129)."""
+        h = self.basis.tolist()
+        return (h[0][0], h[1][0], h[1][1], h[2][0], h[2][1], h[2][2],
+                1.0 / h[0][0], 1.0 / h[1][1], 1.0 / h[2][2])
+
+    def to(self, device=None, dtype=None):
+        return Triclinic(self.basis.to(device=device, dtype=dtype))
+
+
+def mic(row, dx, dy, dz):
+    """Back-substitution minimum image of the components dx, dy, dz (any
+    shape) over a 9-entry ``row`` (floats or 0-d tensors) laid out as
+    ``mic_row``: round out the c image, then b, then a. With zero
+    off-diagonals this is per-axis rounding."""
+    h11, h21, h22, h31, h32, h33, ih11, ih22, ih33 = row
+    s3 = torch.round(dz * ih33)
+    dx = dx - s3 * h31
+    dy = dy - s3 * h32
+    dz = dz - s3 * h33
+    s2 = torch.round(dy * ih22)
+    dx = dx - s2 * h21
+    dy = dy - s2 * h22
+    dx = dx - torch.round(dx * ih11) * h11
+    return dx, dy, dz
+
+
+def mic_displacement(boundary, xi, xj):
+    """The pair kernel's minimum-image vector from xi to xj, (..., 3)."""
+    dr = xj - xi
+    row = torch.tensor(boundary.mic_row(), dtype=dr.dtype, device=dr.device)
+    return torch.stack(mic(row, dr[..., 0], dr[..., 1], dr[..., 2]), dim=-1)
 
 
 def cubic(side, dtype=torch.float32, device=None):
     """Same side length (nm) on all three axes."""
     return Orthorhombic(torch.full((3,), float(side), dtype=dtype,
-                                   device=device))
+                                   device=resolve_device(device)))
 
 
 def rectangular(sides, dtype=torch.float32, device=None):
-    return Orthorhombic(torch.as_tensor(sides, dtype=dtype, device=device))
+    return Orthorhombic(torch.as_tensor(sides, dtype=dtype,
+                                        device=resolve_device(device)))
+
+
+def triclinic(basis, dtype=torch.float32, device=None):
+    """A Triclinic box from a (3, 3) lower-triangular basis (rows = box
+    vectors, nm)."""
+    return Triclinic(torch.as_tensor(basis, dtype=dtype,
+                                     device=resolve_device(device)))
+
+
+def triclinic_from_lengths_angles(lengths, angles, dtype=torch.float32,
+                                  device=None):
+    """Reduced triclinic basis from (a, b, c) in nm and (alpha, beta, gamma)
+    in radians, as mollytpu.boundary.triclinic_from_lengths_angles."""
+    a, b, c = (float(v) for v in lengths)
+    al, be, ga = (float(v) for v in angles)
+    cx = c * math.cos(be)
+    cy = c * (math.cos(al) - math.cos(be) * math.cos(ga)) / math.sin(ga)
+    cz = math.sqrt(max(c * c - cx * cx - cy * cy, 0.0))
+    return triclinic([[a, 0.0, 0.0],
+                      [b * math.cos(ga), b * math.sin(ga), 0.0],
+                      [cx, cy, cz]], dtype=dtype, device=device)

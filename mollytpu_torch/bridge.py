@@ -1,9 +1,9 @@
 """Build the port's System from a JAX-package System whose arrays were
 fetched to the host (``jax.device_get(sys)``): the "weights" of a run
-(atom parameters, exclusions, PME moduli, constraints) carried over as
-numpy arrays. Duck-typed on attribute and class names, so the port never
-imports the JAX package; the parity tests use it to hand both packages the
-same system.
+(atom parameters, box, interactions, exclusions, PME moduli, constraints)
+carried over as numpy arrays. Duck-typed on attribute and class names, so
+the port never imports the JAX package; the parity tests use it to hand
+both packages the same system.
 """
 
 from __future__ import annotations
@@ -12,13 +12,15 @@ import numpy as np
 import torch
 
 from .atoms import Atoms
-from .boundary import Orthorhombic
+from .boundary import Orthorhombic, Triclinic
+from .config import resolve_device
+from .ops import cutoffs
 from .ops.blockpairs import BlockPairFinder
 from .ops.constraints import SHAKERattle
-from .ops.cutoffs import DistanceCutoff
 from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection
-from .ops.pairwise import CoulombEwald, LennardJones
+from .ops.pairwise import (Coulomb, CoulombEwald, CoulombReactionField,
+                           LennardJones)
 from .system import EXCL_WINDOW, Exclusions, System
 
 
@@ -41,13 +43,38 @@ def pairs_from_bitmap(bits, far):
     return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
 
 
+def _cutoff(c):
+    name = type(c).__name__
+    if name == "NoCutoff":
+        return cutoffs.NoCutoff()
+    if name in ("DistanceCutoff", "ShiftedPotentialCutoff",
+                "ShiftedForceCutoff"):
+        return getattr(cutoffs, name)(float(c.dist_cutoff))
+    raise NotImplementedError(f"cutoff {name} is not ported")
+
+
 def _pairwise(inter):
     name = type(inter).__name__
     if name == "LennardJones":
-        return LennardJones(cutoff=DistanceCutoff(
-            float(inter.cutoff.dist_cutoff)),
+        if (type(inter.sigma_mixing).__name__ != "LorentzMixing"
+                or type(inter.epsilon_mixing).__name__ != "GeometricMixing"):
+            raise NotImplementedError("only Lorentz-Berthelot mixing is "
+                                      "ported")
+        return LennardJones(cutoff=_cutoff(inter.cutoff),
+                            use_neighbors=bool(inter.use_neighbors),
+                            weight_special=float(inter.weight_special))
+    if name == "Coulomb":
+        return Coulomb(cutoff=_cutoff(inter.cutoff),
+                       use_neighbors=bool(inter.use_neighbors),
+                       weight_special=float(inter.weight_special),
+                       coulomb_const=float(inter.coulomb_const))
+    if name == "CoulombReactionField":
+        return CoulombReactionField(
+            dist_cutoff=float(inter.dist_cutoff),
+            solvent_dielectric=float(inter.solvent_dielectric),
             use_neighbors=bool(inter.use_neighbors),
-            weight_special=float(inter.weight_special))
+            weight_special=float(inter.weight_special),
+            coulomb_const=float(inter.coulomb_const))
     if name == "CoulombEwald":
         return CoulombEwald(dist_cutoff=float(inter.dist_cutoff),
                             error_tol=float(inter.error_tol),
@@ -83,9 +110,11 @@ def _general(gi, dtype, device):
 
 def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                        n_steps=None):
-    """The port's System for a host-side JAX System ``tree``. dtype
-    defaults to the coordinates' dtype; a BlockPairFinder is attached when
-    dist_neighbors (the list radius) is given."""
+    """The port's System for a host-side JAX System ``tree``, on ``device``
+    (the CUDA card unless the caller names another). dtype defaults to the
+    coordinates' dtype; a BlockPairFinder is attached when dist_neighbors
+    (the list radius) is given."""
+    device = resolve_device(device)
     coords = np.asarray(tree.coords)
     dtype = dtype or (torch.float64 if coords.dtype == np.float64
                       else torch.float32)
@@ -96,8 +125,14 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                   epsilon=_tensor(a.epsilon, dtype, device),
                   atom_type=(None if a.atom_type is None
                              else _tensor(a.atom_type, torch.int32, device)))
-    boundary = Orthorhombic(_tensor(tree.boundary.side_lengths, dtype,
-                                    device))
+    if type(tree.boundary).__name__ == "Triclinic":
+        if not tree.boundary.approx_images:
+            raise NotImplementedError("the 27-image triclinic minimum image "
+                                      "is not ported")
+        boundary = Triclinic(_tensor(tree.boundary.basis, dtype, device))
+    else:
+        boundary = Orthorhombic(_tensor(tree.boundary.side_lengths, dtype,
+                                        device))
     e = tree.exclusions
     exclusions = Exclusions(*(_tensor(getattr(e, f), device=device) for f in (
         "excl_i", "excl_j", "spec_i", "spec_j", "excl_table", "spec_table",

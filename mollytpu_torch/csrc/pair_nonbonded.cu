@@ -1,27 +1,44 @@
-// Nonbonded pair kernel K1a: Lennard-Jones (1.0 nm distance cutoff,
-// Lorentz-Berthelot mixing) plus Ewald real-space Coulomb, with windowed
-// exclusion / 1-4 bitmaps, over a list of 32 x 32 atom-cluster pairs.
+// Nonbonded pair kernel K1 (modes K1a and K1b): Lennard-Jones (no /
+// distance / shifted-potential / shifted-force cutoff, Lorentz-Berthelot
+// mixing) plus plain, reaction-field or Ewald real-space Coulomb, with
+// windowed exclusion / 1-4 bitmaps, over a list of 32 x 32 atom-cluster
+// pairs in an orthorhombic or triclinic box.
 //
 // Replaces mollytpu/ops/pallas_pairwise.py::_kernel (launched by
-// pallas_block_nonbonded) for lj_mode=1, coul_mode=3, orthorhombic boxes and
-// no alchemical lambda. The plain PyTorch twin is
-// mollytpu_torch/ops/pair_kernel.py::pair_nonbonded_plain.
+// pallas_block_nonbonded), with the pair terms of its _pair_terms (:462) for
+// every mode without alchemical lambda, and both of its minimum-image forms
+// (hoisted and per-pair, :714-754), which a per-pair MIC covers. The plain
+// PyTorch twin is mollytpu_torch/ops/pair_kernel.py::pair_nonbonded_plain.
 //
-// What bounds it on an H100: per-pair FP32 arithmetic and the special
-// functions (sqrt, erfc, exp) of the ~1024 slots of every listed cluster
-// pair, most of which lie outside the cutoff, plus the force atomics.
-// Design: one warp per cluster pair. Lane t owns i-atom t of cluster I; the
-// 32 j-atoms of cluster J sit in shared memory and are visited in rotation
-// (lane t meets j = (t + k) & 31 at step k), so every step pairs 32 distinct
-// (i, j). Each lane also carries one j-force accumulator that moves one lane
-// down per step (a warp shuffle), so after 32 steps lane t holds the whole
-// j-side force of atom J*32 + t: each j-force costs one atomic per tile.
-// The self tile (I == J) evaluates both orderings of every pair at weight
-// 0.5 for energy and virial and emits no j-forces.
+// What bounds it on an H100: FP32 arithmetic and the special-function unit
+// (sqrt and reciprocal for every live pair; erfc and exp under Ewald) on the
+// listed slots, about 10% of which lie inside the cutoff, plus the force
+// atomics. The bytes it must move (~1 MB at 16k atoms) take well under a
+// microsecond. Design: one warp per cluster pair, so the cutoff test and the
+// exclusion bits cost a few integer and FP32 operations per slot while the
+// pair terms run only for live slots (divergent lanes idle). Lane t owns
+// i-atom t of cluster I; the 32 j-atoms of cluster J sit in shared memory
+// and are visited in rotation (lane t meets j = (t + k) & 31 at step k), so
+// every step pairs 32 distinct (i, j). Each lane also carries one j-force
+// accumulator that moves one lane down per step (a warp shuffle), so after
+// 32 steps lane t holds the whole j-side force of atom J*32 + t: each
+// j-force costs one atomic per tile. The self tile (I == J) evaluates both
+// orderings of every pair at weight 0.5 for energy and virial and emits no
+// j-forces. Energy and virial are summed per warp in f32 and across warps
+// in double. Culling dead tiles, staging j-clusters across tiles and fewer
+// atomics are later work.
+//
+// Instances: templated on what changes the inner loop, the Coulomb mode,
+// the box shape and the energy output (4 x 2 x 2). The LJ mode and every
+// constant are warp-uniform runtime parameters.
 //
 // Conventions (as the TPU kernel): coef = (dU/dr)/r, f_i += coef (x_j - x_i),
 // f_j -= coef (x_j - x_i), virial -= coef dx (x) dx. Forces land by atomicAdd
 // in the ORIGINAL atom order (ids[slot] is the atom id, n_atoms for padding).
+// Minimum image: back-substitution over the lower-triangular box rows a =
+// (h11, 0, 0), b = (h21, h22, 0), c = (h31, h32, h33): round out the c
+// image, then b, then a; an orthorhombic box rounds each axis on its own,
+// and an open axis has side and inverse 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,26 +49,42 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Params {
+}  // namespace
+
+// The launcher's spec; mirrored by ops/pair_kernel.py::_Launch.
+struct LaunchSpec {
   int n_pairs;
   int n_atoms;
-  float bx, by, bz;     // periodic side lengths, 0 for an open axis
-  float ibx, iby, ibz;  // their inverses, 0 for an open axis
-  float cut2;           // interaction cutoff squared
-  float ke;             // Coulomb constant
-  float alpha;          // Ewald splitting parameter
-  float lj_w;           // LJ weight of 1-4 pairs
-  float coul_w;         // Coulomb weight of 1-4 pairs
+  int lj_mode;         // 0 none, 1 distance, 2 shifted potential,
+                       // 3 shifted force, 4 no cutoff
+  int coul_mode;       // 0 none, 1 plain, 2 reaction field, 3 Ewald real
+  int triclinic;       // 0: per-axis minimum image
+  int compute_energy;
+  float mic[9];        // h11 h21 h22 h31 h32 h33 1/h11 1/h22 1/h33
+  float cut2;          // cut_max^2: every pair beyond it is skipped
+  float lj_rc2;        // LJ's own cutoff^2 (inf when it is cut_max or none)
+  float coul_rc2;      // Coulomb's own cutoff^2 (inf likewise)
+  float lj_rc;         // shifted LJ: rc, 1/rc, 1/rc^2
+  float inv_lj_rc;
+  float inv_lj_rc2;
+  float lj_w;          // LJ weight of 1-4 pairs
+  float coul_w;        // Coulomb weight of 1-4 pairs
+  float ke;            // Coulomb constant
+  float alpha;         // Ewald splitting parameter
+  float krf;           // reaction field constants
+  float crf;
 };
 
-template <bool COMPUTE_ENERGY>
+namespace {
+
+template <int COUL_MODE, bool TRICLINIC, bool COMPUTE_ENERGY>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 pair_nonbonded_kernel(const float4* __restrict__ pos,   // x, y, z, q
                       const float2* __restrict__ lj,    // sigma, sqrt(eps)
                       const int* __restrict__ ids,      // atom id or n_atoms
                       const int4* __restrict__ bits,    // excl w0/w1, spec w0/w1
                       const int2* __restrict__ pairs,   // cluster I, J
-                      Params p, float* __restrict__ forces,
+                      const LaunchSpec p, float* __restrict__ forces,
                       double* __restrict__ energy_virial) {
   __shared__ float4 s_pos[kWarpsPerBlock][kWarp];
   __shared__ float2 s_lj[kWarpsPerBlock][kWarp];
@@ -93,9 +126,20 @@ pair_nonbonded_kernel(const float4* __restrict__ pos,   // x, y, z, q
     float dx = pj.x - pi.x;
     float dy = pj.y - pi.y;
     float dz = pj.z - pi.z;
-    dx -= p.bx * rintf(dx * p.ibx);
-    dy -= p.by * rintf(dy * p.iby);
-    dz -= p.bz * rintf(dz * p.ibz);
+    if (TRICLINIC) {
+      const float s3 = rintf(dz * p.mic[8]);
+      dx -= s3 * p.mic[3];
+      dy -= s3 * p.mic[4];
+      dz -= s3 * p.mic[5];
+      const float s2 = rintf(dy * p.mic[7]);
+      dx -= s2 * p.mic[1];
+      dy -= s2 * p.mic[2];
+      dx -= rintf(dx * p.mic[6]) * p.mic[0];
+    } else {
+      dx -= p.mic[0] * rintf(dx * p.mic[6]);
+      dy -= p.mic[2] * rintf(dy * p.mic[7]);
+      dz -= p.mic[5] * rintf(dz * p.mic[8]);
+    }
     const float r2 = dx * dx + dy * dy + dz * dz;
 
     // exclusion bits live in atom-id space: offset d = id_j - id_i + 32
@@ -117,27 +161,50 @@ pair_nonbonded_kernel(const float4* __restrict__ pos,   // x, y, z, q
       // LJ: hydrogens carry eps = 0; skipping the term (rather than
       // multiplying by 0) keeps a huge (sigma/r)^12 from making 0 * inf
       const float eps = li.y * ljj.y;
-      if (eps != 0.f) {
+      if (p.lj_mode != 0 && eps != 0.f && r2 < p.lj_rc2) {
         const float sig = 0.5f * (li.x + ljj.x);
         const float s2 = sig * sig * inv_r2;
         const float six = s2 * s2 * s2;
         const float twelve = six * six;
+        float e_lj = 4.0f * eps * (twelve - six);
+        float c_lj = -24.0f * eps * (2.0f * twelve - six) * inv_r2;
+        if (p.lj_mode == 2 || p.lj_mode == 3) {
+          const float s2c = sig * sig * p.inv_lj_rc2;
+          const float sixc = s2c * s2c * s2c;
+          const float twelvec = sixc * sixc;
+          e_lj -= 4.0f * eps * (twelvec - sixc);
+          if (p.lj_mode == 3) {
+            const float dudr_rc =
+                -24.0f * eps * (2.0f * twelvec - sixc) * p.inv_lj_rc;
+            e_lj -= (r2 * inv_r - p.lj_rc) * dudr_rc;
+            c_lj -= dudr_rc * inv_r;
+          }
+        }
         const float wl = special ? p.lj_w : 1.0f;
-        e = 4.0f * eps * (twelve - six) * wl;
-        coef = -24.0f * eps * (2.0f * twelve - six) * inv_r2 * wl;
+        e = e_lj * wl;
+        coef = c_lj * wl;
       }
-      const float keqq = p.ke * pi.w * pj.w;
-      if (special) {
-        // 1-4 pairs: plain Coulomb times the 1-4 weight; their reciprocal
-        // part is removed by the Ewald exclusion correction
-        e += keqq * inv_r * p.coul_w;
-        coef -= keqq * inv_r2 * inv_r * p.coul_w;
-      } else {
-        const float ar = p.alpha * r2 * inv_r;
-        const float erfc_ar = erfcf(ar);
-        const float ex = expf(-ar * ar);
-        e += keqq * erfc_ar * inv_r;
-        coef -= keqq * inv_r2 * (erfc_ar * inv_r + two_a_rsqrtpi * ex);
+      if (COUL_MODE != 0 && r2 < p.coul_rc2) {
+        const float keqq = p.ke * pi.w * pj.w;
+        if (COUL_MODE == 1) {
+          const float wc = special ? p.coul_w : 1.0f;
+          e += keqq * inv_r * wc;
+          coef -= keqq * inv_r2 * inv_r * wc;
+        } else if (special) {
+          // 1-4 pairs: plain Coulomb times the 1-4 weight (under Ewald
+          // their reciprocal part is removed by the exclusion correction)
+          e += keqq * inv_r * p.coul_w;
+          coef -= keqq * inv_r2 * inv_r * p.coul_w;
+        } else if (COUL_MODE == 2) {
+          e += keqq * (inv_r + p.krf * r2 - p.crf);
+          coef += keqq * (2.0f * p.krf - inv_r2 * inv_r);
+        } else {
+          const float ar = p.alpha * r2 * inv_r;
+          const float erfc_ar = erfcf(ar);
+          const float ex = expf(-ar * ar);
+          e += keqq * erfc_ar * inv_r;
+          coef -= keqq * inv_r2 * (erfc_ar * inv_r + two_a_rsqrtpi * ex);
+        }
       }
     }
     fix += coef * dx;
@@ -192,36 +259,66 @@ pair_nonbonded_kernel(const float4* __restrict__ pos,   // x, y, z, q
   }
 }
 
+struct Args {
+  const float4* pos;
+  const float2* lj;
+  const int* ids;
+  const int4* bits;
+  const int2* pairs;
+  float* forces;
+  double* ev;
+  cudaStream_t stream;
+};
+
+template <int COUL_MODE, bool TRICLINIC, bool COMPUTE_ENERGY>
+void launch(const Args& a, const LaunchSpec& p) {
+  const dim3 block(kWarp * kWarpsPerBlock);
+  const dim3 grid((p.n_pairs + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  pair_nonbonded_kernel<COUL_MODE, TRICLINIC, COMPUTE_ENERGY>
+      <<<grid, block, 0, a.stream>>>(a.pos, a.lj, a.ids, a.bits, a.pairs, p,
+                                     a.forces, a.ev);
+}
+
+template <int COUL_MODE>
+void launch_coul(const Args& a, const LaunchSpec& p) {
+  if (p.triclinic) {
+    if (p.compute_energy) launch<COUL_MODE, true, true>(a, p);
+    else launch<COUL_MODE, true, false>(a, p);
+  } else {
+    if (p.compute_energy) launch<COUL_MODE, false, true>(a, p);
+    else launch<COUL_MODE, false, false>(a, p);
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`. forces (n_atoms, 3) f32 and energy_virial (7) f64 must
 // be zeroed by the caller; energy_virial may be null when compute_energy is
-// 0. Returns cudaGetLastError() after the launch.
-extern "C" int pair_nonbonded_launch(
-    const void* pos, const void* lj, const void* ids, const void* bits,
-    const void* pairs, int n_pairs, int n_atoms, float bx, float by,
-    float bz, float ibx, float iby, float ibz, float cut2, float ke,
-    float alpha, float lj_w, float coul_w, void* forces,
-    void* energy_virial, int compute_energy, void* stream) {
-  if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
-  Params p{n_pairs, n_atoms, bx, by, bz, ibx, iby, ibz, cut2, ke, alpha,
-           lj_w, coul_w};
-  const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid((n_pairs + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* pos4 = static_cast<const float4*>(pos);
-  const auto* lj2 = static_cast<const float2*>(lj);
-  const auto* id = static_cast<const int*>(ids);
-  const auto* bit4 = static_cast<const int4*>(bits);
-  const auto* pr = static_cast<const int2*>(pairs);
-  auto* f = static_cast<float*>(forces);
-  auto* ev = static_cast<double*>(energy_virial);
-  if (compute_energy) {
-    pair_nonbonded_kernel<true><<<grid, block, 0, s>>>(pos4, lj2, id, bit4,
-                                                       pr, p, f, ev);
-  } else {
-    pair_nonbonded_kernel<false><<<grid, block, 0, s>>>(pos4, lj2, id, bit4,
-                                                        pr, p, f, ev);
+// 0. `spec` is read on the host before the launch. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a mode
+// outside the table.
+extern "C" int pair_nonbonded_launch(const void* pos, const void* lj,
+                                     const void* ids, const void* bits,
+                                     const void* pairs, const void* spec,
+                                     void* forces, void* energy_virial,
+                                     void* stream) {
+  const LaunchSpec p = *static_cast<const LaunchSpec*>(spec);
+  if (p.lj_mode < 0 || p.lj_mode > 4 || p.coul_mode < 0 || p.coul_mode > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n_pairs <= 0) return static_cast<int>(cudaSuccess);
+  const Args a{static_cast<const float4*>(pos),
+               static_cast<const float2*>(lj),
+               static_cast<const int*>(ids),
+               static_cast<const int4*>(bits),
+               static_cast<const int2*>(pairs),
+               static_cast<float*>(forces),
+               static_cast<double*>(energy_virial),
+               static_cast<cudaStream_t>(stream)};
+  switch (p.coul_mode) {
+    case 0: launch_coul<0>(a, p); break;
+    case 1: launch_coul<1>(a, p); break;
+    case 2: launch_coul<2>(a, p); break;
+    default: launch_coul<3>(a, p); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

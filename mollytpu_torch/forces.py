@@ -1,12 +1,13 @@
 """Force and energy dispatch (counterpart of mollytpu/forces.py:45-116):
 the pair kernel over the cluster-pair list first, then the general
-interactions (PME, Ewald exclusion correction, dispersion correction)."""
+interactions (PME and the Ewald exclusion correction where the system has
+them, the dispersion correction)."""
 
 from __future__ import annotations
 
 import torch
 
-from .ops.pair_kernel import block_nonbonded, build_pair_spec
+from .ops.pair_kernel import block_nonbonded, build_fused_spec
 
 
 def _check_no_bonded(sys):
@@ -18,7 +19,7 @@ def _check_no_bonded(sys):
 def _pair(sys, neighbors, compute_energy):
     if neighbors is None:
         raise ValueError("pairwise interactions present but neighbors is None")
-    spec = build_pair_spec(sys.pairwise_inters)
+    spec = build_fused_spec(sys.pairwise_inters)
     return block_nonbonded(spec, sys.coords, sys.boundary, sys.atoms,
                            sys.exclusions, neighbors,
                            compute_energy=compute_energy)

@@ -1,11 +1,13 @@
 """System construction from a PDB file and an OpenMM-format force field
 (counterpart of mollytpu/models/setup.py:44-170, 291-764, 789-814).
 
-Ported for the PME main path: nonbonded_method="pme", constraints "none" or
-"hbonds", rigid water, the LJ dispersion correction. Everything else raises
-NotImplementedError naming what is missing: the cutoff / no-cutoff
-methods, NBFix, virtual sites, implicit solvent, CMAP, triclinic boxes, and
-any bonded term that survives the constraint filter.
+Ported: nonbonded_method "cutoff" (LJ truncation + reaction field, in an
+orthorhombic or triclinic box) and "pme" (orthorhombic boxes),
+constraints "none" or "hbonds", rigid water, the LJ dispersion correction.
+Everything else raises NotImplementedError naming what is missing: the
+no-cutoff method, open boundaries, PME in a triclinic box, NBFix, virtual
+sites, implicit solvent, CMAP, and any bonded term that survives the
+constraint filter.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import torch
 
 from .. import boundary as bnd
 from ..atoms import make_atoms
+from ..config import resolve_device
 from ..ops.blockpairs import BlockPairFinder
 from ..ops.constraints import SHAKERattle, setup_constraints
 from ..ops.cutoffs import DistanceCutoff
 from ..ops.ewald import PME, EwaldExclusionCorrection, ewald_error_alpha
 from ..ops.general import LJDispersionCorrection
-from ..ops.pairwise import CoulombEwald, LennardJones
+from ..ops.pairwise import (CRF_SOLVENT_DIELECTRIC, CoulombEwald,
+                            CoulombReactionField, LennardJones)
 from ..system import Exclusions, System
 from .forcefield import detect_bonds, find_template_by_graph
 from .pdb import read_pdb
@@ -166,19 +170,27 @@ def make_dispersion_correction(sigma, epsilon, rc):
                                   dist_cutoff=float(rc))
 
 
-def system_from_pdb(path, ff, nonbonded_method="pme", dist_cutoff=1.0,
+def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                     dist_neighbors=1.2, neighbor_n_steps=10,
-                    pme_error_tol=0.0005, dtype=torch.float32, device=None,
-                    constraints="none", rigid_water=False,
-                    implicit_solvent=None):
-    """Build a System from a PDB file and a ForceField, on ``device``.
+                    pme_error_tol=0.0005,
+                    solvent_dielectric=CRF_SOLVENT_DIELECTRIC,
+                    dtype=torch.float32, device=None, constraints="none",
+                    rigid_water=False, implicit_solvent=None):
+    """Build a System from a PDB file and a ForceField, on ``device`` (the
+    CUDA card unless the caller names another, config.resolve_device).
 
-    The neighbor finder is a BlockPairFinder with list radius
-    ``dist_neighbors`` rebuilt every ``neighbor_n_steps`` steps."""
-    if nonbonded_method != "pme":
+    nonbonded_method: "cutoff" (LJ truncation + reaction field with
+    ``solvent_dielectric``) or "pme" (LJ truncation + Ewald real space +
+    PME), both with the dispersion correction. The neighbor finder is a
+    BlockPairFinder with list radius ``dist_neighbors`` rebuilt every
+    ``neighbor_n_steps`` steps."""
+    if nonbonded_method == "none":
         raise NotImplementedError(
-            f"nonbonded_method={nonbonded_method!r}: only 'pme' is ported "
-            "(cutoff / none need the pair kernel's other modes, K1b)")
+            "nonbonded_method='none' needs a dense all-pairs path, which is "
+            "not ported")
+    if nonbonded_method not in ("cutoff", "pme"):
+        raise ValueError(f"unknown nonbonded_method {nonbonded_method}")
+    device = resolve_device(device)
     if implicit_solvent is not None:
         raise NotImplementedError("implicit solvent is not ported yet")
     if ff.nbfix:
@@ -188,10 +200,13 @@ def system_from_pdb(path, ff, nonbonded_method="pme", dist_cutoff=1.0,
 
     struct = read_pdb(path)
     n = struct.n_atoms
-    if struct.box is None or struct.box.ndim != 1:
+    if struct.box is None:
+        raise NotImplementedError("no CRYST1 record: open boundaries are "
+                                  "not ported")
+    if nonbonded_method == "pme" and struct.box.ndim != 1:
         raise NotImplementedError(
-            "PME needs an orthorhombic periodic box (triclinic is not "
-            "ported yet)")
+            "PME needs an orthorhombic periodic box: the port's PME mesh "
+            "(ops/ewald.py) reads side lengths, triclinic PME is not ported")
 
     # residue graphs from geometric bond detection feed template matching
     geo_bonds = sorted(set(detect_bonds(struct.coords, struct.elements))
@@ -286,7 +301,10 @@ def system_from_pdb(path, ff, nonbonded_method="pme", dist_cutoff=1.0,
             "angles survive the constraint filter; bonded terms are not "
             "ported yet (ops/bonded.py)")
 
-    boundary = bnd.rectangular(struct.box, dtype=dtype, device=device)
+    if struct.box.ndim == 1:
+        boundary = bnd.rectangular(struct.box, dtype=dtype, device=device)
+    else:
+        boundary = bnd.triclinic(struct.box, dtype=dtype, device=device)
     coords = torch.as_tensor(struct.coords, dtype=dtype, device=device)
     uniq_types = sorted(set(type_of))
     type_id = {t: i for i, t in enumerate(uniq_types)}
@@ -296,18 +314,24 @@ def system_from_pdb(path, ff, nonbonded_method="pme", dist_cutoff=1.0,
                        dtype=dtype, device=device)
 
     rc = float(dist_cutoff)
-    pairwise = (
-        LennardJones(cutoff=DistanceCutoff(rc), use_neighbors=True,
-                     weight_special=ff.lj14scale),
-        CoulombEwald(dist_cutoff=rc, error_tol=pme_error_tol,
-                     use_neighbors=True, weight_special=ff.coulomb14scale),
-    )
-    general = [PME.setup(boundary, dist_cutoff=rc, error_tol=pme_error_tol,
-                         dtype=dtype)]
-    all_excl = excl_pairs + spec_pairs
-    if all_excl:
-        general.append(EwaldExclusionCorrection.setup(
-            all_excl, ewald_error_alpha(rc, pme_error_tol), device=device))
+    lj = LennardJones(cutoff=DistanceCutoff(rc), use_neighbors=True,
+                      weight_special=ff.lj14scale)
+    general = []
+    if nonbonded_method == "cutoff":
+        pairwise = (lj, CoulombReactionField(
+            dist_cutoff=rc, solvent_dielectric=solvent_dielectric,
+            use_neighbors=True, weight_special=ff.coulomb14scale))
+    else:
+        pairwise = (lj, CoulombEwald(
+            dist_cutoff=rc, error_tol=pme_error_tol, use_neighbors=True,
+            weight_special=ff.coulomb14scale))
+        general.append(PME.setup(boundary, dist_cutoff=rc,
+                                 error_tol=pme_error_tol, dtype=dtype))
+        all_excl = excl_pairs + spec_pairs
+        if all_excl:
+            general.append(EwaldExclusionCorrection.setup(
+                all_excl, ewald_error_alpha(rc, pme_error_tol),
+                device=device))
     general.append(make_dispersion_correction(sigma, epsilon, rc))
 
     exclusions = Exclusions.build(

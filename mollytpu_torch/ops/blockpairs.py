@@ -2,12 +2,21 @@
 (counterpart of mollytpu/ops/blockpairs.py::BlockPairFinder, laid out for
 a GPU warp instead of the TPU's 128-lane tiles).
 
-At each rebuild, atoms are sorted along a grid-binned serpentine curve and
-cut into clusters of 32 consecutive sorted atoms (one warp), the last one
-padded with sentinel ids (= N). Cluster pairs (I, J >= I) whose
-minimum-image AABB gap is below the list radius (cutoff + skin) are listed
-once each (half orientation). The per-atom rows the kernel reads are packed
-once per rebuild; between rebuilds only the coordinates are gathered.
+At each rebuild, atoms are sorted along a grid-binned serpentine curve (in
+fractional coordinates) and cut into clusters of 32 consecutive sorted
+atoms (one warp), the last one padded with sentinel ids (= N). Cluster
+pairs (I, J >= I) whose minimum-image AABB gap is below the list radius
+(cutoff + skin) are listed once each (half orientation). The per-atom rows
+the kernel reads are packed once per rebuild; between rebuilds only the
+coordinates are gathered.
+
+The gap is a lower bound on the distance of any atom of one cluster to any
+of the other. In an orthorhombic box it is the Cartesian AABB gap under
+per-axis minimum image. In a triclinic box the axes of the minimum image
+are coupled, so a Cartesian gap is no bound; there the AABBs are taken in
+fractional coordinates, and |f_k| w_k <= |dr| along each fractional axis k
+(w_k the perpendicular width) makes max_k gap_k w_k the bound
+(mollytpu/ops/blockpairs.py:511-540).
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import dataclasses
 import math
 
 import torch
+
+from ..boundary import mic_displacement
 
 #: atoms per cluster: one warp of the pair kernel
 CLUSTER = 32
@@ -38,8 +49,10 @@ class BlockPairs:
     gap: torch.Tensor       # (C, C) AABB gaps at this rebuild; pairs with
                             # gap >= the list radius are the unlisted ones
     coords_built: torch.Tensor  # (N, 3) wrapped coordinates at this rebuild
-    box_host: tuple = ()    # side lengths at this rebuild as Python floats,
-                            # so a kernel launch never waits on the device
+    box_host: tuple = ()    # the box's 9-float minimum-image row
+                            # (boundary.mic_row) at this rebuild, on the
+                            # host, so a kernel launch never waits on the
+                            # device
     list_radius: float = 0.0
     step_built: int = 0
 
@@ -69,14 +82,16 @@ class BlockPairFinder:
     def setup(cls, boundary, dist_cutoff, n_atoms, atoms, n_steps=1):
         """Size the sort grid for ~CLUSTER/2 atoms per cell and check that
         the per-pair minimum image of the kernel is valid: every periodic
-        side must exceed twice the list radius."""
-        sides = [float(s) for s in boundary.side_lengths.tolist()]
+        perpendicular width (the side of an orthorhombic box) must exceed
+        twice the list radius."""
+        sides = boundary.perp_widths()
         for s in sides:
             if math.isfinite(s) and s / 2.0 <= dist_cutoff:
                 raise ValueError(
-                    f"box side {s} nm is too small for a {dist_cutoff} nm "
+                    f"box width {s} nm is too small for a {dist_cutoff} nm "
                     "list radius: the pair kernel's minimum image needs "
-                    "side/2 > cutoff + skin")
+                    "side/2 > cutoff + skin (perpendicular widths in a "
+                    "triclinic box)")
         vol = float(boundary.volume())
         if math.isfinite(vol) and vol > 0:
             a_sort = (0.5 * CLUSTER * vol / n_atoms) ** (1.0 / 3.0)
@@ -138,7 +153,7 @@ class BlockPairFinder:
         return BlockPairs(ids=ids.to(torch.int32).contiguous(), src=src,
                           pos4=pos4, lj2=lj2, bits=bits, pairs=pairs,
                           gap=gap, coords_built=wrapped,
-                          box_host=tuple(boundary.side_lengths.tolist()),
+                          box_host=boundary.mic_row(),
                           list_radius=self.dist_cutoff,
                           step_built=int(step_n))
 
@@ -146,6 +161,16 @@ class BlockPairFinder:
 def _aabb_gaps(x, boundary):
     """(C, C) minimum-image gaps between the AABBs of clusters x (C, 32, 3):
     a lower bound on the distance of any atom of one to any of the other."""
+    if getattr(boundary, "basis", None) is not None:
+        f = boundary.fractional(x)
+        lo, hi = f.amin(dim=1), f.amax(dim=1)
+        centers, exts = 0.5 * (lo + hi), 0.5 * (hi - lo)
+        dc = centers[None, :, :] - centers[:, None, :]
+        dc = dc - torch.round(dc)
+        widths = torch.tensor(boundary.perp_widths(), dtype=x.dtype,
+                              device=x.device)
+        return (torch.clamp(dc.abs() - (exts[None, :, :] + exts[:, None, :]),
+                            min=0.0) * widths).amax(dim=2)
     lo, hi = x.amin(dim=1), x.amax(dim=1)
     centers, exts = 0.5 * (lo + hi), 0.5 * (hi - lo)
     dc = boundary.displacement(centers[:, None, :], centers[None, :, :])
@@ -177,8 +202,9 @@ def unlisted_min_distance(blockpairs, coords, boundary, cutoff):
     if cand.shape[0] == 0:
         return bound
     ci, cj = cand.unbind(dim=1)
-    d = torch.linalg.vector_norm(boundary.displacement(
-        x[ci][:, :, None, :], x[cj][:, None, :, :]), dim=-1)
+    # the kernel's own minimum image: the distance the kernel would see
+    d = torch.linalg.vector_norm(mic_displacement(
+        boundary, x[ci][:, :, None, :], x[cj][:, None, :, :]), dim=-1)
     ids = blockpairs.ids.view(-1, CLUSTER)
     real = (ids[ci] < n)[:, :, None] & (ids[cj] < n)[:, None, :]
     return torch.minimum(bound, torch.where(real, d, torch.full_like(

@@ -18,7 +18,7 @@ import torch
 
 from ..ops.blockpairs import unlisted_min_distance
 from ..ops.neighbors import find_neighbors
-from ..ops.pair_kernel import build_pair_spec
+from ..ops.pair_kernel import build_fused_spec
 
 
 class StaleNeighborList(RuntimeError):
@@ -33,7 +33,7 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
     an unlisted atom pair at the checked evaluations, in nm)."""
     finder = sys.neighbor_finder
     r = finder.n_steps if finder is not None and neighbors is not None else 1
-    cutoff = (build_pair_spec(sys.pairwise_inters).cutoff
+    cutoff = (build_fused_spec(sys.pairwise_inters).cut_max
               if sys.pairwise_inters else 0.0)
     closest = torch.full((), float("inf"), dtype=sys.coords.dtype,
                          device=sys.device)

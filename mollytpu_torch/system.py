@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .atoms import Atoms
+from .config import resolve_device
 from .spatial import n_dof as calc_n_dof
 
 
@@ -86,6 +87,10 @@ class Exclusions:
     @classmethod
     def build(cls, n_atoms, excl_pairs=(), special_pairs=(), max_excl=16,
               max_special=16, device=None):
+        """The tables on ``device`` (the CUDA card unless the caller names
+        another)."""
+        device = resolve_device(device)
+
         def norm(pairs):
             if len(pairs) == 0:
                 return np.zeros((0,), np.int32), np.zeros((0,), np.int32)
@@ -115,7 +120,7 @@ class System:
 
     atoms: Atoms
     coords: torch.Tensor          # (N, 3) nm
-    boundary: object              # boundary.Orthorhombic
+    boundary: object              # boundary.Orthorhombic or Triclinic
     velocities: torch.Tensor = None  # (N, 3) nm/ps
     pairwise_inters: Tuple = ()
     specific_lists: Tuple = ()

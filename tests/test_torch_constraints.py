@@ -15,7 +15,7 @@ from mollytpu.ops.constraints import SHAKERattle as JaxSHAKE
 
 import mollytpu_torch as pt
 from mollytpu_torch.ops.constraints import SHAKERattle
-from torch_parity import jax_system, np64, port_system
+from torch_parity import CPU, jax_system, np64, port_system
 
 TOL = 1e-12
 DT = 0.002
@@ -77,8 +77,8 @@ def test_constrained_drift_matches_jax(case):
     rng = np.random.default_rng(9)
     vels = rng.normal(scale=1.5, size=coords.shape)
     new = coords + DT * vels
-    jb, pb = mt.cubic(side, dtype=jnp.float64), pt.cubic(side,
-                                                         dtype=torch.float64)
+    jb, pb = mt.cubic(side, dtype=jnp.float64), pt.cubic(
+        side, dtype=torch.float64, device=CPU)
     xj, vj = jax.jit(lambda a, b, v: jc.apply_position_constraints(
         a, b, v, jnp.asarray(masses), jb, DT))(
         jnp.asarray(coords), jnp.asarray(new), jnp.asarray(vels))
@@ -94,8 +94,8 @@ def test_velocity_projection_matches_jax(case):
     coords, masses, side, jc, pc = case
     rng = np.random.default_rng(10)
     vels = rng.normal(scale=1.5, size=coords.shape)
-    jb, pb = mt.cubic(side, dtype=jnp.float64), pt.cubic(side,
-                                                         dtype=torch.float64)
+    jb, pb = mt.cubic(side, dtype=jnp.float64), pt.cubic(
+        side, dtype=torch.float64, device=CPU)
     vj = jax.jit(lambda x, v: jc.apply_velocity_constraints(
         x, v, jnp.asarray(masses), jb))(jnp.asarray(coords),
                                          jnp.asarray(vels))

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX or the JAX package,
 importing it never runs nvcc, CPU tensors never count as kernel launches,
-and chip_smoke.py refuses to run without a CUDA card (no CPU fallback)."""
+its entry points build on the CUDA card unless told device="cpu", and
+chip_smoke.py refuses to run without a CUDA card (no CPU fallback)."""
 
 import os
 import re
@@ -13,6 +14,7 @@ import torch
 
 import mollytpu_torch as pt
 from mollytpu_torch.ops import pair_kernel
+from torch_parity import CPU
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mollytpu_torch")
@@ -23,6 +25,7 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
 
 
 def test_port_imports_neither_jax_nor_mollytpu():
@@ -67,16 +70,17 @@ def test_cpu_tensors_do_not_count_as_launches():
     n = 40
     gen = torch.Generator().manual_seed(0)
     coords = torch.rand((n, 3), generator=gen, dtype=torch.float64) * 2.4
-    boundary = pt.cubic(2.4, dtype=torch.float64)
+    boundary = pt.cubic(2.4, dtype=torch.float64, device=CPU)
     atoms = pt.make_atoms(n=n, mass=1.0, sigma=0.3, epsilon=0.2,
                           charge=torch.linspace(-0.3, 0.3, n,
                                                 dtype=torch.float64),
-                          dtype=torch.float64)
-    excl = pt.Exclusions.build(n)
+                          dtype=torch.float64, device=CPU)
+    excl = pt.Exclusions.build(n, device=CPU)
     nb = pt.BlockPairFinder.setup(boundary, 1.0, n, atoms).find(
         coords, boundary, excl)
-    spec = pair_kernel.PairSpec(cutoff=0.9, lj_w=0.5, coul_w=0.8333,
-                                ke=138.935, alpha=3.0)
+    spec = pair_kernel.FusedSpec(lj_mode=1, lj_rc=0.9, lj_w=0.5,
+                                 coul_mode=3, coul_rc=0.9, ke=138.935,
+                                 alpha=3.0, coul_w=0.8333, cut_max=0.9)
     before = pair_kernel.LAUNCHES
     f, e, v = pair_kernel.pair_nonbonded(spec, nb, boundary, n, True)
     assert pair_kernel.LAUNCHES == before
@@ -87,16 +91,73 @@ def test_cuda_wrapper_refuses_cpu_inputs():
     """The kernel wrapper itself takes only CUDA tensors: no silent CPU
     path behind it."""
     n = 32
-    boundary = pt.cubic(2.4, dtype=torch.float32)
-    atoms = pt.make_atoms(n=n, mass=1.0, sigma=0.3, epsilon=0.2)
+    boundary = pt.cubic(2.4, dtype=torch.float32, device=CPU)
+    atoms = pt.make_atoms(n=n, mass=1.0, sigma=0.3, epsilon=0.2, device=CPU)
     coords = torch.rand((n, 3)) * 2.4
     nb = pt.BlockPairFinder.setup(boundary, 1.0, n, atoms).find(
-        coords, boundary, pt.Exclusions.build(n))
-    spec = pair_kernel.PairSpec(0.9, 0.5, 0.8333, 138.935, 3.0)
+        coords, boundary, pt.Exclusions.build(n, device=CPU))
+    spec = pair_kernel.FusedSpec(lj_mode=1, lj_rc=0.9, lj_w=0.5,
+                                 coul_mode=3, coul_rc=0.9, ke=138.935,
+                                 alpha=3.0, coul_w=0.8333, cut_max=0.9)
     before = pair_kernel.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
         pair_kernel._pair_nonbonded_cuda(spec, nb, boundary, n)
     assert pair_kernel.LAUNCHES == before
+
+
+def test_resolve_device(monkeypatch):
+    """The card when there is one, an error naming device="cpu" when there
+    is none, never a silent CPU; a given device wins either way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert pt.resolve_device(None) == torch.device("cuda")
+    assert pt.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pt.resolve_device(None)
+    assert pt.resolve_device("cpu") == torch.device("cpu")
+
+
+def _water_pdb(tmp_path):
+    return pt.water_box_pdb(str(tmp_path / "w.pdb"), 64, spacing=6.5)
+
+
+ENTRY_POINTS = {
+    "system_from_pdb": lambda tmp, **kw: pt.system_from_pdb(
+        _water_pdb(tmp), pt.ForceField(pt.TIP3P_XML), constraints="hbonds",
+        rigid_water=True, **kw).coords,
+    "cubic": lambda tmp, **kw: pt.cubic(2.0, **kw).side_lengths,
+    "rectangular": lambda tmp, **kw: pt.rectangular(
+        [2.0, 3.0, 4.0], **kw).side_lengths,
+    "triclinic_from_lengths_angles": lambda tmp, **kw:
+        pt.triclinic_from_lengths_angles((3.0,) * 3, (1.2, 1.1, 1.0),
+                                         **kw).basis,
+    "make_atoms": lambda tmp, **kw: pt.make_atoms(n=4, **kw).mass,
+    "Exclusions.build": lambda tmp, **kw: pt.Exclusions.build(
+        4, [(0, 1)], **kw).excl_bits,
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
+    """Without a device an entry point asks for the card (here made absent)
+    and raises; with device="cpu" it builds CPU tensors."""
+    build = ENTRY_POINTS[entry]
+    assert build(tmp_path, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        build(tmp_path)
+
+
+def test_cutoff_system_without_device_is_on_the_card(tmp_path):
+    """system_from_pdb(nonbonded_method="cutoff") with no device: on the
+    card where there is one, an error where there is none (this decides at
+    run time, so the same test runs on both hosts)."""
+    build = ENTRY_POINTS["system_from_pdb"]
+    if torch.cuda.is_available():
+        assert build(tmp_path, nonbonded_method="cutoff").is_cuda
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build(tmp_path, nonbonded_method="cutoff")
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -30,7 +30,7 @@ import mollytpu_torch as pt
 from mollytpu_torch.ops import pair_kernel
 from mollytpu_torch.ops.cutoffs import DistanceCutoff
 from mollytpu_torch.ops.pairwise import CoulombEwald, LennardJones
-from torch_parity import (box_path, jax_neighbors, jax_system, max_rel,
+from torch_parity import (CPU, box_path, jax_neighbors, jax_system, max_rel,
                           np64, port_neighbors, port_system)
 
 RC, LIST, ALPHA = 0.9, 1.0, 3.0
@@ -116,13 +116,13 @@ def _build(case):
                               mt.potential_energy(s)))(jdense)
 
     patoms = pt.make_atoms(n=n, mass=10.0, charge=q, sigma=sigma,
-                           epsilon=eps, dtype=torch.float64)
-    pb = pt.cubic(side, dtype=torch.float64)
-    pexcl = pt.Exclusions.build(n, excl, spec)
+                           epsilon=eps, dtype=torch.float64, device=CPU)
+    pb = pt.cubic(side, dtype=torch.float64, device=CPU)
+    pexcl = pt.Exclusions.build(n, excl, spec, device=CPU)
     pc = torch.as_tensor(coords)
     nb = pt.BlockPairFinder.setup(pb, LIST, n, patoms).find(pc, pb, pexcl)
     ours = pair_kernel.block_nonbonded(
-        pair_kernel.build_pair_spec(_port_inters()), pc, pb, patoms, pexcl,
+        pair_kernel.build_fused_spec(_port_inters()), pc, pb, patoms, pexcl,
         nb, compute_energy=True)
     return jpal, jref, ours
 
@@ -162,7 +162,7 @@ def test_water_box_matches_pallas_kernel():
         spec_j, c, js.boundary, js.atoms, js.exclusions, nbs,
         js.neighbor_finder, compute_energy=True))(js.coords)
     f, e, v = pair_kernel.block_nonbonded(
-        pair_kernel.build_pair_spec(ps.pairwise_inters), ps.coords,
+        pair_kernel.build_fused_spec(ps.pairwise_inters), ps.coords,
         ps.boundary, ps.atoms, ps.exclusions, port_neighbors(ps),
         compute_energy=True)
     assert max_rel(f_j, f) < POLY
@@ -172,16 +172,19 @@ def test_water_box_matches_pallas_kernel():
 
 @pytest.mark.parametrize("bad", ["mode", "mixing"])
 def test_unported_kernel_modes_raise(bad):
+    """No finite cutoff (the dense all-pairs path) and NBFix-style mixing
+    are outside the kernel's modes."""
     from mollytpu_torch.ops.cutoffs import NoCutoff
     from mollytpu_torch.ops.mixing import LorentzMixing
+    from mollytpu_torch.ops.pairwise import Coulomb
     if bad == "mode":
-        inters = (LennardJones(cutoff=NoCutoff()), CoulombEwald())
+        inters = (LennardJones(cutoff=NoCutoff()), Coulomb())
     else:
         inters = (LennardJones(cutoff=DistanceCutoff(1.0),
                                epsilon_mixing=LorentzMixing()),
                   CoulombEwald())
     with pytest.raises(NotImplementedError):
-        pair_kernel.build_pair_spec(inters)
+        pair_kernel.build_fused_spec(inters)
 
 
 def test_cuda_kernel_matches_plain_twin():
@@ -192,11 +195,12 @@ def test_cuda_kernel_matches_plain_twin():
     dev = torch.device("cuda")
     sys = pt.system_from_pdb(
         box_path("liquid512"),
-        pt.ForceField(pt.TIP3P_XML), dtype=torch.float32, device=dev,
+        pt.ForceField(pt.TIP3P_XML), nonbonded_method="pme",
+        dtype=torch.float32, device=dev,
         constraints="hbonds", rigid_water=True, dist_neighbors=1.15)
     nb = sys.neighbor_finder.find(sys.coords, sys.boundary, sys.exclusions)
     nb.pos4[:, :3] = sys.coords[nb.src]
-    spec = pair_kernel.build_pair_spec(sys.pairwise_inters)
+    spec = pair_kernel.build_fused_spec(sys.pairwise_inters)
     before = pair_kernel.LAUNCHES
     f, e, v = pair_kernel.pair_nonbonded(spec, nb, sys.boundary,
                                          sys.n_atoms, True)

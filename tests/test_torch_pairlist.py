@@ -15,17 +15,17 @@ from mollytpu_torch.ops.blockpairs import (CLUSTER, BlockPairFinder,
 from mollytpu_torch.ops.cutoffs import DistanceCutoff
 from mollytpu_torch.ops.pairwise import CoulombEwald, LennardJones
 from mollytpu_torch.sim.simulate import run_chunk
-from torch_parity import LIST_RADIUS
+from torch_parity import CPU, LIST_RADIUS
 
 
 def _random_system(n, side, seed):
     rng = np.random.default_rng(seed)
     coords = torch.as_tensor(rng.uniform(0.0, side, (n, 3)))
-    boundary = pt.cubic(side, dtype=torch.float64)
+    boundary = pt.cubic(side, dtype=torch.float64, device=CPU)
     atoms = pt.make_atoms(n=n, mass=10.0, sigma=0.3, epsilon=0.2,
                           charge=torch.as_tensor(rng.uniform(-0.5, 0.5, n)),
-                          dtype=torch.float64)
-    return coords, boundary, atoms, pt.Exclusions.build(n)
+                          dtype=torch.float64, device=CPU)
+    return coords, boundary, atoms, pt.Exclusions.build(n, device=CPU)
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,8 @@ def water1000(tmp_path_factory):
     path = pt.water_box_pdb(str(tmp_path_factory.mktemp("w") / "w.pdb"),
                             1000)
     sys = pt.system_from_pdb(path, pt.ForceField(pt.TIP3P_XML),
-                             dtype=torch.float64, constraints="hbonds",
+                             nonbonded_method="pme", dtype=torch.float64,
+                             device=CPU, constraints="hbonds",
                              rigid_water=True, dist_neighbors=LIST_RADIUS,
                              neighbor_n_steps=20)
     return sys, sys.neighbor_finder.find(sys.coords, sys.boundary,

@@ -20,7 +20,7 @@ from mollytpu.models.setup import make_dispersion_correction as jax_disp
 import mollytpu_torch as pt
 from mollytpu_torch.ops.ewald import EwaldExclusionCorrection, PME
 from mollytpu_torch.models.setup import make_dispersion_correction
-from torch_parity import max_rel
+from torch_parity import CPU, max_rel
 
 TOL = 1e-10
 SIDES = [2.6, 2.9, 3.1]
@@ -37,11 +37,11 @@ def _inputs(n=150, seed=2):
                            sigma=jnp.asarray(sigma),
                            epsilon=jnp.asarray(eps), dtype=jnp.float64)
     patoms = pt.make_atoms(n=n, charge=q, sigma=sigma, epsilon=eps,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=CPU)
     return (jnp.asarray(coords), mt.rectangular(jnp.asarray(SIDES),
                                                 dtype=jnp.float64), jatoms,
-            torch.as_tensor(coords), pt.rectangular(SIDES,
-                                                    dtype=torch.float64),
+            torch.as_tensor(coords), pt.rectangular(
+                SIDES, dtype=torch.float64, device=CPU),
             patoms)
 
 

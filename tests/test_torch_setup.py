@@ -8,14 +8,22 @@ import pytest
 
 import mollytpu_torch as pt
 from mollytpu_torch.bridge import pairs_from_bitmap
-from torch_parity import BOXES, box_path, jax_system, np64, port_system
+from torch_parity import (CPU, PME_BOXES, box_path, jax_system, np64,
+                          port_system)
 
 TOL = 1e-12
 
 
-@pytest.fixture(params=sorted(BOXES))
+@pytest.fixture(params=PME_BOXES)
 def systems(request):
     return jax_system(request.param), port_system(request.param)
+
+
+@pytest.fixture(params=["tiny64", "dodeca64"])
+def rf_systems(request):
+    """The reaction-field ("cutoff") systems, orthorhombic and triclinic."""
+    return (jax_system(request.param, "cutoff"),
+            port_system(request.param, "cutoff"))
 
 
 def test_waterbox_reproduces_bench_tiny_box(tmp_path):
@@ -97,18 +105,63 @@ def test_pme_and_corrections_match(systems):
     assert pdisp.factor_12 == pytest.approx(jdisp.factor_12, rel=TOL)
 
 
-def test_pairwise_parameters_match(systems):
-    js, ps = systems
-    (jlj, jew), (plj, pew) = js.pairwise_inters, ps.pairwise_inters
+@pytest.mark.parametrize("method", ["pme", "cutoff"])
+@pytest.mark.parametrize("box", PME_BOXES)
+def test_pairwise_parameters_match(box, method):
+    js, ps = jax_system(box, method), port_system(box, method)
+    (jlj, jco), (plj, pco) = js.pairwise_inters, ps.pairwise_inters
+    assert type(plj.cutoff).__name__ == type(jlj.cutoff).__name__
     assert plj.cutoff.dist_cutoff == jlj.cutoff.dist_cutoff
     assert plj.weight_special == jlj.weight_special
-    assert pew.weight_special == jew.weight_special
-    assert pew.alpha == pytest.approx(jew.alpha, rel=TOL)
-    assert pew.coulomb_const == jew.coulomb_const
+    assert type(pco).__name__ == type(jco).__name__
+    assert pco.weight_special == jco.weight_special
+    assert pco.coulomb_const == jco.coulomb_const
+    if method == "pme":
+        assert pco.alpha == pytest.approx(jco.alpha, rel=TOL)
+    else:
+        from mollytpu.ops.pairwise import _rf_constants
+        assert pco.dist_cutoff == jco.dist_cutoff
+        assert pco.solvent_dielectric == jco.solvent_dielectric == 78.3
+        krf, crf = _rf_constants(jco.dist_cutoff, jco.solvent_dielectric)
+        assert pco.krf == pytest.approx(krf, rel=TOL)
+        assert pco.crf == pytest.approx(crf, rel=TOL)
+
+
+def test_rf_system_matches_jax(rf_systems):
+    """The "cutoff" system: box (a Triclinic one from a triclinic CRYST1),
+    atoms, exclusions and the dispersion correction as the only general
+    interaction, against JAX's system_from_pdb(nonbonded_method="cutoff")."""
+    js, ps = rf_systems
+    assert type(ps.boundary).__name__ == type(js.boundary).__name__
+    np.testing.assert_allclose(np64(ps.boundary.box_matrix()),
+                               np64(js.boundary.box_matrix()), atol=TOL)
+    np.testing.assert_allclose(np64(ps.coords), np64(js.coords), atol=TOL)
+    for field in ("mass", "charge", "sigma", "epsilon"):
+        np.testing.assert_allclose(np64(getattr(ps.atoms, field)),
+                                   np64(getattr(js.atoms, field)), atol=TOL)
+    for field in ("excl_i", "excl_j", "spec_i", "spec_j", "excl_bits",
+                  "spec_bits", "far_excl", "far_spec"):
+        np.testing.assert_array_equal(
+            getattr(ps.exclusions, field).numpy(),
+            np.asarray(getattr(js.exclusions, field)), err_msg=field)
+    (jdisp,), (pdisp,) = js.general_inters, ps.general_inters
+    assert type(pdisp).__name__ == type(jdisp).__name__
+    assert pdisp.factor_6 == pytest.approx(jdisp.factor_6, rel=TOL)
+    assert pdisp.factor_12 == pytest.approx(jdisp.factor_12, rel=TOL)
+    assert float(ps.boundary.volume()) == pytest.approx(
+        float(js.boundary.volume()), rel=TOL)
+    assert ps.n_dof == js.n_dof
+
+
+def test_triclinic_pme_raises():
+    with pytest.raises(NotImplementedError, match="PME mesh"):
+        pt.system_from_pdb(box_path("dodeca64"), pt.ForceField(pt.TIP3P_XML),
+                           nonbonded_method="pme", device=CPU,
+                           constraints="hbonds", rigid_water=True)
 
 
 @pytest.mark.parametrize("kwargs, what", [
-    (dict(nonbonded_method="cutoff"), "only 'pme'"),
+    (dict(nonbonded_method="none"), "dense all-pairs"),
     (dict(constraints="allbonds"), "constraints="),
     (dict(implicit_solvent="obc2"), "implicit solvent"),
     (dict(constraints="none"), "bonded terms are not ported"),
@@ -120,4 +173,4 @@ def test_unported_options_raise(kwargs, what):
         args["rigid_water"] = False
     with pytest.raises(NotImplementedError, match=what):
         pt.system_from_pdb(box_path("tiny64"), pt.ForceField(pt.TIP3P_XML),
-                           **args)
+                           device=CPU, **args)

@@ -23,7 +23,7 @@ from mollytpu.sim.simulate import _make_chunk_fn
 
 import mollytpu_torch as pt
 from mollytpu_torch.bridge import system_from_arrays
-from torch_parity import (CADENCE, LIST_RADIUS, jax_forces_virial,
+from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_forces_virial,
                           jax_neighbors, jax_potential_energy, jax_system,
                           max_rel, np64, port_neighbors, port_system)
 
@@ -40,8 +40,8 @@ def start():
     v = rng.normal(size=(js.n_atoms, 3)) * np.sqrt(pt.units.KB * TEMP / m)[
         :, None]
     js = js.update(velocities=jnp.asarray(v))
-    ps = system_from_arrays(jax.device_get(js), dist_neighbors=LIST_RADIUS,
-                            n_steps=CADENCE)
+    ps = system_from_arrays(jax.device_get(js), device=CPU,
+                            dist_neighbors=LIST_RADIUS, n_steps=CADENCE)
     return js, ps
 
 

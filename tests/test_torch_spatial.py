@@ -10,6 +10,7 @@ import torch
 import mollytpu as mt
 import mollytpu_torch as pt
 from mollytpu_torch.units import KB
+from torch_parity import CPU
 
 TOL = 1e-12
 N = 97
@@ -22,7 +23,7 @@ def rng():
 
 def _both(sides):
     return (mt.rectangular(jnp.asarray(sides), dtype=jnp.float64),
-            pt.rectangular(sides, dtype=torch.float64))
+            pt.rectangular(sides, dtype=torch.float64, device=CPU))
 
 
 @pytest.mark.parametrize("sides", [[2.6, 2.6, 2.6], [3.1, 2.4, 5.0],

@@ -24,10 +24,20 @@ from mollytpu_torch.ops.neighbors import find_neighbors
 LIST_RADIUS = 1.15   # bench.py: 1.0 nm cutoff + 0.15 nm skin
 CADENCE = 20
 
-#: the two water boxes of the parity tests: the bench tiny box (64 waters
-#: on a 6.5 A lattice, 26 A box) and 512 waters at liquid density
+#: the device every port entry point of the tests is given: the port
+#: builds on the CUDA card unless it is told otherwise
+CPU = torch.device("cpu")
+
+#: the water boxes of the parity tests: the bench tiny box (64 waters on a
+#: 6.5 A lattice, 26 A box), 512 waters at liquid density, and 64 waters in
+#: a rhombic dodecahedron of edge 34 A (smallest perpendicular width
+#: 2.40 nm, above twice the list radius)
 BOXES = {"tiny64": dict(n_waters=64, spacing=6.5),
-         "liquid512": dict(n_waters=512)}
+         "liquid512": dict(n_waters=512),
+         "dodeca64": dict(n_waters=64, spacing=8.5,
+                          angles=pt.DODECAHEDRON)}
+#: the boxes PME runs in (orthorhombic)
+PME_BOXES = ("liquid512", "tiny64")
 
 @functools.lru_cache(maxsize=None)
 def _scratch_dir():
@@ -42,12 +52,13 @@ def box_path(name):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_system(name):
-    """JAX-built f64 PME water box with its block-pair finder attached."""
+def jax_system(name, method="pme"):
+    """JAX-built f64 water box (PME or reaction field) with its block-pair
+    finder attached."""
     sys = jax_system_from_pdb(
-        box_path(name), JaxForceField(pt.TIP3P_XML), nonbonded_method="pme",
-        dtype=jnp.float64, constraints="hbonds", rigid_water=True,
-        dist_neighbors=LIST_RADIUS, build_cache=False)
+        box_path(name), JaxForceField(pt.TIP3P_XML),
+        nonbonded_method=method, dtype=jnp.float64, constraints="hbonds",
+        rigid_water=True, dist_neighbors=LIST_RADIUS, build_cache=False)
     finder = JaxBlockPairFinder.setup(
         sys.boundary, LIST_RADIUS, sys.n_atoms, n_steps=CADENCE,
         coords=sys.coords, atoms=sys.atoms, block=32, lanes=128)
@@ -55,11 +66,12 @@ def jax_system(name):
 
 
 @functools.lru_cache(maxsize=None)
-def port_system(name):
+def port_system(name, method="pme"):
     """The same box built by mollytpu_torch, f64 on the CPU."""
     return pt.system_from_pdb(
-        box_path(name), pt.ForceField(pt.TIP3P_XML), dtype=torch.float64,
-        constraints="hbonds", rigid_water=True, dist_neighbors=LIST_RADIUS,
+        box_path(name), pt.ForceField(pt.TIP3P_XML), nonbonded_method=method,
+        dtype=torch.float64, device=CPU, constraints="hbonds",
+        rigid_water=True, dist_neighbors=LIST_RADIUS,
         neighbor_n_steps=CADENCE)
 
 
