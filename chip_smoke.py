@@ -10,9 +10,12 @@ Phases, each printing one line or more before the next starts:
 2. build of the hand-written kernels from mollytpu_torch/csrc, with each
    kernel instance's registers and spills;
 3. the pair kernel against its plain PyTorch twin on the same f32 inputs,
-   forces-only and with energy + virial: on a 64-atom system with 1-4 and
-   far-window exclusions, in a cube and in a skewed triclinic box, for
-   every mode without alchemical lambda (K1a and K1b);
+   forces-only and with energy + virial, on a 64-atom system with 1-4 and
+   far-window exclusions in a cube and in a skewed triclinic box: every
+   mode without alchemical lambda (K1a and K1b), then the alchemical
+   path (K1c: soft-core LJ x soft-core / scaled Coulomb, 4 INSERT and 4
+   DELETE atoms, five lambdas, each scheduler) and the scaled-charge
+   family on K1a/K1b;
 4. three main paths, each at 5,318 TIP3P waters (15,954 atoms, liquid
    density) built from the in-repo force field with rigid water and H-bond
    constraints, Langevin at 2 fs and 300 K, rebuild every 10 steps:
@@ -25,8 +28,18 @@ Phases, each printing one line or more before the next starts:
    coordinates finite, constraints held, temperature sane, no stale list
    (no atom pair the list left out came inside the cutoff by any rebuild),
    and the f32 forces against a float64 evaluation through the plain twins;
+   on the built cube and dodecahedron, K1b's other modes timed against
+   their twins, each with its bound;
 5. for the reaction field in the cube: CUDA-event times of the step's
-   components and a torch.profiler summary of 20 steps.
+   components and a torch.profiler summary of 20 steps;
+6. the alchemical free-energy path (FEP-water): the PME water box with the
+   water nearest the box centre inserted alchemically, Beutler soft-core
+   LJ + Beutler soft-core Ewald real space (K1c) and PME on the scheduled
+   charges. At lambda 1 the lambda instance against K1a on one frame; the
+   lambda instance against its twin and K1a, timed; five lambda windows of
+   100 + 200 Langevin steps, each sampling U(x; lambda_k) at all five
+   lambdas every 20 steps; MBAR in float64 on the card against the same
+   solve on the CPU; the main-path gates and the step's components.
 
 The second-to-last line is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -61,9 +74,17 @@ DODECAHEDRON = (60.0, 60.0, 90.0)   # mollytpu_torch.models.waterbox
 #: the main paths: label, nonbonded_method, cell angles, timed chunks,
 #: and the kernel instance family each runs (pair_kernel.instance_family)
 MAIN_PATHS = (("PME", "pme", CUBE, 2, "coul3-ortho"),
-              ("RF-ortho", "cutoff", CUBE, 3, "coul2-ortho"),
+              ("RF-ortho", "cutoff", CUBE, 2, "coul2-ortho"),
               ("RF-dodecahedron", "cutoff", DODECAHEDRON, 2,
                "coul2-triclinic"))
+
+#: the alchemical main path: lambda windows, steps per window (warm-up,
+#: sampled), steps between samples, the window that is timed and checked
+#: against float64, and its kernel instance family
+FEP_LAMS = (0.0, 0.25, 0.5, 0.75, 1.0)
+FEP_WARMUP, FEP_STEPS, FEP_SAMPLE = 100, 200, 20
+FEP_TIMED = 0.75
+FEP_FAMILY = "lam-coul3-ortho"
 
 #: the kernels line: one entry per instance family
 FAMILIES = {
@@ -72,13 +93,17 @@ FAMILIES = {
     "coul2-ortho": "pair_nonbonded K1b (LJ + reaction field, orthorhombic)",
     "coul2-triclinic": "pair_nonbonded K1b (LJ + reaction field, "
                        "triclinic)",
+    FEP_FAMILY: "pair_nonbonded K1c (soft-core LJ + soft-core Ewald real "
+                "space at per-pair lambda, orthorhombic)",
 }
 
 # kernel against twin, both f32 on the same inputs: atomics and the tile
 # loop reorder ~1e3-term sums of |F| up to ~1e3 kJ/mol/nm, so the force
-# error is ~1e-6 of rms|F|; exact erfcf/expf on both sides. 1e-4 leaves
-# two decades; energy and virial sum ~1e7 pair terms: 1e-4 relative (to
-# max(1, |E|), the kernel keeps its sums across warps in double).
+# error is ~1e-6 of rms|F|; exact erfcf/expf on both sides (and the same
+# Abramowitz-Stegun erfc and log/exp forms on the soft-core path). 1e-4
+# leaves two decades; energy and virial sum ~1e7 pair terms: 1e-4
+# relative (to max(1, |E|), the kernel keeps its sums across warps in
+# double).
 TOL_FORCE, TOL_ENERGY, TOL_VIRIAL = 1e-4, 1e-4, 1e-4
 # f32 main path against a float64 evaluation of the same force field, over
 # the atoms with no listed pair within NEAR_CUT nm of a cutoff: f32
@@ -87,6 +112,13 @@ TOL_FORCE, TOL_ENERGY, TOL_VIRIAL = 1e-4, 1e-4, 1e-4
 # a truncated potential's force jumps (for an O-H pair under the reaction
 # field by ~1 kJ/mol/nm, 1e-3 of rms|F|)
 TOL_F64, NEAR_CUT = 1e-3, 2e-6
+# the lambda instance at lambda 1 against K1a on one frame: the same pair
+# terms but for the Abramowitz-Stegun erfc (absolute error < 1.5e-7, so
+# ~1e-6 of a pair's screened term) against the exact erfcf, and rQ^(-1/6)
+# through exp(-log(r^6)/6) against 1/r (a few ulps); 1e-5 leaves a decade
+TOL_LAM1_FORCE, TOL_LAM1_ENERGY = 1e-5, 1e-5
+# MBAR on the card against the same float64 solve on the CPU, in kT
+TOL_MBAR = 1e-8
 
 # The kernel's bound: the largest of its bytes over the card's memory
 # rate, its FP32 operations over the card's FP32 rate and its special-
@@ -94,18 +126,26 @@ TOL_F64, NEAR_CUT = 1e-3, 2e-6
 # 700 W: 3.35 TB/s HBM3 and 67 TFLOP/s dense FP32, NVIDIA's datasheet; 16
 # special-function results per SM per clock, CUDA C++ Programming Guide,
 # at the 1.98 GHz that the 67 TFLOP/s assumes). Operations are counted per
-# pair inside the cutoff (the pairs these inputs need), from
+# atom pair that this run's inputs make the kernel evaluate, from
 # csrc/pair_nonbonded.cu with an FMA as 2 and sqrt, divide and rint as 1:
-# minimum image and r^2 20 (orthorhombic) or 26 (triclinic), 1/r and 1/r^2
-# 3, LJ 18, reaction field 11, Ewald 37 (CUDA's erfcf ~20, expf ~3), force
-# accumulation 12; special functions: sqrt and reciprocal, plus the
-# exponentials of erfcf and expf under Ewald.
+# every pair inside the cutoff pays the minimum image and r^2 (20
+# orthorhombic, 26 triclinic), 1/r and 1/r^2 (3), its Coulomb term and the
+# force accumulation (12); only the pairs with eps != 0 inside the LJ
+# radius (lambda_s > 0 on the lambda path) pay the LJ term.
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
-OPS_PER_PAIR = {"coul3-ortho": 20 + 3 + 18 + 37 + 12,
-                "coul2-ortho": 20 + 3 + 18 + 11 + 12,
-                "coul2-triclinic": 26 + 3 + 18 + 11 + 12}
-SFU_PER_PAIR = {"coul3-ortho": 4, "coul2-ortho": 2, "coul2-triclinic": 2}
+MIC_OPS = {False: 20, True: 26}
+#: Coulomb none, plain, reaction field, Ewald (CUDA's erfcf ~20, expf ~3)
+COUL_OPS = {0: 0, 1: 9, 2: 11, 3: 37}
+#: LJ distance cutoff, shifted potential (+ the terms at rc), shifted
+#: force (+ dU/dr at rc), no cutoff
+LJ_OPS = {1: 18, 2: 27, 3: 38, 4: 18}
+# K1c on the FEP path (Beutler soft-core LJ, Beutler soft-core Ewald):
+# the lambda block 22 (min, roles, same-group rule, two schedules, lambda
+# 0 rule), the soft-core Coulomb with the A&S screen 53 (sigma^6 shift,
+# rQ^(-1/6) by log/exp, its force, the rational erfc and exp(-(a r)^2)),
+# the Beutler LJ 32 (shift, R6, 1/R6, energy and force)
+LAM_OPS, SC_EWALD_OPS, SC_LJ_OPS = 22, 53, 32
 
 #: the small system's modes: (lj_mode, coul_mode, LJ radius, Coulomb
 #: radius); radii differ both ways so each term's own mask is exercised
@@ -113,6 +153,22 @@ SMALL_MODES = ((1, 0, 0.9, 0.0), (2, 0, 0.9, 0.0), (3, 0, 0.9, 0.0),
                (1, 1, 0.8, 0.9), (2, 1, 0.9, 0.75), (3, 1, 0.8, 0.9),
                (1, 2, 0.9, 0.9), (2, 2, 0.8, 0.9), (3, 2, 0.9, 0.8),
                (4, 1, 0.0, 0.9), (4, 2, 0.0, 0.9), (1, 3, 0.9, 0.9))
+#: K1b's other modes, timed on the water box at 1.0 nm radii: (lj_mode,
+#: coul_mode) in the cube, and Ewald in the dodecahedron
+OTHER_MODES = ((1, 0), (2, 0), (3, 0), (1, 1), (2, 1), (3, 1), (4, 1),
+               (2, 2), (3, 2), (4, 2))
+OTHER_MODES_TRICLINIC = ((1, 3),)
+
+#: K1c on the small system: the soft-core LJ kinds against every Coulomb
+#: form of the lambda path, plus the mixed cases, at these lambdas
+SMALL_LAMS = (0.0, 0.3, 0.5, 0.8, 1.0)
+ALCH_COULS = ("none", "sc-beutler", "sc-gapsys", "sc-beutler-ewald",
+              "sc-gapsys-ewald", "scaled", "rf-scaled", "ewald-scaled")
+ALCH_CASES = ([(lj, c) for lj in ("beutler", "gapsys") for c in ALCH_COULS]
+              + [("beutler-sp", "sc-beutler-ewald"),
+                 ("lj", "sc-beutler-ewald"), ("lj", "sc-gapsys")])
+SCHEDULERS = ("DefaultLambdaScheduler", "NAMDLambdaScheduler",
+              "QuartersLambdaScheduler", "EleScaledLambdaScheduler")
 
 
 def card_line():
@@ -140,22 +196,31 @@ def require_cuda():
 
 def build_kernels():
     """Build csrc/pair_nonbonded.cu; print the time and, per instance
-    (Coulomb mode, triclinic, energy), ptxas's registers and spills."""
+    (Coulomb mode, triclinic, energy, lambda), ptxas's registers and
+    spills, and K1a's registers against the 47 / 56 it had before the
+    lambda instances existed."""
     from mollytpu_torch.ops import native
     path, secs, log = native.build("pair_nonbonded")
     print(f"built {os.path.relpath(path)} in {secs:.1f} s", flush=True)
-    inst, spill = None, ""
+    inst, spill, regs_of = None, "", {}
     for ln in log.splitlines():
-        m = re.search(r"pair_nonbonded_kernelILi(\d)ELb([01])ELb([01])E", ln)
+        m = re.search(
+            r"pair_nonbonded_kernelILi(\d)ELb([01])ELb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
-            inst = "coul={} triclinic={} energy={}".format(*m.groups())
+            inst = m.groups()
         elif "spill" in ln:
             spill = ln.strip()
-        elif "registers" in ln:
+        elif "registers" in ln and inst:
             regs = re.search(r"Used (\d+) registers", ln)
-            print(f"  ptxas: instance {inst}: "
-                  f"{regs.group(1) if regs else ln.strip()} registers; "
-                  f"{spill}", flush=True)
+            regs_of[inst] = regs.group(1) if regs else ln.strip()
+            print("  ptxas: instance coul={} triclinic={} energy={} "
+                  "lambda={}: ".format(*inst)
+                  + f"{regs_of[inst]} registers; {spill}", flush=True)
+    k1a = (regs_of.get(("3", "0", "0", "0")),
+           regs_of.get(("3", "0", "1", "0")))
+    print(f"K1a registers forces-only / energy: {k1a[0]} / {k1a[1]} "
+          f"(47 / 56 without the lambda instances: "
+          f"{'unchanged' if k1a == ('47', '56') else 'CHANGED'})", flush=True)
 
 
 def water_system(device, dtype, workdir, method, angles):
@@ -190,10 +255,52 @@ def small_inters(lj_mode, coul_mode, lj_rc, coul_rc):
     return tuple(out)
 
 
+def alch_inters(lj, coul, scheduler):
+    """One combination of the lambda path on the small system: soft-core
+    Beutler LJ (distance cutoff, or shifted potential for "beutler-sp"),
+    Gapsys LJ (shifted force) or plain LJ, with a soft-core or scaled
+    Coulomb form; radii differ so each term's own mask is exercised."""
+    import mollytpu_torch as pt
+    kw = dict(weight_special=0.5, scheduler=scheduler)
+    if lj == "beutler":
+        out = [pt.LennardJonesSoftCoreBeutler(
+            cutoff=pt.DistanceCutoff(0.9), alpha=0.5, **kw)]
+    elif lj == "beutler-sp":
+        out = [pt.LennardJonesSoftCoreBeutler(
+            cutoff=pt.ShiftedPotentialCutoff(0.85), alpha=0.5, **kw)]
+    elif lj == "gapsys":
+        out = [pt.LennardJonesSoftCoreGapsys(
+            cutoff=pt.ShiftedForceCutoff(0.9), alpha=0.85, **kw)]
+    else:
+        out = [pt.LennardJones(cutoff=pt.DistanceCutoff(0.9),
+                               weight_special=0.5)]
+    kw = dict(weight_special=0.8333, scheduler=scheduler)
+    forms = {
+        "sc-beutler": lambda: pt.CoulombSoftCoreBeutler(
+            cutoff=pt.DistanceCutoff(0.8), alpha=0.5, **kw),
+        "sc-gapsys": lambda: pt.CoulombSoftCoreGapsys(
+            cutoff=pt.DistanceCutoff(0.9), alpha=0.3, sigma_q=1.0, **kw),
+        "sc-beutler-ewald": lambda: pt.CoulombSoftCoreBeutlerEwald(
+            dist_cutoff=0.9, alpha_sc=0.5, alpha=3.0, **kw),
+        "sc-gapsys-ewald": lambda: pt.CoulombSoftCoreGapsysEwald(
+            dist_cutoff=0.9, alpha_sc=0.3, sigma_q=1.0, alpha=3.0, **kw),
+        "scaled": lambda: pt.CoulombScaled(cutoff=pt.DistanceCutoff(0.8),
+                                           **kw),
+        "rf-scaled": lambda: pt.CoulombReactionFieldScaled(dist_cutoff=0.9,
+                                                           **kw),
+        "ewald-scaled": lambda: pt.CoulombEwaldScaled(dist_cutoff=0.9,
+                                                      alpha=3.0, **kw),
+    }
+    if coul != "none":
+        out.append(forms[coul]())
+    return tuple(out)
+
+
 def exclusion_system(device, box):
     """64 atoms with chain exclusions, 1-4 pairs and pairs whose id span
     exceeds the bitmap window, randomly placed (0.25 nm apart) in a 2.4 nm
-    cube or a 2.6 nm 92/95/88 degree box."""
+    cube or a 2.6 nm 92/95/88 degree box; atoms 0-3 are alchemical INSERT,
+    4-7 DELETE, the rest CORE atoms."""
     import numpy as np
     import torch
     import mollytpu_torch as pt
@@ -224,9 +331,12 @@ def exclusion_system(device, box):
     q = rng.uniform(-0.5, 0.5, n)
     eps = rng.uniform(0.1, 0.3, n)
     eps[::5] = 0.0
+    roles = np.full(n, pt.ALCH_CORE, dtype=np.int32)
+    roles[:4] = pt.ALCH_INSERT
+    roles[4:8] = pt.ALCH_DELETE
     atoms = pt.make_atoms(n=n, mass=10.0, charge=q - q.mean(),
                           sigma=rng.uniform(0.25, 0.35, n), epsilon=eps,
-                          device=device)
+                          alch_role=roles, device=device)
     boundary = boundary.to(device=device, dtype=torch.float32)
     return pt.System(
         atoms=atoms, coords=x.to(device=device, dtype=torch.float32),
@@ -236,72 +346,114 @@ def exclusion_system(device, box):
     ), len(far)
 
 
+def kernel_vs_twin(spec, system, nb, exclude=None):
+    """The kernel and its twin on this call's slot rows (kernel_inputs),
+    forces-only and with energy + virial. Returns the kernel's forces-only
+    max|dF| and the worst ratios over both launches (force over rms|F|,
+    outside ``exclude``; energy and virial relative)."""
+    import torch
+    from mollytpu_torch.ops import pair_kernel as pk
+    n = system.n_atoms
+    nbk, lam_role, _ = pk.kernel_inputs(spec, system.coords, system.atoms,
+                                        nb)
+    out = {"df": 0.0, "ratio": 0.0, "de": 0.0, "dv": 0.0}
+    for energy in (False, True):
+        f, e, v = pk._pair_nonbonded_cuda(spec, nbk, system.boundary, n,
+                                          energy, lam_role)
+        f0, e0, v0 = pk.pair_nonbonded_plain(spec, nbk, system.boundary, n,
+                                             energy, lam_role)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(f).all()):
+            raise RuntimeError("kernel forces are not finite")
+        err = (f - f0).abs().amax(dim=1)
+        if exclude is not None:
+            err = err[~exclude]
+        df = float(err.max())
+        # forces of 1 kJ/mol/nm at least: at lambda 0 every term may be off
+        rms = max(1.0, float(f0.pow(2).sum(dim=1).mean().sqrt()))
+        out["ratio"] = max(out["ratio"], df / rms)
+        if energy:
+            out["e"] = float(e0)
+            out["de"] = abs(float(e) - float(e0)) / max(1.0, abs(float(e0)))
+            out["dv"] = float((v - v0).abs().max()) / max(
+                1.0, float(v0.abs().max()))
+        else:
+            out["df"], out["rms"] = df, rms
+    out["ok"] = (out["ratio"] <= TOL_FORCE and out["de"] <= TOL_ENERGY
+                 and out["dv"] <= TOL_VIRIAL)
+    return out, nbk, lam_role
+
+
 def compare(label, system, timing=False):
     """Kernel against twin on the same packed inputs, both modes; with
     ``timing`` also their CUDA-event times and the kernel's bound."""
-    import torch
     from mollytpu_torch.ops import pair_kernel as pk
     nb = system.neighbor_finder.find(system.coords, system.boundary,
                                      system.exclusions)
-    nb.pos4[:, :3] = system.coords[nb.src]
     spec = pk.build_fused_spec(system.pairwise_inters)
     n = system.n_atoms
-    out = {}
-    for energy in (False, True):
-        f, e, v = pk._pair_nonbonded_cuda(spec, nb, system.boundary, n, energy)
-        f0, e0, v0 = pk.pair_nonbonded_plain(spec, nb, system.boundary, n,
-                                             energy)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(f).all()):
-            raise RuntimeError(f"{label}: kernel forces are not finite")
-        df = float((f - f0).abs().max())
-        rms = float(f0.pow(2).sum(dim=1).mean().sqrt())
-        line = (f"{label} energy={energy}: max|dF| {df:.3e} rms|F| "
-                f"{rms:.3e} ratio {df / rms:.3e}")
-        if df / rms > TOL_FORCE:
-            raise RuntimeError(line + f" exceeds {TOL_FORCE}")
-        if energy:
-            de = abs(float(e) - float(e0)) / max(1.0, abs(float(e0)))
-            dv = float((v - v0).abs().max()) / max(1.0, float(v0.abs().max()))
-            line += f"; rel dE {de:.3e} (E {float(e0):.6e}); rel dvir {dv:.3e}"
-            if de > TOL_ENERGY or dv > TOL_VIRIAL:
-                raise RuntimeError(line + " exceeds the tolerance")
-        else:
-            out["max_abs_err"] = df
-        print(line, flush=True)
+    r, nbk, lam_role = kernel_vs_twin(spec, system, nb)
+    line = (f"{label}: max|dF| {r['df']:.3e} rms|F| {r['rms']:.3e} ratio "
+            f"{r['ratio']:.3e}; rel dE {r['de']:.3e} (E {r['e']:.6e}); rel "
+            f"dvir {r['dv']:.3e}")
+    print(line, flush=True)
+    if not r["ok"]:
+        raise RuntimeError(line + " exceeds the tolerance")
+    out = {"max_abs_err": r["df"]}
     if timing:
         for energy in (False, True):
             t_k = _time(lambda: pk._pair_nonbonded_cuda(
-                spec, nb, system.boundary, n, energy))
+                spec, nbk, system.boundary, n, energy, lam_role))
             t_p = _time(lambda: pk.pair_nonbonded_plain(
-                spec, nb, system.boundary, n, energy))
+                spec, nbk, system.boundary, n, energy, lam_role))
             print(f"{label} energy={energy}: kernel {t_k:.4f} ms, plain "
                   f"twin {t_p:.4f} ms ({nb.n_pairs} cluster pairs, "
                   f"{nb.n_clusters} clusters)", flush=True)
             if not energy:
                 out["ms"], out["plain_ms"] = t_k, t_p
-        out.update(bound(label, spec, nb, system.boundary, n))
+        out.update(bound(label, spec, nbk, system.boundary, n, lam_role))
     return out
 
 
-def bound(label, spec, nb, boundary, n):
+def pair_ops(spec, boundary):
+    """(FP32 operations, special functions) per evaluated pair, and the
+    same for the LJ term of a pair that takes it."""
+    tri = getattr(boundary, "basis", None) is not None
+    if spec.needs_lam:
+        if (spec.lj_kind, spec.lj_mode, spec.coul_sc, spec.coul_mode) != (
+                1, 1, 1, 3):
+            raise ValueError("the lambda path's operations are counted for "
+                             "the FEP combination only")
+        # sqrt, 1/r; log and exp of rQ^(-1/6), 1/rQ, the A&S reciprocal
+        # and exp(-(a r)^2); the Beutler LJ's 1/R6
+        return (MIC_OPS[tri] + 3 + LAM_OPS + SC_EWALD_OPS + 12, 7), \
+            (SC_LJ_OPS, 1)
+    # sqrt, 1/r; the exponentials of erfcf and expf under Ewald
+    return ((MIC_OPS[tri] + 3 + COUL_OPS[spec.coul_mode] + 12,
+             4 if spec.coul_mode == 3 else 2),
+            (LJ_OPS[spec.lj_mode] if spec.lj_mode else 0, 0))
+
+
+def bound(label, spec, nb, boundary, n, lam_role=None):
     """The least time the card could take for the forces-only launch."""
     from mollytpu_torch.ops import pair_kernel as pk
     family = pk.instance_family(spec, boundary)
-    live = pk.live_pair_count(spec, nb, boundary, n)
-    ops = live * OPS_PER_PAIR[family]
+    live, lj_live = pk.live_pair_count(spec, nb, boundary, n, lam_role)
+    (ops_pair, sfu_pair), (ops_lj, sfu_lj) = pair_ops(spec, boundary)
+    ops = live * ops_pair + lj_live * ops_lj
+    sfu = live * sfu_pair + lj_live * sfu_lj
     nbytes = 4 * (nb.pos4.numel() + nb.lj2.numel() + nb.ids.numel()
-                  + nb.bits.numel() + nb.pairs.numel() + 3 * n)
-    t_ops = max(ops / FP32_OPS_PER_S,
-                live * SFU_PER_PAIR[family] / SFU_OPS_PER_S)
+                  + nb.bits.numel() + nb.pairs.numel() + 3 * n
+                  + (lam_role.numel() if spec.needs_lam else 0))
+    t_ops = max(ops / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
     ms = 1e3 * max(t_ops, t_bytes)
     print(f"{label} bound: {live:.0f} pairs inside {spec.cut_max} nm x "
-          f"{OPS_PER_PAIR[family]} FP32 ops = {ops:.4e} ops "
-          f"({1e3 * ops / FP32_OPS_PER_S:.6f} ms at 67 TFLOP/s), x "
-          f"{SFU_PER_PAIR[family]} special functions "
-          f"({1e3 * live * SFU_PER_PAIR[family] / SFU_OPS_PER_S:.6f} ms); "
+          f"{ops_pair} FP32 ops + {lj_live:.0f} LJ pairs x {ops_lj} = "
+          f"{ops:.4e} ops ({1e3 * ops / FP32_OPS_PER_S:.6f} ms at 67 "
+          f"TFLOP/s); {sfu:.4e} special functions ({sfu_pair} + "
+          f"{sfu_lj} per LJ pair; {1e3 * sfu / SFU_OPS_PER_S:.6f} ms); "
           f"{nbytes} bytes ({1e3 * t_bytes:.6f} ms at 3.35 TB/s); bound "
           f"{ms:.6f} ms by {by}", flush=True)
     return {"bound_ms": ms, "bound_by": by, "family": family}
@@ -335,22 +487,122 @@ def small_modes(dev):
                     system.update(pairwise_inters=small_inters(*mode)))
 
 
+def small_alch_modes(dev):
+    """K1c against its twin on the 64-atom exclusion system (4 INSERT, 4
+    DELETE atoms), in the cube and the skewed box: every combination at
+    five lambdas, each scheduler once, and the scaled-charge family
+    alone on K1a/K1b. One line per combination: its worst ratios."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.free_energy import alchemy
+    from mollytpu_torch.ops import pair_kernel as pk
+    default = pt.DefaultLambdaScheduler()
+    cases = [(lj, c, default, SMALL_LAMS) for lj, c in ALCH_CASES]
+    cases += [("beutler", "sc-gapsys-ewald", getattr(alchemy, s)(),
+               (0.4, 0.7)) for s in SCHEDULERS[1:]]
+    cases += [("lj", c, default, (0.3, 0.8))
+              for c in ("scaled", "rf-scaled", "ewald-scaled")]
+    for box in ("cube", "skewed"):
+        base, _ = exclusion_system(dev, box)
+        nb = base.neighbor_finder.find(base.coords, base.boundary,
+                                       base.exclusions)
+        for lj, coul, sched, lams in cases:
+            spec = pk.build_fused_spec(alch_inters(lj, coul, sched))
+            worst = {"ratio": 0.0, "de": 0.0, "dv": 0.0}
+            n_switch, families = 0, set()
+            for lam in lams:
+                system = pt.set_lambda(base.update(
+                    pairwise_inters=alch_inters(lj, coul, sched)), lam)
+                nbk, lam_role, _ = pk.kernel_inputs(
+                    spec, system.coords, system.atoms, nb)
+                near = gapsys_switch_atoms(spec, nbk, system.boundary,
+                                           system.n_atoms, lam_role)
+                n_switch += int(near.sum())
+                r, _, _ = kernel_vs_twin(spec, system, nb, exclude=near)
+                for k in worst:
+                    worst[k] = max(worst[k], r[k])
+                families.add(pk.instance_family(spec, system.boundary))
+            line = (f"K1c {box} {lj}/{coul} "
+                    f"{type(sched).__name__[:-len('LambdaScheduler')]} "
+                    f"lambda {lams}: {'/'.join(sorted(families))}; worst "
+                    f"dF/rms {worst['ratio']:.2e} dE {worst['de']:.2e} dvir "
+                    f"{worst['dv']:.2e}; {n_switch} excluded at a Gapsys "
+                    "switch")
+            print(line, flush=True)
+            if (worst["ratio"] > TOL_FORCE or worst["de"] > TOL_ENERGY
+                    or worst["dv"] > TOL_VIRIAL):
+                raise RuntimeError(line + " exceeds the tolerance")
+            if spec.needs_lam != all(f.startswith("lam-") for f in families):
+                raise RuntimeError(line + ": wrong kernel instance")
+        torch.cuda.synchronize()
+
+
+def _tile_pairs(spec, nb, boundary, n, lam_role=None):
+    """Per chunk of listed tiles: the slot ids of both sides, r, and the
+    pair parameters (sigma, eps, qq) and, given the lambda rows, the pair's
+    (lambda_s, lambda_e), all (T, 32, 32)."""
+    from mollytpu_torch.ops import pair_kernel as pk
+    row, x, par, idc, bitc, chunks = pk._tiles(nb, boundary, 1024)
+    lrc = None if lam_role is None else lam_role.view(-1, 32, 2)
+    for I, J in chunks:
+        _, r2, live, _ = pk._tile_geometry(spec, row, x[I], x[J], idc[I],
+                                           idc[J], bitc[I], n)
+        pi, pj = par[I], par[J]
+        out = dict(
+            ii=idc[I][:, :, None].expand_as(r2), jj=idc[J][:, None, :]
+            .expand_as(r2), r=r2.sqrt(), live=live,
+            sig=0.5 * (pi[:, :, None, 0] + pj[:, None, :, 0]),
+            eps=pi[:, :, None, 1] * pj[:, None, :, 1],
+            qq=pi[:, :, None, 2] * pj[:, None, :, 2])
+        if lrc is not None:
+            li, lj = lrc[I], lrc[J]
+            out["lam_s"], out["lam_e"] = pk.pair_lambdas(
+                spec, li[:, :, None, 0], lj[:, None, :, 0],
+                li[:, :, None, 1], lj[:, None, :, 1])
+        yield out
+
+
+def _flag(flag, t, near):
+    flag[t["ii"][near]] = True
+    flag[t["jj"][near]] = True
+
+
+def gapsys_switch_atoms(spec, nb, boundary, n, lam_role):
+    """(n,) mask of the atoms in a live pair whose distance lies within
+    NEAR_CUT of its Gapsys switch radius (r_LJ of the soft-core LJ, r_Q of
+    the soft-core Coulomb): there f32 rounding may put the kernel and the
+    twin on the two sides of the switch."""
+    import torch
+    flag = torch.zeros(n + 1, dtype=torch.bool, device=nb.pos4.device)
+    if spec.lj_kind != 2 and spec.coul_sc != 2:
+        return flag[:n]
+    for t in _tile_pairs(spec, nb, boundary, n, lam_role):
+        near = torch.zeros_like(t["live"])
+        if spec.lj_kind == 2:
+            # r_LJ = alpha (26 C12 (1 - l) / (7 C6))^(1/6), C12 / C6 = s^6
+            r_lj = spec.lj_alpha * (26.0 / 7.0 * t["sig"] ** 6 * (
+                1.0 - t["lam_s"])).clamp(min=0.0) ** (1.0 / 6.0)
+            near |= (t["eps"] != 0) & ((t["r"] - r_lj).abs() < NEAR_CUT)
+        if spec.coul_sc == 2:
+            r_q = spec.coul_alpha_sc * (1.0 - t["lam_e"]).clamp(
+                min=0.0) ** (1.0 / 6.0) * (1.0 + spec.coul_sigma_q
+                                           * t["qq"].abs())
+            near |= (t["r"] - r_q).abs() < NEAR_CUT
+        _flag(flag, t, near & t["live"])
+    return flag[:n]
+
+
 def near_cutoff_atoms(spec, nb, boundary, n):
     """(n,) mask of the atoms in a listed pair whose distance lies within
     NEAR_CUT of one of the spec's cutoffs."""
     import torch
-    from mollytpu_torch.ops import pair_kernel as pk
-    row, x, _, idc, bitc, chunks = pk._tiles(nb, boundary, 1024)
     radii = {spec.cut_max, spec.lj_rc, spec.coul_rc} - {0.0}
-    flag = torch.zeros(n + 1, dtype=torch.bool, device=x.device)
-    for I, J in chunks:
-        r = pk._tile_geometry(spec, row, x[I], x[J], idc[I], idc[J],
-                              bitc[I], n)[1].sqrt()
-        near = torch.zeros_like(r, dtype=torch.bool)
+    flag = torch.zeros(n + 1, dtype=torch.bool, device=nb.pos4.device)
+    for t in _tile_pairs(spec, nb, boundary, n):
+        near = torch.zeros_like(t["live"])
         for rc in radii:
-            near |= (r - rc).abs() < NEAR_CUT
-        flag[idc[I][:, :, None].expand_as(near)[near]] = True
-        flag[idc[J][:, None, :].expand_as(near)[near]] = True
+            near |= (t["r"] - rc).abs() < NEAR_CUT
+        _flag(flag, t, near)
     return flag[:n]
 
 
@@ -377,17 +629,20 @@ def reference_forces(sys32, coords32):
             sys32.n_atoms, sys32.atoms.to(dtype=torch.float64)))
     nb = system.neighbor_finder.find(system.coords, system.boundary,
                                      system.exclusions)
-    nb.pos4[:, :3] = system.coords[nb.src]
     spec = pk.build_fused_spec(system.pairwise_inters)
-    f, e, v = pk.pair_nonbonded_plain(spec, nb, system.boundary,
-                                      system.n_atoms, True)
+    nbk, lam_role, charge = pk.kernel_inputs(spec, system.coords,
+                                             system.atoms, nb)
+    f, e, v = pk.pair_nonbonded_plain(spec, nbk, system.boundary,
+                                      system.n_atoms, True, lam_role)
     f, e, v = pk.far_pair_corrections(spec, system.coords, system.boundary,
-                                      system.atoms, system.exclusions, f, e, v)
+                                      system.atoms, system.exclusions, f, e,
+                                      v, charge)
     for g in system.general_inters:
         fg, _ = g.force_virial(system.coords, system.boundary, system.atoms)
         f = f + fg
         e = e + g.energy(system.coords, system.boundary, system.atoms)
-    return f, e, near_cutoff_atoms(spec, nb, system.boundary, system.n_atoms)
+    return f, e, near_cutoff_atoms(spec, nbk, system.boundary,
+                                   system.n_atoms)
 
 
 def describe(system):
@@ -403,6 +658,42 @@ def describe(system):
     return (f"{system.n_atoms} atoms in a {shape}, "
             f"{system.constraints[0].n_constraints} constraints, "
             + (f"PME mesh {mesh[0]}" if mesh else "reaction field"))
+
+
+def check_state(label, system):
+    """Finite coordinates, constraints held, temperature sane; returns
+    (temperature, constraint violation)."""
+    import torch
+    import mollytpu_torch as pt
+    if not bool(torch.isfinite(system.coords).all()):
+        raise RuntimeError(f"{label}: non-finite coordinates after the run")
+    viol = float(system.constraints[0].max_violation(system.coords,
+                                                     system.boundary))
+    temp = float(pt.temperature(system.masses, system.velocities,
+                                system.n_dof))
+    if not viol < 1e-4:
+        raise RuntimeError(f"{label}: constraint violation {viol:.3e} nm")
+    if not (temp == temp and temp < 1000.0):
+        raise RuntimeError(f"{label}: temperature {temp} K")
+    return temp, viol
+
+
+def check_f64(label, system, f32, e32):
+    """The f32 forces and energy against a float64 evaluation of the same
+    force field through the plain twins, on the same coordinates."""
+    f64, e64, near = reference_forces(system, system.coords)
+    rms = float(f64.pow(2).sum(dim=1).mean().sqrt())
+    err = (f32.double() - f64).abs().amax(dim=1) / rms
+    df = float(err[~near].max())
+    de = abs(float(e32) - float(e64)) / abs(float(e64))
+    print(f"{label} vs float64 twins: max|dF|/rms|F| {df:.3e} over the "
+          f"{int((~near).sum())} atoms with no pair within {NEAR_CUT} nm of "
+          f"the cutoff ({float(err[near].max()) if near.any() else 0.0:.3e}"
+          f" over the other {int(near.sum())}), rel dE {de:.3e} "
+          f"(E {float(e64):.6e} kJ/mol)", flush=True)
+    if df > TOL_F64 or de > TOL_F64:
+        raise RuntimeError(f"{label}: forces disagree with the float64 "
+                           "reference")
 
 
 def main_path(label, system, n_chunks, family):
@@ -441,16 +732,7 @@ def main_path(label, system, n_chunks, family):
         raise RuntimeError(
             f"{label}: pair kernel launched {launches} times ({own} of "
             f"instance {family}) for {n_evals} force evaluations")
-    if not bool(torch.isfinite(system.coords).all()):
-        raise RuntimeError(f"{label}: non-finite coordinates after the run")
-    viol = float(system.constraints[0].max_violation(system.coords,
-                                                     system.boundary))
-    temp = float(pt.temperature(system.masses, system.velocities,
-                                system.n_dof))
-    if not viol < 1e-4:
-        raise RuntimeError(f"{label}: constraint violation {viol:.3e} nm")
-    if not (temp == temp and temp < 1000.0):
-        raise RuntimeError(f"{label}: temperature {temp} K")
+    temp, viol = check_state(label, system)
     ms = 1e3 * elapsed / (n_chunks * CHUNK)
     ns_day = pt.units.ps_per_step_to_ns_per_day(DT, ms * 1e-3)
     print(f"{label}: {step} steps, {launches} pair-kernel launches "
@@ -460,37 +742,34 @@ def main_path(label, system, n_chunks, family):
           f"chunks' rebuilds at least {closest:.4f} nm apart", flush=True)
     print(f"{label}: {ms:.4f} ms/step, {ns_day:.4f} ns/day "
           f"({n_chunks * CHUNK} timed steps)", flush=True)
-
-    f32 = aux["forces"]
-    f64, e64, near = reference_forces(system, system.coords)
-    e32 = pt.potential_energy(system, nb)
-    rms = float(f64.pow(2).sum(dim=1).mean().sqrt())
-    err = (f32.double() - f64).abs().amax(dim=1) / rms
-    df = float(err[~near].max())
-    de = abs(float(e32) - float(e64)) / abs(float(e64))
-    print(f"{label} vs float64 twins: max|dF|/rms|F| {df:.3e} over the "
-          f"{int((~near).sum())} atoms with no pair within {NEAR_CUT} nm of "
-          f"the cutoff ({float(err[near].max()) if near.any() else 0.0:.3e}"
-          f" over the other {int(near.sum())}), rel dE {de:.3e} "
-          f"(E {float(e64):.6e} kJ/mol)", flush=True)
-    if df > TOL_F64 or de > TOL_F64:
-        raise RuntimeError(f"{label}: forces disagree with the float64 "
-                           "reference")
+    check_f64(label, system, aux["forces"], pt.potential_energy(system, nb))
     return dict(launches=launches, ms=ms, ns_day=ns_day, system=system,
                 nb=nb, aux=aux, sim=sim, gen=gen, step=step)
 
 
-def components(label, run):
+def other_modes(label, system, modes):
+    """K1b's other modes on the built water box at 1.0 nm radii: each
+    against its twin, timed, with its bound."""
+    for lj_mode, coul_mode in modes:
+        compare(f"{label} other mode lj{lj_mode}/coul{coul_mode}",
+                system.update(pairwise_inters=small_inters(
+                    lj_mode, coul_mode, 1.0, 1.0)), timing=True)
+
+
+def components(label, run, hamiltonian=None, lams=()):
     """CUDA-event times (median of 20) of the step's parts on the state the
     main path ended in, and a torch.profiler summary of 20 steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    import mollytpu_torch as pt
     from mollytpu_torch import forces_virial
     from mollytpu_torch.ops import pair_kernel as pk
     from mollytpu_torch.ops.blockpairs import unlisted_min_distance
     system, nb, aux, sim, gen = (run[k] for k in ("system", "nb", "aux",
                                                   "sim", "gen"))
     spec = pk.build_fused_spec(system.pairwise_inters)
+    nbk, lam_role, _ = pk.kernel_inputs(spec, system.coords, system.atoms,
+                                        nb)
     c = system.constraints[0]
     x, v, m, box = system.coords, system.velocities, system.masses, \
         system.boundary
@@ -500,8 +779,8 @@ def components(label, run):
         "forces_virial (all forces)": lambda: forces_virial(system, nb),
         "pair: gather + kernel + far pairs": lambda: pk.block_nonbonded(
             spec, x, box, system.atoms, system.exclusions, nb),
-        "pair kernel alone": lambda: pk.pair_nonbonded(spec, nb, box,
-                                                       system.n_atoms),
+        "pair kernel alone": lambda: pk.pair_nonbonded(
+            spec, nbk, box, system.n_atoms, False, lam_role),
         "SHAKE (positions)": lambda: c.apply_position_constraints(
             x, x + DT * v, v, m, box, DT),
         "RATTLE (velocities)": lambda: c.apply_velocity_constraints(
@@ -511,6 +790,13 @@ def components(label, run):
         "stale-list check": lambda: unlisted_min_distance(
             nb, x, box, spec.cut_max),
     }
+    for g in system.general_inters:
+        if isinstance(g, pt.PME):
+            parts["PME force_virial"] = lambda pme=g: pme.force_virial(
+                x, box, system.atoms)
+    if hamiltonian is not None:
+        parts[f"cross-energy sample ({len(lams)} lambdas)"] = \
+            lambda: hamiltonian.energies(system, lams, nb)
     for name, fn in parts.items():
         print(f"{label} component: {name}: {_time(fn, 2, 20):.4f} ms",
               flush=True)
@@ -538,12 +824,231 @@ def components(label, run):
           flush=True)
 
 
+def fep_system(system):
+    """The PME water box with the water whose oxygen lies nearest the box
+    centre inserted alchemically: its three atoms ALCH_INSERT, Beutler
+    soft-core LJ + Beutler soft-core Ewald real space in place of LJ +
+    Ewald (the JAX package's FEP production combination), PME on the
+    scheduled charges; the Ewald exclusion and dispersion corrections stay.
+    Built from public pieces, as a JAX user builds it with System.update.
+    Returns (system at lambda 1, solute mask)."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    x = system.coords.double().cpu().numpy()
+    mass = system.atoms.mass.double().cpu().numpy()
+    centre = 0.5 * system.boundary.side_lengths.double().cpu().numpy()
+    oxy = np.nonzero(mass > 2.0)[0]
+    o = int(oxy[np.argmin(np.linalg.norm(x[oxy] - centre, axis=1))])
+    if not (mass[o + 1] < 2.0 and mass[o + 2] < 2.0):
+        raise RuntimeError(f"atom {o} is not followed by its two hydrogens")
+    mask = torch.zeros(system.n_atoms, dtype=torch.bool,
+                       device=system.device)
+    mask[o:o + 3] = True
+    # INSERT, not DELETE: the default scheduler turns a DELETE atom's
+    # charges fully on at lambda 0.5 while its sterics are still off, and
+    # a bare charged oxygen without LJ collapses onto solvent hydrogens;
+    # INSERT couples the sterics first, then the charges
+    roles = torch.where(mask, pt.ALCH_INSERT, pt.ALCH_CORE).to(torch.int32)
+    atoms = dataclasses.replace(system.atoms, alch_role=roles)
+    lj, coul = system.pairwise_inters
+    sched = pt.DefaultLambdaScheduler()
+    pair = (pt.LennardJonesSoftCoreBeutler(
+                cutoff=pt.DistanceCutoff(1.0), alpha=0.5, use_neighbors=True,
+                weight_special=lj.weight_special, scheduler=sched),
+            pt.CoulombSoftCoreBeutlerEwald(
+                dist_cutoff=1.0, error_tol=coul.error_tol, alpha=coul.alpha,
+                alpha_sc=0.5, use_neighbors=True,
+                weight_special=coul.weight_special, scheduler=sched))
+    general = tuple(dataclasses.replace(g, scheduler=sched)
+                    if isinstance(g, pt.PME) else g
+                    for g in system.general_inters)
+    out = system.update(atoms=atoms, pairwise_inters=pair,
+                        general_inters=general)
+    print(f"FEP-water: solute atoms {o}-{o + 2} (oxygen "
+          f"{np.linalg.norm(x[o] - centre):.4f} nm from the box centre), "
+          "ALCH_INSERT; Beutler soft-core LJ (alpha 0.5) + Beutler "
+          "soft-core Ewald (alpha_sc 0.5), PME on scheduled charges",
+          flush=True)
+    return out, mask
+
+
+def lambda1_check(pme_system, fep, mask):
+    """At lambda 1 on every atom the lambda instance computes K1a's pair
+    terms but for the A&S erfc: both kernels on the same frame. Then both
+    timed on the same frame at lambda FEP_TIMED, forces-only and with
+    energy."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    box, n = fep.boundary, fep.n_atoms
+    nb = fep.neighbor_finder.find(fep.coords, box, fep.exclusions)
+    spec_a = pk.build_fused_spec(pme_system.pairwise_inters)
+    spec_c = pk.build_fused_spec(fep.pairwise_inters)
+
+    # one list, its rows filled once per system: the timed calls below are
+    # the kernels alone
+    nb_a, _, _ = pk.kernel_inputs(spec_a, fep.coords, pme_system.atoms, nb)
+
+    def rows(system):
+        return pk.kernel_inputs(spec_c, system.coords, system.atoms, nb)[:2]
+
+    def k1c(nb_lr, energy):
+        return pk._pair_nonbonded_cuda(spec_c, nb_lr[0], box, n, energy,
+                                       nb_lr[1])
+
+    def k1a(energy):
+        return pk._pair_nonbonded_cuda(spec_a, nb_a, box, n, energy)
+
+    fc, ec, _ = k1c(rows(pt.set_lambda(fep, 1.0)), True)
+    fa, ea, _ = k1a(True)
+    torch.cuda.synchronize()
+    rms = float(fa.pow(2).sum(dim=1).mean().sqrt())
+    df = float((fc - fa).abs().max()) / rms
+    de = abs(float(ec) - float(ea)) / abs(float(ea))
+    line = (f"FEP-water lambda=1 check: lambda instance against K1a on one "
+            f"frame: max|dF|/rms|F| {df:.3e} (tolerance {TOL_LAM1_FORCE}), "
+            f"rel dE {de:.3e} (tolerance {TOL_LAM1_ENERGY}; E "
+            f"{float(ea):.6e} kJ/mol)")
+    print(line, flush=True)
+    if df > TOL_LAM1_FORCE or de > TOL_LAM1_ENERGY:
+        raise RuntimeError(line + " exceeds the tolerance")
+    at = rows(pt.set_lambda(fep, FEP_TIMED, atom_mask=mask))
+    for energy in (False, True):
+        t_a = _time(lambda: k1a(energy))
+        t_c = _time(lambda: k1c(at, energy))
+        t_a2 = _time(lambda: k1a(energy))
+        print(f"FEP-water timing energy={energy}: K1a {t_a:.4f} ms, lambda "
+              f"instance at lambda {FEP_TIMED} {t_c:.4f} ms, K1a again "
+              f"{t_a2:.4f} ms on the same frame and list ({nb.n_pairs} "
+              "cluster pairs)", flush=True)
+
+
+def fep_path(fep, mask):
+    """The alchemical main path: every window from the built frame, warm-up
+    then sampled steps, U(x; lambda_k) at every lambda every FEP_SAMPLE
+    steps, then MBAR. Gates: launches, state, stale list, float64 at
+    FEP_TIMED, MBAR on the card against the CPU, finite free energies."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    dev = fep.device
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
+    ham = pt.LambdaHamiltonian(atom_mask=mask)
+    pk.reset_launch_counts()
+    n_force = n_energy = 0
+    energies, timed = [], None
+    t_start = time.perf_counter()
+    for k, lam in enumerate(FEP_LAMS):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 + k)
+        system = pt.set_lambda(fep, lam, atom_mask=mask)
+        system = system.update(
+            velocities=pt.random_velocities(system.masses, TEMP, gen))
+        system, nb, aux = pt.simulate(system, sim, FEP_WARMUP, generator=gen)
+        n_force += 1 + FEP_WARMUP
+        step, closest, t_steps, t_samples, samples = FEP_WARMUP, math.inf, \
+            0.0, 0.0, []
+        for _ in range(FEP_STEPS // FEP_SAMPLE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            system, nb, aux, near = pt.run_chunk(sim, system, nb, aux, step,
+                                                 FEP_SAMPLE, generator=gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            samples.append(ham.energies(system, FEP_LAMS, nb))
+            torch.cuda.synchronize()
+            t_steps += t1 - t0
+            t_samples += time.perf_counter() - t1
+            closest = min(closest, near)
+            step += FEP_SAMPLE
+            n_force += FEP_SAMPLE
+            n_energy += len(FEP_LAMS)
+        energies.append(torch.stack(samples, dim=1).double())   # (K, S)
+        temp, viol = check_state(f"FEP-water lambda={lam}", system)
+        print(f"FEP-water lambda={lam}: {step} steps, T {temp:.2f} K, max "
+              f"constraint violation {viol:.3e} nm, unlisted atom pairs at "
+              f"the sampled chunks' rebuilds at least {closest:.4f} nm "
+              f"apart; {len(samples)} samples of U at {len(FEP_LAMS)} "
+              "lambdas", flush=True)
+        if lam == FEP_TIMED:
+            ms = 1e3 * t_steps / FEP_STEPS
+            timed = dict(ms=ms, ns_day=pt.units.ps_per_step_to_ns_per_day(
+                DT, ms * 1e-3), sample_ms=1e3 * t_samples / len(samples),
+                system=system, nb=nb, aux=aux, sim=sim, gen=gen, step=step)
+    wall = time.perf_counter() - t_start
+    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[FEP_FAMILY]
+    if launches != n_force + n_energy or own != launches:
+        raise RuntimeError(
+            f"FEP-water: pair kernel launched {launches} times ({own} of "
+            f"instance {FEP_FAMILY}) for {n_force} force and {n_energy} "
+            "cross-energy evaluations")
+    print(f"FEP-water: {len(FEP_LAMS)} windows x ({FEP_WARMUP} + "
+          f"{FEP_STEPS}) steps in {wall:.1f} s; {launches} pair-kernel "
+          f"launches (instance {FEP_FAMILY}) for {n_force} force and "
+          f"{n_energy} cross-energy evaluations", flush=True)
+    check_f64(f"FEP-water lambda={FEP_TIMED}", timed["system"],
+              timed["aux"]["forces"],
+              pt.potential_energy(timed["system"], timed["nb"]))
+
+    print(f"FEP-water lambda={FEP_TIMED}: {timed['ms']:.4f} ms/step, "
+          f"{timed['ns_day']:.4f} ns/day ({FEP_STEPS} steps); "
+          f"{timed['sample_ms']:.4f} ms per cross-energy sample "
+          f"({len(FEP_LAMS)} lambdas)", flush=True)
+    timed["launches"] = launches
+    return timed, ham, torch.stack(energies)                  # (K, K, S)
+
+
+def fep_mbar(e):
+    """MBAR in float64 on the card from the (K, K, S) cross energies
+    e[k, l, s] = U_l of sample s of window k, against the same solve on
+    the CPU; the overlap of neighbouring windows and dG."""
+    import torch
+    import mollytpu_torch as pt
+    if not bool(torch.isfinite(e).all()):
+        raise RuntimeError("FEP-water: non-finite cross energies")
+    kt = pt.units.KB * TEMP
+    for k in range(len(FEP_LAMS) - 1):
+        up = (e[k, k + 1] - e[k, k]) / kt
+        down = (e[k + 1, k] - e[k + 1, k + 1]) / kt
+        print(f"FEP-water overlap lambda {FEP_LAMS[k]} <-> "
+              f"{FEP_LAMS[k + 1]}: u_(k+1) - u_k of window k's samples "
+              f"mean {float(up.mean()):.4e} sd {float(up.std()):.4e} kT; "
+              f"u_k - u_(k+1) of window k+1's mean {float(down.mean()):.4e}"
+              f" sd {float(down.std()):.4e} kT", flush=True)
+    inp = pt.assemble_mbar_inputs(e, temperature=[TEMP] * len(FEP_LAMS))
+    t0 = time.perf_counter()
+    f_card = pt.iterate_mbar(inp)
+    torch.cuda.synchronize()
+    t_mbar = time.perf_counter() - t0
+    f_cpu = pt.iterate_mbar(pt.MBARInput(inp.u_kn.cpu(), inp.n_k.cpu()))
+    diff = float((f_card.cpu() - f_cpu).abs().max())
+    # the MBAR equations sum_n exp(f_k - u_kn) / sum_l N_l exp(f_l - u_ln)
+    # = 1 for every state k
+    log_d = torch.logsumexp(torch.log(inp.n_k.double())[:, None]
+                            + f_card[:, None] - inp.u_kn, dim=0)
+    resid = (f_card[:, None] - inp.u_kn - log_d).exp().sum(dim=1) - 1.0
+    line = (f"FEP-water MBAR (float64, u_kn {tuple(inp.u_kn.shape)}): f_k "
+            f"{[round(float(v), 6) for v in f_card.cpu()]} kT on the card "
+            f"in {t_mbar:.3f} s; max |card - CPU| {diff:.3e} kT (tolerance "
+            f"{TOL_MBAR}); MBAR equations' residual "
+            f"{float(resid.abs().max()):.3e}")
+    print(line, flush=True)
+    if not bool(torch.isfinite(f_card).all()) or not diff <= TOL_MBAR:
+        raise RuntimeError(line)
+    dg = float(f_card[-1] - f_card[0]) * kt
+    print(f"FEP-water: dG(lambda 0 -> 1) of inserting one TIP3P water "
+          f"{dg:.4f} kJ/mol (not converged: {len(FEP_LAMS)} x {FEP_STEPS} "
+          "steps)", flush=True)
+
+
 def main():
     line = require_cuda()
     import torch
+    import mollytpu_torch as pt
     build_kernels()
     dev = torch.device(DEVICE)
     small_modes(dev)
+    small_alch_modes(dev)
     stats, runs = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         for label, method, angles, n_chunks, family in MAIN_PATHS:
@@ -557,12 +1062,37 @@ def main():
             if stats[family]["family"] != family:
                 raise RuntimeError(f"{label} runs instance "
                                    f"{stats[family]['family']}")
+            if label == "RF-ortho":
+                other_modes(label, system, OTHER_MODES)
+            elif label == "RF-dodecahedron":
+                other_modes(label, system, OTHER_MODES_TRICLINIC)
             runs[label] = main_path(label, system, n_chunks, family)
             if label == "RF-ortho":
                 components(label, runs[label])
             runs[label] = {k: runs[label][k]
                            for k in ("launches", "ms", "ns_day")}
+            if label == "PME":
+                pme_system = system
             del system
+
+        t0 = time.perf_counter()
+        fep, mask = fep_system(pme_system)
+        print(f"FEP-water: {describe(fep)}; setup "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        lambda1_check(pme_system, fep, mask)
+        stats[FEP_FAMILY] = compare(
+            f"FEP-water lambda={FEP_TIMED} water{fep.n_atoms}",
+            pt.set_lambda(fep, FEP_TIMED, atom_mask=mask), timing=True)
+        if stats[FEP_FAMILY]["family"] != FEP_FAMILY:
+            raise RuntimeError(f"FEP-water runs instance "
+                               f"{stats[FEP_FAMILY]['family']}")
+        timed, ham, energies = fep_path(fep, mask)
+        fep_mbar(energies)
+        components(f"FEP-water lambda={FEP_TIMED}", timed, ham, FEP_LAMS)
+        runs["FEP-water"] = {k: timed[k] for k in ("launches", "ms",
+                                                   "ns_day")}
+    paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
+    paths.append(("FEP-water", FEP_FAMILY))
     print(f"card: {line}; " + "; ".join(
         f"{label} {r['ms']:.4f} ms/step, {r['ns_day']:.4f} ns/day"
         for label, r in runs.items()), flush=True)
@@ -575,7 +1105,7 @@ def main():
         "ms": stats[family]["ms"], "plain_ms": stats[family]["plain_ms"],
         "bound_ms": stats[family]["bound_ms"],
         "bound_by": stats[family]["bound_by"], "library_ms": None}
-        for label, _, _, _, family in MAIN_PATHS]}))
+        for label, family in paths]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,7 @@ Entry points build on the CUDA card unless given ``device="cpu"``.
 """
 
 from . import units
-from .atoms import Atoms, make_atoms
+from .atoms import ALCH_CORE, ALCH_DELETE, ALCH_INSERT, Atoms, make_atoms
 from .boundary import (Orthorhombic, Triclinic, cubic, rectangular,
                        triclinic, triclinic_from_lengths_angles)
 from .config import resolve_device
@@ -19,12 +19,30 @@ from .models.setup import system_from_pdb
 from .models.waterbox import DODECAHEDRON, TIP3P_XML, water_box_pdb
 from .ops.cutoffs import (DistanceCutoff, NoCutoff, ShiftedForceCutoff,
                           ShiftedPotentialCutoff)
+from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection
-from .ops.pairwise import (Coulomb, CoulombEwald, CoulombReactionField,
-                           LennardJones)
+from .ops.mixing import GeometricMixing, LorentzMixing, MinimumMixing
+from .ops.pairwise import (
+    Coulomb, CoulombEwald, CoulombEwaldScaled, CoulombReactionField,
+    CoulombReactionFieldScaled, CoulombScaled, CoulombSoftCoreBeutler,
+    CoulombSoftCoreBeutlerEwald, CoulombSoftCoreBeutlerReactionField,
+    CoulombSoftCoreGapsys, CoulombSoftCoreGapsysEwald,
+    CoulombSoftCoreGapsysReactionField, LennardJones,
+    LennardJonesSoftCoreBeutler, LennardJonesSoftCoreGapsys)
 from .ops.blockpairs import BlockPairFinder, BlockPairs
 from .sim.integrators import Langevin
 from .sim.simulate import StaleNeighborList, run_chunk, simulate
 from .spatial import (kinetic_energy, kinetic_energy_tensor, n_dof,
                       random_velocities, remove_cm_motion, temperature)
 from .system import Exclusions, System
+from .free_energy.mbar import (MBARInput, assemble_mbar_inputs,
+                               free_energy_differences, iterate_mbar,
+                               mbar_weights)
+from .free_energy.stats import (effective_sample_size,
+                                statistical_inefficiency, subsample_indices)
+from .free_energy.thermo import (AlchemicalPartition, LambdaHamiltonian,
+                                 ThermoState, set_lambda)
+from .free_energy.alchemy import (DefaultLambdaScheduler,
+                                  EleScaledLambdaScheduler,
+                                  NAMDLambdaScheduler,
+                                  QuartersLambdaScheduler)

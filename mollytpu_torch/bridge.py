@@ -8,19 +8,20 @@ both packages the same system.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .atoms import Atoms
 from .boundary import Orthorhombic, Triclinic
 from .config import resolve_device
-from .ops import cutoffs
+from .free_energy import alchemy
+from .ops import cutoffs, mixing, pairwise
 from .ops.blockpairs import BlockPairFinder
 from .ops.constraints import SHAKERattle
 from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection
-from .ops.pairwise import (Coulomb, CoulombEwald, CoulombReactionField,
-                           LennardJones)
 from .system import EXCL_WINDOW, Exclusions, System
 
 
@@ -53,36 +54,54 @@ def _cutoff(c):
     raise NotImplementedError(f"cutoff {name} is not ported")
 
 
+#: mixing rules and schedulers the port carries, by class name
+_MIXINGS = ("LorentzMixing", "GeometricMixing", "MinimumMixing")
+_SCHEDULERS = ("DefaultLambdaScheduler", "NAMDLambdaScheduler",
+               "QuartersLambdaScheduler", "EleScaledLambdaScheduler")
+#: the pairwise interactions the port carries, by class name
+_PAIRWISE = ("LennardJones", "LennardJonesSoftCoreBeutler",
+             "LennardJonesSoftCoreGapsys", "Coulomb", "CoulombScaled",
+             "CoulombReactionField", "CoulombReactionFieldScaled",
+             "CoulombEwald", "CoulombEwaldScaled", "CoulombSoftCoreBeutler",
+             "CoulombSoftCoreGapsys", "CoulombSoftCoreBeutlerEwald",
+             "CoulombSoftCoreGapsysEwald",
+             "CoulombSoftCoreBeutlerReactionField",
+             "CoulombSoftCoreGapsysReactionField")
+
+
+def _scheduler(s):
+    if s is None:
+        return None
+    name = type(s).__name__
+    if name not in _SCHEDULERS:
+        raise NotImplementedError(f"lambda scheduler {name} is not ported")
+    return getattr(alchemy, name)()
+
+
+def _field(name, value):
+    """One field of a pairwise interaction, mapped to the port's types."""
+    if name == "cutoff":
+        return _cutoff(value)
+    if name.endswith("_mixing"):
+        rule = type(value).__name__
+        if rule not in _MIXINGS:
+            raise NotImplementedError(f"{name} {rule} is not ported")
+        return getattr(mixing, rule)()
+    if name == "scheduler":
+        return _scheduler(value)
+    if name in ("use_neighbors", "approximate_erfc"):
+        return bool(value)
+    return None if value is None else float(value)
+
+
 def _pairwise(inter):
+    """The port's interaction of the same class name, field for field."""
     name = type(inter).__name__
-    if name == "LennardJones":
-        if (type(inter.sigma_mixing).__name__ != "LorentzMixing"
-                or type(inter.epsilon_mixing).__name__ != "GeometricMixing"):
-            raise NotImplementedError("only Lorentz-Berthelot mixing is "
-                                      "ported")
-        return LennardJones(cutoff=_cutoff(inter.cutoff),
-                            use_neighbors=bool(inter.use_neighbors),
-                            weight_special=float(inter.weight_special))
-    if name == "Coulomb":
-        return Coulomb(cutoff=_cutoff(inter.cutoff),
-                       use_neighbors=bool(inter.use_neighbors),
-                       weight_special=float(inter.weight_special),
-                       coulomb_const=float(inter.coulomb_const))
-    if name == "CoulombReactionField":
-        return CoulombReactionField(
-            dist_cutoff=float(inter.dist_cutoff),
-            solvent_dielectric=float(inter.solvent_dielectric),
-            use_neighbors=bool(inter.use_neighbors),
-            weight_special=float(inter.weight_special),
-            coulomb_const=float(inter.coulomb_const))
-    if name == "CoulombEwald":
-        return CoulombEwald(dist_cutoff=float(inter.dist_cutoff),
-                            error_tol=float(inter.error_tol),
-                            use_neighbors=bool(inter.use_neighbors),
-                            weight_special=float(inter.weight_special),
-                            coulomb_const=float(inter.coulomb_const),
-                            alpha=float(inter.alpha))
-    raise NotImplementedError(f"pairwise interaction {name} is not ported")
+    if name not in _PAIRWISE:
+        raise NotImplementedError(f"pairwise interaction {name} is not ported")
+    cls = getattr(pairwise, name)
+    return cls(**{f.name: _field(f.name, getattr(inter, f.name))
+                  for f in dataclasses.fields(cls)})
 
 
 def _general(gi, dtype, device):
@@ -97,7 +116,8 @@ def _general(gi, dtype, device):
                    epsilon_r=float(gi.epsilon_r), alpha=float(gi.alpha),
                    moduli_x=_tensor(gi.moduli_x, dtype, device),
                    moduli_y=_tensor(gi.moduli_y, dtype, device),
-                   moduli_z=_tensor(gi.moduli_z, dtype, device))
+                   moduli_z=_tensor(gi.moduli_z, dtype, device),
+                   scheduler=_scheduler(gi.scheduler))
     if name == "EwaldExclusionCorrection":
         return EwaldExclusionCorrection.setup(
             pairs_from_bitmap(gi.bits, gi.far), float(gi.alpha),
@@ -124,7 +144,10 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                   sigma=_tensor(a.sigma, dtype, device),
                   epsilon=_tensor(a.epsilon, dtype, device),
                   atom_type=(None if a.atom_type is None
-                             else _tensor(a.atom_type, torch.int32, device)))
+                             else _tensor(a.atom_type, torch.int32, device)),
+                  lam=None if a.lam is None else _tensor(a.lam, dtype, device),
+                  alch_role=(None if a.alch_role is None
+                             else _tensor(a.alch_role, torch.int32, device)))
     if type(tree.boundary).__name__ == "Triclinic":
         if not tree.boundary.approx_images:
             raise NotImplementedError("the 27-image triclinic minimum image "

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ..free_energy.alchemy import scaled_charge
 from ..units import COULOMB_CONST
 
 
@@ -105,6 +106,17 @@ def bspline_weights(w, order=5):
     return torch.stack(new, dim=-1), torch.stack(dth, dim=-1)
 
 
+def _effective_charges(atoms, scheduler, dtype):
+    """The charges PME sums: scaled by the scheduler's scale_elec when it
+    has one and the atoms carry lambda and role
+    (mollytpu/ops/ewald.py:148-152)."""
+    q = atoms.charge
+    if (scheduler is not None and atoms.lam is not None
+            and atoms.alch_role is not None):
+        q = scaled_charge(scheduler, q, atoms.lam, atoms.alch_role)
+    return q.to(dtype)
+
+
 def _corrections(q, alpha, volume, ke):
     """Self energy and the neutralising-background correction."""
     e_self = -ke * alpha / math.sqrt(math.pi) * torch.sum(q * q)
@@ -116,7 +128,9 @@ def _corrections(q, alpha, volume, ke):
 @dataclasses.dataclass(frozen=True)
 class PME:
     """Smooth PME reciprocal sum plus self and background corrections. Pair
-    it with CoulombEwald (real space) and EwaldExclusionCorrection."""
+    it with CoulombEwald (real space) and EwaldExclusionCorrection. With a
+    ``scheduler`` the sums run over the alchemically scaled charges; the
+    exclusion correction keeps the unscaled ones, as in the JAX package."""
 
     dist_cutoff: float = 1.0
     error_tol: float = 0.0005
@@ -128,11 +142,12 @@ class PME:
     moduli_x: torch.Tensor = None
     moduli_y: torch.Tensor = None
     moduli_z: torch.Tensor = None
+    scheduler: object = None
 
     @classmethod
     def setup(cls, boundary, dist_cutoff=1.0, error_tol=0.0005, order=5,
-              epsilon_r=1.0, dtype=torch.float32, mesh_dims=None,
-              smooth_dims=True):
+              epsilon_r=1.0, dtype=torch.float32, scheduler=None,
+              mesh_dims=None, smooth_dims=True):
         alpha = ewald_error_alpha(dist_cutoff, error_tol)
         sides = boundary.side_lengths.detach().cpu().numpy()
         if mesh_dims is None:
@@ -144,7 +159,8 @@ class PME:
         return cls(dist_cutoff=float(dist_cutoff), error_tol=float(error_tol),
                    order=order, mesh_dims=tuple(int(x) for x in mesh_dims),
                    epsilon_r=float(epsilon_r), alpha=float(alpha),
-                   moduli_x=mods[0], moduli_y=mods[1], moduli_z=mods[2])
+                   moduli_x=mods[0], moduli_y=mods[1], moduli_z=mods[2],
+                   scheduler=scheduler)
 
     @property
     def _ke(self):
@@ -224,14 +240,14 @@ class PME:
         return e_recip, phi, cache, vir
 
     def energy(self, coords, boundary, atoms):
-        q = atoms.charge.to(coords.dtype)
+        q = _effective_charges(atoms, self.scheduler, coords.dtype)
         e_recip, _, _, _ = self._recip(coords, boundary, q)
         e_self, e_charge = _corrections(q, self.alpha, boundary.volume(),
                                         self._ke)
         return e_recip + e_self + e_charge
 
     def force_virial(self, coords, boundary, atoms, needs_virial=False):
-        q = atoms.charge.to(coords.dtype)
+        q = _effective_charges(atoms, self.scheduler, coords.dtype)
         _, phi, (flat, theta, dtheta, inv_l), vir = self._recip(
             coords, boundary, q, needs_virial)
         ph = phi.reshape(-1)[flat]                          # (N, o, o, o)

@@ -325,13 +325,15 @@ def test_unlisted_min_distance_in_triclinic_box(move):
 
 
 def test_launch_spec_layout():
-    """The ctypes struct the launcher reads: 6 ints, 9 + 12 floats, no
-    padding, in csrc/pair_nonbonded.cu's LaunchSpec order; radii that need
-    no mask inside cut_max are sent as inf."""
+    """The ctypes struct the launcher reads: 6 ints, 9 + 12 floats, then the
+    lambda path's 4 ints and 3 floats, no padding, in
+    csrc/pair_nonbonded.cu's LaunchSpec order; radii that need no mask
+    inside cut_max are sent as inf, and a launch without lambda says so."""
     L = pair_kernel._Launch
-    assert ctypes.sizeof(L) == 27 * 4
+    assert ctypes.sizeof(L) == 34 * 4
     assert L.mic.offset == 6 * 4 and L.cut2.offset == 15 * 4
     assert L.crf.offset == 26 * 4
+    assert L.use_lam.offset == 27 * 4 and L.coul_sigma_q.offset == 33 * 4
     spec = pair_kernel.build_fused_spec(_inters(pt, "lj3-rf", True))
     box = _box("skewed", pt)
     nb = BlockPairFinder.setup(box, LIST, 64, pt.make_atoms(
@@ -345,4 +347,5 @@ def test_launch_spec_layout():
     assert launch.cut2 == pytest.approx(0.81)
     assert list(launch.mic) == pytest.approx(list(box.mic_row()))
     assert launch.krf == pytest.approx(spec.krf)
+    assert (launch.use_lam, launch.lj_kind, launch.coul_sc) == (0, 0, 0)
     assert pair_kernel.instance_family(spec, box) == "coul2-triclinic"

@@ -170,20 +170,56 @@ def test_water_box_matches_pallas_kernel():
     assert abs(float(e) - float(e_j)) < POLY * 1e4
 
 
-@pytest.mark.parametrize("bad", ["mode", "mixing"])
-def test_unported_kernel_modes_raise(bad):
-    """No finite cutoff (the dense all-pairs path) and NBFix-style mixing
-    are outside the kernel's modes."""
+def _unported(bad):
+    """Interactions outside the kernel's modes, and every alchemical case
+    the JAX package's build_fused_spec refuses, with the reason the error
+    names."""
+    import mollytpu_torch as pt
     from mollytpu_torch.ops.cutoffs import NoCutoff
     from mollytpu_torch.ops.mixing import LorentzMixing
     from mollytpu_torch.ops.pairwise import Coulomb
-    if bad == "mode":
-        inters = (LennardJones(cutoff=NoCutoff()), Coulomb())
-    else:
-        inters = (LennardJones(cutoff=DistanceCutoff(1.0),
-                               epsilon_mixing=LorentzMixing()),
-                  CoulombEwald())
-    with pytest.raises(NotImplementedError):
+    lj = LennardJones(cutoff=DistanceCutoff(1.0))
+    sc_lj = pt.LennardJonesSoftCoreBeutler(cutoff=DistanceCutoff(1.0))
+    return {
+        "mode": ((LennardJones(cutoff=NoCutoff()), Coulomb()),
+                 "no finite cutoff"),
+        "mixing": ((LennardJones(cutoff=DistanceCutoff(1.0),
+                                 epsilon_mixing=LorentzMixing()),
+                    CoulombEwald()), "Lorentz-Berthelot"),
+        "sc-rf-beutler": ((lj, pt.CoulombSoftCoreBeutlerReactionField()),
+                          "XLA pair path"),
+        "sc-rf-gapsys": ((sc_lj, pt.CoulombSoftCoreGapsysReactionField()),
+                         "XLA pair path"),
+        "lambda-mixing": ((pt.LennardJonesSoftCoreBeutler(
+            cutoff=DistanceCutoff(1.0), lambda_mixing=LorentzMixing()),
+            CoulombEwald()), "lambda mixing LorentzMixing"),
+        "coulomb-lambda-mixing": ((lj, pt.CoulombSoftCoreBeutlerEwald(
+            lambda_mixing=LorentzMixing())), "MinimumMixing only"),
+        "two-schedulers": ((sc_lj, pt.CoulombSoftCoreBeutlerEwald(
+            scheduler=pt.QuartersLambdaScheduler())),
+            "two lambda schedulers of different types"),
+        "sc-lj-no-cutoff": ((pt.LennardJonesSoftCoreGapsys(
+            cutoff=NoCutoff()), CoulombEwald()), "finite cutoff"),
+        "sc-coulomb-no-cutoff": ((lj, pt.CoulombSoftCoreBeutler()),
+                                 "finite cutoff"),
+        "sc-coulomb-shifted": ((lj, pt.CoulombSoftCoreGapsys(
+            cutoff=pt.ShiftedForceCutoff(1.0))),
+            "ShiftedForceCutoff: only no cutoff or a distance cutoff"),
+    }[bad]
+
+
+@pytest.mark.parametrize("bad", [
+    "mode", "mixing", "sc-rf-beutler", "sc-rf-gapsys", "lambda-mixing",
+    "coulomb-lambda-mixing", "two-schedulers", "sc-lj-no-cutoff",
+    "sc-coulomb-no-cutoff", "sc-coulomb-shifted"])
+def test_unported_kernel_modes_raise(bad):
+    """No finite cutoff (the dense all-pairs path), NBFix-style mixing, the
+    soft-core reaction-field combinations (the JAX package's XLA pair
+    path), lambda mixing other than the minimum, two schedulers of
+    different types and soft-core terms without a finite distance cutoff
+    are outside the kernel's modes; each error names its reason."""
+    inters, reason = _unported(bad)
+    with pytest.raises(NotImplementedError, match=reason):
         pair_kernel.build_fused_spec(inters)
 
 
