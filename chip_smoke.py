@@ -8,7 +8,7 @@ Phases, each printing one line or more before the next starts:
 
 1. versions and the card (name and power limit from nvidia-smi);
 2. build of the hand-written kernels from mollytpu_torch/csrc, with each
-   kernel instance's registers and spills;
+   kernel instance's registers and spills (a spill fails the run);
 3. the pair kernel against its plain PyTorch twin on the same f32 inputs,
    forces-only and with energy + virial, on a 64-atom system with 1-4 and
    far-window exclusions in a cube and in a skewed triclinic box: every
@@ -21,8 +21,16 @@ Phases, each printing one line or more before the next starts:
    constraints, Langevin at 2 fs and 300 K, rebuild every 10 steps:
    PME in the cube (K1a), the reaction field (nonbonded_method="cutoff") in
    the cube and in the rhombic dodecahedron (K1b). For each: the kernel
-   against its twin on the built system with CUDA-event times of both
-   (median of 25) and the kernel's bound; then the launch counts set to 0,
+   against its twin on the built system; the kernel's device time (CUDA
+   events around 25 back-to-back launches of the C entry point, with
+   torch.profiler's kernel time beside it), its time through the wrapper
+   and the twin's (median of 25 calls each), the device operations of a
+   forces-only wrapper call (the force fill and the launch, gated), and
+   the kernel's bound; on the PME frame the
+   roofline probes (probe_phase: distance_only and noocc against their
+   twins, the device times of full, gather_only, distance_only, noocc and
+   of the per-call chain with preponly and nogather, and their
+   differences); then the launch counts set to 0,
    one 100-step warm-up chunk and 100-step timed chunks, the counts read;
    gates: every force evaluation launched the path's kernel instance,
    coordinates finite, constraints held, temperature sane, no stale list
@@ -36,12 +44,16 @@ Phases, each printing one line or more before the next starts:
    water nearest the box centre inserted alchemically, Beutler soft-core
    LJ + Beutler soft-core Ewald real space (K1c) and PME on the scheduled
    charges. At lambda 1 the lambda instance against K1a on one frame; the
-   lambda instance against its twin and K1a, timed; five lambda windows of
+   lambda instance against its twin and K1a, timed; the roofline probes on
+   the lambda instance at lambda 0.75; five lambda windows of
    100 + 200 Langevin steps, each sampling U(x; lambda_k) at all five
    lambdas every 20 steps; MBAR in float64 on the card against the same
    solve on the CPU; the main-path gates and the step's components.
 
-The second-to-last line is a JSON object {"kernels": [...]}; the last is
+The second-to-last line is a JSON object {"kernels": [...]}: the four
+main-path instance families, then each kernel probe instance (wrong
+physics on purpose, not on a main path; its launches are those of the
+probe phase); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -86,6 +98,12 @@ FEP_WARMUP, FEP_STEPS, FEP_SAMPLE = 100, 200, 20
 FEP_TIMED = 0.75
 FEP_FAMILY = "lam-coul3-ortho"
 
+#: kernel instances: Coulomb mode x box x energy x lambda (32), plus the
+#: probes gather_only, distance_only, noocc for forces-only K1a and K1c
+N_INSTANCES = 32 + 3 * 2
+#: K1a's registers, forces-only / energy, in this design of the tile loop
+K1A_REGISTERS = ("52", "54")
+
 #: the kernels line: one entry per instance family
 FAMILIES = {
     "coul3-ortho": "pair_nonbonded K1a (LJ + Ewald real space, "
@@ -96,6 +114,12 @@ FAMILIES = {
     FEP_FAMILY: "pair_nonbonded K1c (soft-core LJ + soft-core Ewald real "
                 "space at per-pair lambda, orthorhombic)",
 }
+
+#: the TPU kernel's probe sites the kernel probes replace
+PROBE_SITES = {
+    "gather_only": "mollytpu/ops/pallas_pairwise.py:685",
+    "distance_only": "mollytpu/ops/pallas_pairwise.py:791",
+    "noocc": "mollytpu/ops/pallas_pairwise.py:1178"}
 
 # kernel against twin, both f32 on the same inputs: atomics and the tile
 # loop reorder ~1e3-term sums of |F| up to ~1e3 kJ/mol/nm, so the force
@@ -196,31 +220,42 @@ def require_cuda():
 
 def build_kernels():
     """Build csrc/pair_nonbonded.cu; print the time and, per instance
-    (Coulomb mode, triclinic, energy, lambda), ptxas's registers and
-    spills, and K1a's registers against the 47 / 56 it had before the
-    lambda instances existed."""
+    (Coulomb mode, triclinic, energy, lambda, probe), ptxas's registers and
+    spills, and K1a's registers against K1A_REGISTERS. Fails on a spill."""
     from mollytpu_torch.ops import native
     path, secs, log = native.build("pair_nonbonded")
-    print(f"built {os.path.relpath(path)} in {secs:.1f} s", flush=True)
-    inst, spill, regs_of = None, "", {}
+    print(f"built {os.path.relpath(path)} in {secs:.1f} s" if secs else
+          f"{os.path.relpath(path)} up to date (its ptxas log follows)",
+          flush=True)
+    inst, spill, regs_of, spills = None, "", {}, []
     for ln in log.splitlines():
-        m = re.search(
-            r"pair_nonbonded_kernelILi(\d)ELb([01])ELb([01])ELb([01])E", ln)
+        m = re.search(r"pair_nonbonded_kernelILi(\d)ELb([01])ELb([01])ELb"
+                      r"([01])ELi(\d)E", ln)
         if "Compiling entry function" in ln and m:
             inst = m.groups()
         elif "spill" in ln:
             spill = ln.strip()
+            if inst and re.search(r"[1-9]\d* bytes spill", spill):
+                spills.append(inst)
         elif "registers" in ln and inst:
             regs = re.search(r"Used (\d+) registers", ln)
             regs_of[inst] = regs.group(1) if regs else ln.strip()
             print("  ptxas: instance coul={} triclinic={} energy={} "
-                  "lambda={}: ".format(*inst)
+                  "lambda={} probe={}: ".format(*inst)
                   + f"{regs_of[inst]} registers; {spill}", flush=True)
-    k1a = (regs_of.get(("3", "0", "0", "0")),
-           regs_of.get(("3", "0", "1", "0")))
-    print(f"K1a registers forces-only / energy: {k1a[0]} / {k1a[1]} "
-          f"(47 / 56 without the lambda instances: "
-          f"{'unchanged' if k1a == ('47', '56') else 'CHANGED'})", flush=True)
+    # a library built before is checked from the log kept beside it
+    if len(regs_of) != N_INSTANCES:
+        raise RuntimeError(f"{len(regs_of)} kernel instances in the ptxas "
+                           f"log, {N_INSTANCES} expected")
+    if spills:
+        raise RuntimeError(f"instances {spills} spill registers")
+    k1a = (regs_of.get(("3", "0", "0", "0", "0")),
+           regs_of.get(("3", "0", "1", "0", "0")))
+    print(f"{len(regs_of)} instances, no spills; K1a registers forces-only "
+          f"/ energy: {k1a[0]} / {k1a[1]} ({K1A_REGISTERS[0]} / "
+          f"{K1A_REGISTERS[1]} in this design: "
+          f"{'unchanged' if k1a == K1A_REGISTERS else 'CHANGED'})",
+          flush=True)
 
 
 def water_system(device, dtype, workdir, method, angles):
@@ -402,15 +437,27 @@ def compare(label, system, timing=False):
     out = {"max_abs_err": r["df"]}
     if timing:
         for energy in (False, True):
+            t_d = device_ms(spec, nbk, system.boundary, n, lam_role, energy)
             t_k = _time(lambda: pk._pair_nonbonded_cuda(
                 spec, nbk, system.boundary, n, energy, lam_role))
             t_p = _time(lambda: pk.pair_nonbonded_plain(
                 spec, nbk, system.boundary, n, energy, lam_role))
-            print(f"{label} energy={energy}: kernel {t_k:.4f} ms, plain "
-                  f"twin {t_p:.4f} ms ({nb.n_pairs} cluster pairs, "
+            print(f"{label} energy={energy}: kernel {t_d:.4f} ms device "
+                  f"(events over 25 back-to-back launches), {t_k:.4f} ms "
+                  f"through the wrapper (median of 25 calls), plain twin "
+                  f"{t_p:.4f} ms ({nb.n_pairs} cluster pairs, "
                   f"{nb.n_clusters} clusters)", flush=True)
             if not energy:
-                out["ms"], out["plain_ms"] = t_k, t_p
+                out["ms"], out["plain_ms"] = t_d, t_p
+        prof_ms, work = profiled(lambda: pk._pair_nonbonded_cuda(
+            spec, nbk, system.boundary, n, False, lam_role), 25)
+        line = (f"{label}: profiler kernel device time {prof_ms:.4f} ms per "
+                f"forces-only call; {work:g} runtime calls that put work on "
+                "the device per call")
+        print(line, flush=True)
+        # the force fill and the launch, nothing else
+        if work > 2:
+            raise RuntimeError(line + ": more than the fill and the launch")
         out.update(bound(label, spec, nbk, system.boundary, n, lam_role))
     return out
 
@@ -456,7 +503,8 @@ def bound(label, spec, nb, boundary, n, lam_role=None):
           f"{sfu_lj} per LJ pair; {1e3 * sfu / SFU_OPS_PER_S:.6f} ms); "
           f"{nbytes} bytes ({1e3 * t_bytes:.6f} ms at 3.35 TB/s); bound "
           f"{ms:.6f} ms by {by}", flush=True)
-    return {"bound_ms": ms, "bound_by": by, "family": family}
+    return {"bound_ms": ms, "bound_by": by, "family": family,
+            "bytes_ms": 1e3 * t_bytes, "live": live}
 
 
 def _time(fn, warmup=3, reps=25):
@@ -473,6 +521,160 @@ def _time(fn, warmup=3, reps=25):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(spec, nbk, boundary, n, lam_role=None, energy=False, probe="",
+              lib=None, reps=25):
+    """The kernel's own device time per launch: outputs allocated and
+    zeroed once, CUDA events around ``reps`` back-to-back launches of the
+    raw C entry point (after 3 warm-up launches), divided by ``reps``.
+    ``lib`` is another build of the launcher (same C interface)."""
+    import torch
+    from mollytpu_torch.ops import native
+    from mollytpu_torch.ops import pair_kernel as pk
+    dev = nbk.pos4.device
+    forces = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    ev = torch.zeros((7,), dtype=torch.float64, device=dev) if energy \
+        else None
+    args = pk.launch_args(spec, nbk, boundary, n, lam_role, forces, ev,
+                          probe)
+    fn = (lib or native.load("pair_nonbonded", pk._SIG)).pair_nonbonded_launch
+
+    def launch():
+        err = fn(*args[:-1])
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return burst_ms(launch, reps)
+
+
+def burst_ms(fn, reps=25):
+    """CUDA-event time per call of ``reps`` back-to-back calls of fn (after
+    3 warm-up calls): the device's time when fn enqueues faster than the
+    device runs it."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _dev_us(evt):
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def profiled(fn, reps):
+    """torch.profiler over ``reps`` calls of fn (after one): (device ms per
+    call of the pair kernel, runtime calls per call that put work on the
+    device: kernel launches, memsets and copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernel_us = sum(_dev_us(e) for e in avgs
+                    if "pair_nonbonded_kernel" in e.key)
+    work = sum(e.count for e in avgs if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemsetAsync",
+         "cudaMemcpyAsync")))
+    return kernel_us / 1e3 / reps, work / reps
+
+
+def probe_phase(label, system, full):
+    """The roofline probes on the built frame (the port's counterpart of
+    tools/pair_roofline.py): distance_only and noocc held against their
+    twins, gather_only's forces zero; device times of the full kernel and
+    of each kernel probe (device_ms, the full kernel first and last), and
+    CUDA-event times of the per-call chain kernel_inputs + pair_nonbonded
+    for the full kernel, preponly and nogather (25 back-to-back chains);
+    then their differences. ``full`` is compare()'s result on the frame.
+    Returns the probes' entries of the kernels line."""
+    import torch
+    from mollytpu_torch.ops import pair_kernel as pk
+    spec = pk.build_fused_spec(system.pairwise_inters)
+    box, n = system.boundary, system.n_atoms
+    nb = system.neighbor_finder.find(system.coords, box, system.exclusions)
+    nbk, lam_role, _ = pk.kernel_inputs(spec, system.coords, system.atoms,
+                                        nb)
+    pk.reset_launch_counts()
+    entries = []
+    t = {"full": device_ms(spec, nbk, box, n, lam_role)}
+    for probe in pk.KERNEL_PROBES:
+        f, _, _ = pk.pair_nonbonded(spec, nbk, box, n, False, lam_role,
+                                    probe=probe)
+        f0, _, _ = pk.pair_nonbonded_plain(spec, nbk, box, n, False,
+                                           lam_role, probe=probe)
+        torch.cuda.synchronize()
+        df = float((f - f0).abs().max())
+        rms = float(f0.pow(2).sum(dim=1).mean().sqrt())
+        ok = df == 0.0 if probe == "gather_only" else df <= TOL_FORCE * rms
+        line = (f"{label} probe {probe} against its twin: max|dF| {df:.3e}, "
+                f"rms|F| {rms:.3e}" + (f", ratio {df / rms:.3e}" if rms
+                                       else ""))
+        print(line, flush=True)
+        if not ok:
+            raise RuntimeError(line + " exceeds the tolerance")
+        t[probe] = device_ms(spec, nbk, box, n, lam_role, probe=probe)
+        wrapper = _time(lambda: pk._pair_nonbonded_cuda(
+            spec, nbk, box, n, False, lam_role, probe))
+        plain = _time(lambda: pk.pair_nonbonded_plain(
+            spec, nbk, box, n, False, lam_role, probe=probe), 1, 5)
+        print(f"{label} probe {probe}: {t[probe]:.4f} ms device, "
+              f"{wrapper:.4f} ms through the wrapper, twin {plain:.4f} ms",
+              flush=True)
+        # the least time of the probe's own work: its bytes; distance_only
+        # also pays the minimum image, r^2 and the accumulation per live
+        # pair, noocc the full pair terms
+        tri = getattr(box, "basis", None) is not None
+        bound_ms, by = full["bytes_ms"], "bytes"
+        if probe == "distance_only":
+            ops_ms = 1e3 * full["live"] * (MIC_OPS[tri] + 12) / FP32_OPS_PER_S
+            bound_ms, by = max((bound_ms, by), (ops_ms, "operations"))
+        elif probe == "noocc":
+            bound_ms, by = full["bound_ms"], full["bound_by"]
+        entries.append(dict(
+            probe=probe, family=full["family"], max_abs_err=df,
+            ms=t[probe], plain_ms=plain, bound_ms=bound_ms, bound_by=by))
+    t["full again"] = device_ms(spec, nbk, box, n, lam_role)
+
+    def chain(probe):
+        def fn():
+            nbc, lr, _ = pk.kernel_inputs(spec, system.coords, system.atoms,
+                                          nb, probe=probe)
+            pk.pair_nonbonded(spec, nbc, box, n, False, lr, probe=probe)
+        return fn
+    c = {p: burst_ms(chain(p)) for p in ("", "preponly", "nogather")}
+    for e in entries:
+        e["launches"] = pk.INSTANCE_LAUNCHES[f"{e['family']}+{e['probe']}"]
+    full_ms = 0.5 * (t["full"] + t["full again"])
+    print(f"{label} probes, device ms per launch (forces-only): full "
+          f"{t['full']:.4f} and {t['full again']:.4f}, " + ", ".join(
+              f"{p} {t[p]:.4f}" for p in pk.KERNEL_PROBES), flush=True)
+    print(f"{label} roofline: pair terms (full - distance_only) "
+          f"{full_ms - t['distance_only']:.4f} ms; slot test (distance_only"
+          f" - gather_only) {t['distance_only'] - t['gather_only']:.4f} ms; "
+          f"row loads + grid (gather_only) {t['gather_only']:.4f} ms; j-side "
+          f"reduction (full - noocc) {full_ms - t['noocc']:.4f} ms",
+          flush=True)
+    print(f"{label} per-call chain kernel_inputs + pair_nonbonded, ms per "
+          f"call over 25 back-to-back calls: full {c['']:.4f}, preponly "
+          f"{c['preponly']:.4f}, nogather {c['nogather']:.4f}; launch + "
+          f"kernel (full - preponly) {c[''] - c['preponly']:.4f}, the "
+          f"coordinate gather (full - nogather) "
+          f"{c[''] - c['nogather']:.4f}", flush=True)
+    return entries
 
 
 def small_modes(dev):
@@ -807,20 +1009,15 @@ def components(label, run, hamiltonian=None, lams=()):
             s, a = sim.step(s, nb, a, run["step"] + k, generator=gen)
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
-    device_ms = sum(dev_us(e) for e in avgs) / 1e3
-    top = sorted(avgs, key=dev_us, reverse=True)[:5]
+    device_ms = sum(_dev_us(e) for e in avgs) / 1e3
+    top = sorted(avgs, key=_dev_us, reverse=True)[:5]
     print(f"{label} profile, 20 steps: {launches} kernel launches, "
           f"{device_ms:.3f} ms device time ({device_ms / 20:.4f} ms per "
           "step); top: " + "; ".join(
-              f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms" for e in top),
+              f"{e.key[:48]} {_dev_us(e) / 1e3:.3f} ms" for e in top),
           flush=True)
 
 
@@ -1049,7 +1246,7 @@ def main():
     dev = torch.device(DEVICE)
     small_modes(dev)
     small_alch_modes(dev)
-    stats, runs = {}, {}
+    stats, runs, probes = {}, {}, []
     with tempfile.TemporaryDirectory() as workdir:
         for label, method, angles, n_chunks, family in MAIN_PATHS:
             t0 = time.perf_counter()
@@ -1062,6 +1259,8 @@ def main():
             if stats[family]["family"] != family:
                 raise RuntimeError(f"{label} runs instance "
                                    f"{stats[family]['family']}")
+            if label == "PME":
+                probes += probe_phase(label, system, stats[family])
             if label == "RF-ortho":
                 other_modes(label, system, OTHER_MODES)
             elif label == "RF-dodecahedron":
@@ -1080,12 +1279,15 @@ def main():
         print(f"FEP-water: {describe(fep)}; setup "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         lambda1_check(pme_system, fep, mask)
+        fep_timed = pt.set_lambda(fep, FEP_TIMED, atom_mask=mask)
         stats[FEP_FAMILY] = compare(
-            f"FEP-water lambda={FEP_TIMED} water{fep.n_atoms}",
-            pt.set_lambda(fep, FEP_TIMED, atom_mask=mask), timing=True)
+            f"FEP-water lambda={FEP_TIMED} water{fep.n_atoms}", fep_timed,
+            timing=True)
         if stats[FEP_FAMILY]["family"] != FEP_FAMILY:
             raise RuntimeError(f"FEP-water runs instance "
                                f"{stats[FEP_FAMILY]['family']}")
+        probes += probe_phase(f"FEP-water lambda={FEP_TIMED}", fep_timed,
+                              stats[FEP_FAMILY])
         timed, ham, energies = fep_path(fep, mask)
         fep_mbar(energies)
         components(f"FEP-water lambda={FEP_TIMED}", timed, ham, FEP_LAMS)
@@ -1096,7 +1298,7 @@ def main():
     print(f"card: {line}; " + "; ".join(
         f"{label} {r['ms']:.4f} ms/step, {r['ns_day']:.4f} ns/day"
         for label, r in runs.items()), flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
         "replaces": "mollytpu/ops/pallas_pairwise.py:636",
@@ -1105,7 +1307,16 @@ def main():
         "ms": stats[family]["ms"], "plain_ms": stats[family]["plain_ms"],
         "bound_ms": stats[family]["bound_ms"],
         "bound_by": stats[family]["bound_by"], "library_ms": None}
-        for label, family in paths]}))
+        for label, family in paths]
+    kernels += [{
+        "name": f"{FAMILIES[e['family']]}, roofline probe {e['probe']} "
+                "(wrong physics on purpose; not on a main path)",
+        "route": "cuda", "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
+        "replaces": PROBE_SITES[e["probe"]],
+        "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": None} for e in probes]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

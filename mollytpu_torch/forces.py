@@ -44,7 +44,9 @@ def forces_virial(sys, neighbors=None, step_n=0, needs_virial=False):
     vir = torch.zeros((3, 3), dtype=sys.coords.dtype, device=sys.device)
     if sys.pairwise_inters:
         f, _, v = _pair(sys, neighbors, needs_virial)
-        fs, vir = fs + f, vir + v
+        fs = fs + f
+        if v is not None:
+            vir = vir + v
     for gi in sys.general_inters:
         f, v = gi.force_virial(sys.coords, sys.boundary, sys.atoms,
                                needs_virial=needs_virial)

@@ -36,15 +36,18 @@ def _nvcc():
                        "are built on a machine with the CUDA toolkit")
 
 
-def build(name):
-    """Compile csrc/<name>.cu unless an up-to-date library exists. Returns
-    (path, seconds spent building, compiler log)."""
-    src = os.path.join(CSRC, name + ".cu")
+def build(name, src=None):
+    """Compile csrc/<name>.cu (or the source ``src``, into a library of
+    that name) unless an up-to-date library exists. Returns (path, seconds
+    spent building, compiler log); the log is kept beside the library
+    (``<path>.log``) and returned again when the library is up to date."""
+    src = src or os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out, 0.0, ""
+    if os.path.exists(out) and os.path.exists(out + ".log"):
+        with open(out + ".log") as fh:
+            return out, 0.0, fh.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     t0 = time.perf_counter()
@@ -53,16 +56,21 @@ def build(name):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n"
                            f"{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    with open(f"{tmp}.log", "w") as fh:
+        fh.write(log)
+    os.replace(f"{tmp}.log", out + ".log")
     os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, log
 
 
-def load(name, signatures):
-    """The ctypes library of csrc/<name>.cu with ``signatures`` (function
-    name -> argtypes) declared; each function returns a C int."""
+def load(name, signatures, src=None):
+    """The ctypes library of csrc/<name>.cu (or of ``src``, as in build)
+    with ``signatures`` (function name -> argtypes) declared; each function
+    returns a C int."""
     lib = _LOADED.get(name)
     if lib is None:
-        path, _, _ = build(name)
+        path, _, _ = build(name, src)
         lib = ctypes.CDLL(path)
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = list(argtypes)

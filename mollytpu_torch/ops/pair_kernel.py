@@ -18,6 +18,16 @@ none) plus plain, reaction-field or Ewald real-space Coulomb (coul_mode
 Ewald screen) with per-pair lambda from per-atom (lambda, role) rows and a
 scheduler, and the scaled-charge family (scale_q), whose charges are
 scaled per call before the kernel.
+
+So are the TPU kernel's roofline probes (MOLLYTPU_PAIR_VARIANT there),
+here an explicit ``probe`` keyword that no main path passes; each is wrong
+physics on purpose: ``preponly`` (kernel_inputs runs, no launch),
+``nogather`` (kernel_inputs skips the per-step coordinate gather),
+``gather_only`` (the kernel loads the tile rows and computes nothing: zero
+forces), ``distance_only`` (coef = r^2 * 1e-12 on live slots, no pair
+terms) and ``noocc`` (full pair terms, no j-side forces of cross tiles).
+The kernel probes have CUDA instances for forces-only Ewald launches in an
+orthorhombic box, with and without lambda.
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from .pairwise import (Coulomb, CoulombEwald, CoulombEwaldScaled,
 
 #: kernel launches since the count was last reset (main-path accounting)
 LAUNCHES = 0
-#: the same launches per compiled instance family (``instance_family``)
+#: the same launches per compiled instance family (``instance_family``;
+#: a kernel probe's launches under "<family>+<probe>")
 INSTANCE_LAUNCHES = collections.Counter()
 
 
@@ -71,10 +82,21 @@ class _Launch(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "use_lam", "lj_kind", "coul_sc", "scheduler")] + [
         (name, ctypes.c_float) for name in (
-            "lj_alpha", "coul_alpha_sc", "coul_sigma_q")]
+            "lj_alpha", "coul_alpha_sc", "coul_sigma_q")] + [
+        ("probe", ctypes.c_int)]
 
 
 _SIG = {"pair_nonbonded_launch": [ctypes.c_void_p] * 10}
+
+#: the roofline probes: the kernel instances' ids (LaunchSpec.probe), and
+#: every probe name the ``probe`` keywords take
+KERNEL_PROBES = {"gather_only": 1, "distance_only": 2, "noocc": 3}
+PROBES = ("preponly", "nogather", *KERNEL_PROBES)
+
+
+def _check_probe(probe):
+    if probe and probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}: one of {PROBES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -563,36 +585,47 @@ def _tiles(blockpairs, boundary, chunk):
 
 
 def pair_nonbonded_plain(spec, blockpairs, boundary, n_atoms,
-                         compute_energy=False, lam_role=None, chunk=1024):
+                         compute_energy=False, lam_role=None, chunk=1024,
+                         probe=""):
     """Plain PyTorch twin of the kernel: every listed 32 x 32 tile at once
     (in chunks of ``chunk`` tiles to bound memory). Same inputs and outputs
-    as the kernel: (forces (N, 3) in atom order, energy, virial (3, 3));
-    ``lam_role`` is the (n_pad, 2) lambda_rows of the alchemical path."""
+    as the kernel: (forces (N, 3) in atom order, energy, virial (3, 3)),
+    energy and virial None unless ``compute_energy``; ``lam_role`` is the
+    (n_pad, 2) lambda_rows of the alchemical path. ``probe`` computes what
+    that roofline probe computes (module docstring)."""
+    _check_probe(probe)
     row, x, par, idc, bitc, chunks = _tiles(blockpairs, boundary, chunk)
     dtype, dev = x.dtype, x.device
     lrc = lam_role.view(-1, CLUSTER, 2) if spec.needs_lam else None
     forces = torch.zeros((n_atoms + 1, 3), dtype=dtype, device=dev)
     energy = torch.zeros((), dtype=dtype, device=dev)
     virial = torch.zeros((3, 3), dtype=dtype, device=dev)
+    if probe in ("preponly", "gather_only"):
+        chunks = []
     for I, J in chunks:
         dx, r2, live, special = _tile_geometry(
             spec, row, x[I], x[J], idc[I], idc[J], bitc[I], n_atoms)
-        pi, pj = par[I], par[J]
-        args = (torch.where(live, r2, torch.ones_like(r2)),
-                0.5 * (pi[:, :, None, 0] + pj[:, None, :, 0]),
-                pi[:, :, None, 1] * pj[:, None, :, 1],
-                pi[:, :, None, 2] * pj[:, None, :, 2], special)
-        if spec.needs_lam:
-            li, lj = lrc[I], lrc[J]
-            lam_s, lam_e = pair_lambdas(
-                spec, li[:, :, None, 0], lj[:, None, :, 0],
-                li[:, :, None, 1], lj[:, None, :, 1])
-            e, coef = _pair_terms_alch(spec, *args, lam_s, lam_e)
-        else:
-            e, coef = _pair_terms(spec, *args)
         zero = torch.zeros_like(r2)
-        coef, e = torch.where(live, coef, zero), torch.where(live, e, zero)
-        cross = (I != J).to(dtype)[:, None, None]
+        if probe == "distance_only":
+            e, coef = zero, torch.where(live, r2 * 1e-12, zero)
+        else:
+            pi, pj = par[I], par[J]
+            args = (torch.where(live, r2, torch.ones_like(r2)),
+                    0.5 * (pi[:, :, None, 0] + pj[:, None, :, 0]),
+                    pi[:, :, None, 1] * pj[:, None, :, 1],
+                    pi[:, :, None, 2] * pj[:, None, :, 2], special)
+            if spec.needs_lam:
+                li, lj = lrc[I], lrc[J]
+                lam_s, lam_e = pair_lambdas(
+                    spec, li[:, :, None, 0], lj[:, None, :, 0],
+                    li[:, :, None, 1], lj[:, None, :, 1])
+                e, coef = _pair_terms_alch(spec, *args, lam_s, lam_e)
+            else:
+                e, coef = _pair_terms(spec, *args)
+            coef, e = torch.where(live, coef, zero), torch.where(live, e,
+                                                                 zero)
+        # the j side of cross tiles; noocc drops it
+        cross = (I != J).to(dtype)[:, None, None] * (probe != "noocc")
         f_i = (coef[..., None] * dx).sum(dim=2)               # (T, 32, 3)
         f_j = -(coef[..., None] * dx * cross[..., None]).sum(dim=1)
         # in place: one (N + 1, 3) accumulator, row N takes the padding
@@ -604,6 +637,8 @@ def pair_nonbonded_plain(spec, blockpairs, boundary, n_atoms,
             energy = energy + (e * w).sum()
             cw = coef * w
             virial = virial - torch.einsum("tij,tija,tijb->ab", cw, dx, dx)
+    if not compute_energy:
+        return forces[:n_atoms], None, None
     return forces[:n_atoms], energy, virial
 
 
@@ -644,7 +679,8 @@ def _check_cuda_input(name, t, dtype, width):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy):
+def _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy,
+                 probe=""):
     inf = float("inf")
     lj_rc = spec.lj_rc if spec.lj_mode in (2, 3) else 1.0
     return _Launch(
@@ -663,13 +699,23 @@ def _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy):
         scheduler=(SCHEDULER_IDS[type(spec.scheduler)]
                    if spec.needs_lam else 0),
         lj_alpha=spec.lj_alpha, coul_alpha_sc=spec.coul_alpha_sc,
-        coul_sigma_q=spec.coul_sigma_q)
+        coul_sigma_q=spec.coul_sigma_q, probe=KERNEL_PROBES.get(probe, 0))
 
 
-def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
-                         compute_energy=False, lam_role=None):
-    """Launch csrc/pair_nonbonded.cu on the current stream (f32 only)."""
-    global LAUNCHES
+def launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
+                energy_virial=None, probe=""):
+    """Check the inputs and return the arguments of the C launcher
+    ``pair_nonbonded_launch`` for a launch into the caller's zeroed
+    ``forces`` (N, 3) f32 and, with energy, ``energy_virial`` (7,) f64;
+    the launch struct rides as the last element (kept alive with them)."""
+    _check_probe(probe)
+    compute_energy = energy_virial is not None
+    if probe in KERNEL_PROBES and (
+            spec.coul_mode != 3 or compute_energy
+            or getattr(boundary, "basis", None) is not None):
+        raise ValueError(f"probe {probe!r} has kernel instances for "
+                         "forces-only Ewald launches in an orthorhombic box "
+                         "only")
     pos4, lj2, ids, bits, pairs = (blockpairs.pos4, blockpairs.lj2,
                                    blockpairs.ids, blockpairs.bits,
                                    blockpairs.pairs)
@@ -685,21 +731,39 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
         if lam_role.shape[0] != pos4.shape[0]:
             raise ValueError("lam_role must have one row per slot")
         lr_ptr = lam_role.data_ptr()
-    dev = pos4.device
-    launch = _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy)
+    launch = _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy,
+                          probe)
+    return (pos4.data_ptr(), lj2.data_ptr(), ids.data_ptr(), bits.data_ptr(),
+            pairs.data_ptr(), lr_ptr, ctypes.addressof(launch),
+            forces.data_ptr(),
+            energy_virial.data_ptr() if compute_energy else None,
+            torch.cuda.current_stream(pos4.device).cuda_stream, launch)
+
+
+def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
+                         compute_energy=False, lam_role=None, probe=""):
+    """Launch csrc/pair_nonbonded.cu on the current stream (f32 only). A
+    forces-only call issues one fill of the force buffer and the launch;
+    energy and virial are then None. ``probe`` "preponly" launches nothing
+    (zeros out)."""
+    global LAUNCHES
+    dev = blockpairs.pos4.device
     forces = torch.zeros((n_atoms, 3), dtype=torch.float32, device=dev)
-    ev = torch.zeros((7,), dtype=torch.float64, device=dev)
-    lib = native.load("pair_nonbonded", _SIG)
-    err = lib.pair_nonbonded_launch(
-        pos4.data_ptr(), lj2.data_ptr(), ids.data_ptr(), bits.data_ptr(),
-        pairs.data_ptr(), lr_ptr, ctypes.addressof(launch),
-        forces.data_ptr(), ev.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pair_nonbonded kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES += 1
-    INSTANCE_LAUNCHES[instance_family(spec, boundary)] += 1
+    ev = (torch.zeros((7,), dtype=torch.float64, device=dev)
+          if compute_energy else None)
+    args = launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
+                       ev, probe)
+    if probe != "preponly":
+        lib = native.load("pair_nonbonded", _SIG)
+        err = lib.pair_nonbonded_launch(*args[:-1])
+        if err != 0:
+            raise RuntimeError(f"pair_nonbonded kernel launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES += 1
+        INSTANCE_LAUNCHES[instance_family(spec, boundary) + (
+            f"+{probe}" if probe in KERNEL_PROBES else "")] += 1
+    if not compute_energy:
+        return forces, None, None
     energy = ev[0].to(torch.float32)
     v = ev[1:].to(torch.float32)
     virial = torch.stack([v[0], v[1], v[2], v[1], v[3], v[4], v[2], v[4],
@@ -708,17 +772,18 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
 
 
 def pair_nonbonded(spec, blockpairs, boundary, n_atoms, compute_energy=False,
-                   lam_role=None):
+                   lam_role=None, probe=""):
     """(forces (N, 3), energy, virial (3, 3)) of every listed pair inside
-    cut_max. CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (f32 only) or raise."""
+    cut_max; energy and virial are None unless ``compute_energy``. CPU
+    tensors run the plain twin; CUDA tensors launch the kernel (f32 only)
+    or raise. ``probe`` names a roofline probe (never on a main path)."""
     if blockpairs.pos4.is_cuda:
         return _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
-                                    compute_energy, lam_role)
+                                    compute_energy, lam_role, probe)
     if blockpairs.pos4.device.type != "cpu":
         raise ValueError(f"unsupported device {blockpairs.pos4.device}")
     return pair_nonbonded_plain(spec, blockpairs, boundary, n_atoms,
-                                compute_energy, lam_role)
+                                compute_energy, lam_role, probe=probe)
 
 
 def far_pair_corrections(spec, coords, boundary, atoms, exclusions, forces,
@@ -728,7 +793,8 @@ def far_pair_corrections(spec, coords, boundary, atoms, exclusions, forces,
     full strength, so excluded pairs are subtracted and 1-4 pairs get
     (scaled - full) added. ``charge`` is the charge the kernel saw (the
     scaled one under scale_q); the alchemical path resolves each pair's
-    lambdas as the kernel does (pallas_pairwise.py:580-603)."""
+    lambdas as the kernel does (pallas_pairwise.py:580-603). Energy and
+    virial None (a forces-only call) stay None."""
     far_e, far_s = exclusions.far_excl, exclusions.far_spec
     if far_e.shape[0] == 0 and far_s.shape[0] == 0:
         return forces, energy, virial
@@ -768,28 +834,33 @@ def far_pair_corrections(spec, coords, boundary, atoms, exclusions, forces,
         de, dc = torch.where(inside, de, zero), torch.where(inside, dc, zero)
         fvec = (dc[:, None] * dx).to(forces.dtype)
         forces = forces.index_add(0, i, fvec).index_add(0, j, -fvec)
-        energy = energy + de.sum().to(energy.dtype)
-        virial = virial - torch.einsum("k,ka,kb->ab", dc, dx, dx).to(
-            virial.dtype)
+        if energy is not None:
+            energy = energy + de.sum().to(energy.dtype)
+            virial = virial - torch.einsum("k,ka,kb->ab", dc, dx, dx).to(
+                virial.dtype)
         return forces, energy, virial
 
     forces, energy, virial = apply(far_e, False, forces, energy, virial)
     return apply(far_s, True, forces, energy, virial)
 
 
-def kernel_inputs(spec, coords, atoms, blockpairs):
+def kernel_inputs(spec, coords, atoms, blockpairs, probe=""):
     """The list's slot rows for one call: (blockpairs with this call's
     coordinates, the (n_pad, 2) lambda rows or None, the charge the kernel
-    sees in atom order or None for the atoms' own).
+    sees in atom order or None for the atoms' own). The roofline probe
+    "nogather" leaves the rows' coordinates as they were (the rebuild's);
+    other probes act later, in pair_nonbonded.
 
     Lambda may change between calls on one list (the cross energies of
     several windows), so nothing lambda-dependent is packed at rebuild: the
     alchemical path gathers its (lambda, role) rows per call, and the
     scaled-charge family fills a fresh slot buffer with the scaled charges,
     leaving the rebuild-time charge column as it was."""
+    _check_probe(probe)
     # in place: the rebuild-time row buffer takes this step's coordinates,
     # so the only per-step data movement of the plain path is this gather
-    blockpairs.pos4[:, :3] = coords[blockpairs.src]
+    if probe != "nogather":
+        blockpairs.pos4[:, :3] = coords[blockpairs.src]
     charge = None
     if spec.scale_q:
         charge = scaled_charge(spec.scheduler, atoms.charge, atoms.lam,
@@ -807,13 +878,15 @@ def block_nonbonded(spec, coords, boundary, atoms, exclusions, blockpairs,
                     compute_energy=False):
     """Main-path entry (counterpart of pallas_block_nonbonded): fill this
     call's slot rows (kernel_inputs), run the pair kernel (or its twin on
-    CPU) and apply the far-pair corrections."""
+    CPU) and apply the far-pair corrections. It takes no roofline probe.
+    Energy and virial are None unless ``compute_energy``."""
     blockpairs, lam_role, charge = kernel_inputs(spec, coords, atoms,
                                                  blockpairs)
     forces, energy, virial = pair_nonbonded(spec, blockpairs, boundary,
                                             coords.shape[0], compute_energy,
                                             lam_role)
     forces = forces.to(coords.dtype)
-    energy, virial = energy.to(coords.dtype), virial.to(coords.dtype)
+    if compute_energy:
+        energy, virial = energy.to(coords.dtype), virial.to(coords.dtype)
     return far_pair_corrections(spec, coords, boundary, atoms, exclusions,
                                 forces, energy, virial, charge)

@@ -326,11 +326,11 @@ def test_unlisted_min_distance_in_triclinic_box(move):
 
 def test_launch_spec_layout():
     """The ctypes struct the launcher reads: 6 ints, 9 + 12 floats, then the
-    lambda path's 4 ints and 3 floats, no padding, in
+    lambda path's 4 ints and 3 floats and the probe id, no padding, in
     csrc/pair_nonbonded.cu's LaunchSpec order; radii that need no mask
     inside cut_max are sent as inf, and a launch without lambda says so."""
     L = pair_kernel._Launch
-    assert ctypes.sizeof(L) == 34 * 4
+    assert ctypes.sizeof(L) == 35 * 4 and L.probe.offset == 34 * 4
     assert L.mic.offset == 6 * 4 and L.cut2.offset == 15 * 4
     assert L.crf.offset == 26 * 4
     assert L.use_lam.offset == 27 * 4 and L.coul_sigma_q.offset == 33 * 4
