@@ -38,9 +38,31 @@ Phases, each printing one line or more before the next starts:
    and the f32 forces against a float64 evaluation through the plain twins;
    on the built cube and dodecahedron, K1b's other modes timed against
    their twins, each with its bound;
-5. for the reaction field in the cube: CUDA-event times of the step's
+5. after the PME main path, the NPT phase on its box: the steepest-
+   descent minimizer on the lattice start (100 iterations on one list;
+   energy and max|F| before and after; gates: the energy fell, the state,
+   one launch per evaluation, no stale list); NPT-PME (MC): from the PME
+   path's end state, Langevin with MonteCarloBarostat at OpenMM's defaults
+   (1 bar, an attempt every 25 steps, isotropic, molecules scaled), a
+   warm-up of at least 100 steps in pieces that end right after an attempt,
+   and at the first accepted move the kernel against its twin at the moved
+   box on the list built at the old one (K1a forces-only and with energy,
+   and the energy instance timed with its bound); then 200 timed steps with
+   the drift check between chunks; gates: launches exactly 1 + steps + 3
+   per attempt (2 with energy), a move accepted, the volume within 5% of the
+   start, the main-path gates and the float64 gate at the final box; a
+   host-sync check over one rebuild interval holding an attempt, stepped
+   under torch.cuda.set_sync_debug_mode("error"); the NPT step's
+   components; NPT-PME (C-rescale): CRescaleBarostat (tau 1 ps, every 10
+   steps, water's compressibility, rigid waters moved by their centres) in
+   20-step pieces with the drift check between them, at least 100 steps
+   and until the finder has been set up anew for the drifted box and a
+   piece has run on it; the virial instance on the main path; the same
+   gates but the volume band (without the constraint virial, as in the
+   JAX package, the box expands) and the instantaneous pressure;
+6. for the reaction field in the cube: CUDA-event times of the step's
    components and a torch.profiler summary of 20 steps;
-6. the alchemical free-energy path (FEP-water): the PME water box with the
+7. the alchemical free-energy path (FEP-water): the PME water box with the
    water nearest the box centre inserted alchemically, Beutler soft-core
    LJ + Beutler soft-core Ewald real space (K1c) and PME on the scheduled
    charges. At lambda 1 the lambda instance against K1a on one frame; the
@@ -51,13 +73,15 @@ Phases, each printing one line or more before the next starts:
    solve on the CPU; the main-path gates and the step's components.
 
 The second-to-last line is a JSON object {"kernels": [...]}: the four
-main-path instance families, then each kernel probe instance (wrong
+main-path instance families, K1a's energy and virial instance on the NPT
+path, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
 probe phase); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -102,7 +126,8 @@ FEP_FAMILY = "lam-coul3-ortho"
 #: probes gather_only, distance_only, noocc for forces-only K1a and K1c
 N_INSTANCES = 32 + 3 * 2
 #: K1a's registers, forces-only / energy, in this design of the tile loop
-K1A_REGISTERS = ("52", "54")
+#: (the box's minimum-image row read from constant memory per launch)
+K1A_REGISTERS = ("50", "56")
 
 #: the kernels line: one entry per instance family
 FAMILIES = {
@@ -114,6 +139,24 @@ FAMILIES = {
     FEP_FAMILY: "pair_nonbonded K1c (soft-core LJ + soft-core Ewald real "
                 "space at per-pair lambda, orthorhombic)",
 }
+
+#: the NPT phase on the PME box after its main path: the Monte Carlo
+#: barostat at OpenMM's defaults (1 bar, an attempt every 25 steps,
+#: isotropic, molecules scaled by their centres), warm-up and timed steps;
+#: then C-rescale (tau 1 ps, every 10 steps) and the minimizer on the
+#: lattice start
+NPT_BAR, MC_EVERY, CRESCALE_EVERY, CRESCALE_TAU = 1.0, 25, 10, 1.0
+NPT_WARMUP, NPT_STEPS, CRESCALE_STEPS, MIN_STEPS = 100, 200, 100, 100
+#: C-rescale runs in pieces of this many steps with npt_resetup between
+CRESCALE_PIECE = 2 * CADENCE
+NPT_FAMILY = "coul3-ortho"
+#: water's isothermal compressibility per bar (the JAX package's default
+#: is ten times it; ROADMAP Queue 3)
+WATER_COMPRESSIBILITY_PER_BAR = 4.6e-5
+#: g/cm^3 per amu/nm^3
+G_CM3_PER_AMU_NM3 = 1.66053906660e-3
+#: the NPT path's volume gate: within 5% of the start
+NPT_VOLUME_BAND = 0.05
 
 #: the TPU kernel's probe sites the kernel probes replace
 PROBE_SITES = {
@@ -164,6 +207,12 @@ COUL_OPS = {0: 0, 1: 9, 2: 11, 3: 37}
 #: LJ distance cutoff, shifted potential (+ the terms at rc), shifted
 #: force (+ dU/dr at rc), no cutoff
 LJ_OPS = {1: 18, 2: 27, 3: 38, 4: 18}
+# the energy and virial instance adds per evaluated pair its Coulomb
+# energy (none, plain, reaction field, Ewald) and the accumulation of the
+# energy and the six virial entries (1 + 6 FMAs), and per pair that takes
+# the LJ term the LJ energy (3)
+COUL_ENERGY_OPS = {0: 0, 1: 2, 2: 3, 3: 2}
+ACCUM_OPS, LJ_ENERGY_OPS = 13, 3
 # K1c on the FEP path (Beutler soft-core LJ, Beutler soft-core Ewald):
 # the lambda block 22 (min, roles, same-group rule, two schedules, lambda
 # 0 rule), the soft-core Coulomb with the A&S screen 53 (sigma^6 shift,
@@ -408,6 +457,7 @@ def kernel_vs_twin(spec, system, nb, exclude=None):
         rms = max(1.0, float(f0.pow(2).sum(dim=1).mean().sqrt()))
         out["ratio"] = max(out["ratio"], df / rms)
         if energy:
+            out["df_energy"] = df
             out["e"] = float(e0)
             out["de"] = abs(float(e) - float(e0)) / max(1.0, abs(float(e0)))
             out["dv"] = float((v - v0).abs().max()) / max(
@@ -455,9 +505,10 @@ def compare(label, system, timing=False):
                 f"forces-only call; {work:g} runtime calls that put work on "
                 "the device per call")
         print(line, flush=True)
-        # the force fill and the launch, nothing else
-        if work > 2:
-            raise RuntimeError(line + ": more than the fill and the launch")
+        # the force fill, the box row's copy and the launch, nothing else
+        if work > 3:
+            raise RuntimeError(line + ": more than the fill, the box row's "
+                               "copy and the launch")
         out.update(bound(label, spec, nbk, system.boundary, n, lam_role))
     return out
 
@@ -481,17 +532,22 @@ def pair_ops(spec, boundary):
             (LJ_OPS[spec.lj_mode] if spec.lj_mode else 0, 0))
 
 
-def bound(label, spec, nb, boundary, n, lam_role=None):
-    """The least time the card could take for the forces-only launch."""
+def bound(label, spec, nb, boundary, n, lam_role=None, energy=False):
+    """The least time the card could take for the forces-only launch, or
+    with ``energy`` for the energy and virial launch."""
     from mollytpu_torch.ops import pair_kernel as pk
     family = pk.instance_family(spec, boundary)
     live, lj_live = pk.live_pair_count(spec, nb, boundary, n, lam_role)
     (ops_pair, sfu_pair), (ops_lj, sfu_lj) = pair_ops(spec, boundary)
+    if energy:
+        ops_pair += COUL_ENERGY_OPS[spec.coul_mode] + ACCUM_OPS
+        ops_lj += LJ_ENERGY_OPS
     ops = live * ops_pair + lj_live * ops_lj
     sfu = live * sfu_pair + lj_live * sfu_lj
     nbytes = 4 * (nb.pos4.numel() + nb.lj2.numel() + nb.ids.numel()
                   + nb.bits.numel() + nb.pairs.numel() + 3 * n
-                  + (lam_role.numel() if spec.needs_lam else 0))
+                  + (lam_role.numel() if spec.needs_lam else 0)
+                  + (2 * 7 if energy else 0))
     t_ops = max(ops / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -588,7 +644,7 @@ def profiled(fn, reps):
                     if "pair_nonbonded_kernel" in e.key)
     work = sum(e.count for e in avgs if e.key.startswith(
         ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemsetAsync",
-         "cudaMemcpyAsync")))
+         "cudaMemcpyAsync", "cudaMemcpyToSymbolAsync")))
     return kernel_us / 1e3 / reps, work / reps
 
 
@@ -949,6 +1005,357 @@ def main_path(label, system, n_chunks, family):
                 nb=nb, aux=aux, sim=sim, gen=gen, step=step)
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Pair-kernel launches inside are not counted: the checks of a kernel
+    against its twin in the middle of a main path."""
+    from mollytpu_torch.ops import pair_kernel as pk
+    saved = (pk.LAUNCHES, pk.INSTANCE_LAUNCHES.copy(),
+             pk.ENERGY_LAUNCHES.copy())
+    try:
+        yield
+    finally:
+        pk.LAUNCHES = saved[0]
+        for counter, old in zip((pk.INSTANCE_LAUNCHES, pk.ENERGY_LAUNCHES),
+                                saved[1:]):
+            counter.clear()
+            counter.update(old)
+
+
+def density(system):
+    """g/cm^3 of the system in its box."""
+    return (G_CM3_PER_AMU_NM3 * float(system.masses.double().sum())
+            / float(system.boundary.volume()))
+
+
+def minimize_phase(system):
+    """SteepestDescentMinimizer on the lattice PME box, on one list:
+    energy and max|F| before and after; gates: the energy fell, the
+    coordinates are finite, the constraints hold, every evaluation
+    launched the kernel, the list is not stale (the minimizer raises)."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    nb = system.neighbor_finder.find(system.coords, system.boundary,
+                                     system.exclusions)
+    with uncounted():
+        f0, _ = pt.forces_virial(system, nb)
+        f_max0 = float(torch.linalg.vector_norm(f0, dim=1).max())
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, info = pt.SteepestDescentMinimizer(max_steps=MIN_STEPS).minimize(
+        system, nb)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = pk.LAUNCHES
+    f1, _ = pt.forces_virial(out, nb)
+    f_max = float(torch.linalg.vector_norm(f1, dim=1).max())
+    e0, e1 = float(info["energy_initial"]), float(info["energy_final"])
+    accepted = len(set(info["energies"].tolist()) - {e0})
+    temp, viol = check_state("Minimize", out)
+    print(f"Minimize: {MIN_STEPS} iterations in {secs:.2f} s on one list "
+          f"({accepted} moves accepted; {launches} pair-kernel launches for "
+          f"{1 + 2 * MIN_STEPS} evaluations): energy {e0:.6e} -> "
+          f"{e1:.6e} kJ/mol, max|F| {f_max0:.4e} -> {f_max:.4e} kJ/mol/nm; "
+          f"max constraint violation {viol:.3e} nm; unlisted atom pairs at "
+          f"least {info['closest_unlisted']:.4f} nm apart", flush=True)
+    if not e1 < e0:
+        raise RuntimeError("Minimize: the energy did not fall")
+    if launches != 1 + 2 * MIN_STEPS:
+        raise RuntimeError(f"Minimize: {launches} pair-kernel launches")
+
+
+def moved_box_check(label, system, nb):
+    """Right after an accepted volume move, before the next rebuild: the
+    kernel against its twin at the moved box on the list built at the old
+    one, forces-only and with energy (the kernel reads the call's box);
+    the energy instance timed there, with its bound. Returns its entry of
+    the kernels line."""
+    from mollytpu_torch.ops import pair_kernel as pk
+    spec = pk.build_fused_spec(system.pairwise_inters)
+    n = system.n_atoms
+    # a pair within NEAR_CUT of the cutoff may land on the other side of it
+    # in the kernel's FMA-contracted r^2 than in the twin's: as in
+    # check_f64, its atoms are left out of the force gate, and their error
+    # is printed
+    nbk, _, _ = pk.kernel_inputs(spec, system.coords, system.atoms, nb)
+    near = near_cutoff_atoms(spec, nbk, system.boundary, n)
+    r, nbk, _ = kernel_vs_twin(spec, system, nb, exclude=near)
+    r_all, _, _ = kernel_vs_twin(spec, system, nb)
+    line = (f"{label} kernel at the moved box (list built at the old one): "
+            f"max|dF| {r['df']:.3e} forces-only, {r['df_energy']:.3e} with "
+            f"energy, rms|F| {r['rms']:.3e}, ratio {r['ratio']:.3e} over the "
+            f"{int((~near).sum())} atoms with no pair within {NEAR_CUT} nm "
+            f"of the cutoff ({r_all['ratio']:.3e} over all); rel dE "
+            f"{r['de']:.3e}; rel dvir {r['dv']:.3e}")
+    print(line, flush=True)
+    if not r["ok"]:
+        raise RuntimeError(line + " exceeds the tolerance")
+    t_d = device_ms(spec, nbk, system.boundary, n, energy=True)
+    t_p = _time(lambda: pk.pair_nonbonded_plain(spec, nbk, system.boundary,
+                                                n, True))
+    print(f"{label} energy instance at the moved box: {t_d:.4f} ms device "
+          f"(events over 25 back-to-back launches), plain twin {t_p:.4f} ms",
+          flush=True)
+    b = bound(f"{label} energy instance", spec, nbk, system.boundary, n,
+              energy=True)
+    return dict(max_abs_err=r["df_energy"], ms=t_d, plain_ms=t_p,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+
+def npt_mc(run, line):
+    """The NPT-PME main path from the PME path's end state: Langevin with
+    the Monte Carlo barostat. Warm-up in pieces that end right after an
+    attempt, until NPT_WARMUP steps are done and the first accepted move
+    has been checked (moved_box_check), then NPT_STEPS timed steps with the
+    drift check between chunks. Gates: launches (1 + steps + 3 per attempt,
+    2 per attempt with energy), a move accepted, the volume band, the main
+    path's state, stale-list and float64 gates."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "NPT-PME (MC)"
+    system, nb, gen, step = (run[k] for k in ("system", "nb", "gen", "step"))
+    baro = pt.MonteCarloBarostat(NPT_BAR * pt.units.BAR, TEMP,
+                                 n_steps=MC_EVERY, scale_molecules=True,
+                                 coupling="isotropic")
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION,
+                      coupling=(baro,))
+    vol0, rho0, first = float(system.boundary.volume()), density(system), \
+        step
+    pk.reset_launch_counts()
+    aux = sim.init_aux(system, nb)
+    closest, moved = math.inf, None
+    t0 = time.perf_counter()
+    while step - first < NPT_WARMUP or moved is None:
+        if step - first >= 4 * NPT_WARMUP:
+            raise RuntimeError(f"{label}: no move accepted in "
+                               f"{step - first} steps")
+        attempt = step + (-step) % MC_EVERY
+        system, nb, aux, near = pt.run_chunk(sim, system, nb, aux, step,
+                                             attempt - step + 1,
+                                             generator=gen)
+        closest, step = min(closest, near), attempt + 1
+        if moved is None and int(aux["mc_baro"]["accepted"]):
+            with uncounted():
+                moved = moved_box_check(f"{label} step {attempt}", system,
+                                        nb)
+    torch.cuda.synchronize()
+    print(f"{label}: warm-up of {step - first} steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    timed0 = step
+    t0 = time.perf_counter()
+    for _ in range(NPT_STEPS // CHUNK):
+        system, nb, aux, near = pt.run_chunk(sim, system, nb, aux, step,
+                                             CHUNK, generator=gen)
+        closest, step = min(closest, near), step + CHUNK
+        system, nb = pt.npt_resetup(sim, system, nb, step)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n_steps = step - first
+    attempts = sum(1 for s in range(first, step) if s % MC_EVERY == 0)
+    state = {k: int(v) for k, v in aux["mc_baro"].items() if k != "scale"}
+    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[NPT_FAMILY]
+    energy = pk.ENERGY_LAUNCHES[NPT_FAMILY]
+    want = 1 + n_steps + 3 * attempts
+    if (state["attempted"] != attempts or launches != want or own != want
+            or energy != 2 * attempts):
+        raise RuntimeError(
+            f"{label}: {launches} pair-kernel launches ({own} of instance "
+            f"{NPT_FAMILY}, {energy} with energy) and {state['attempted']} "
+            f"attempts for {n_steps} steps and {attempts} attempt steps "
+            f"(want {want} launches, {2 * attempts} with energy)")
+    temp, viol = check_state(label, system)
+    vol = float(system.boundary.volume())
+    ms = 1e3 * elapsed / (step - timed0)
+    ns_day = pt.units.ps_per_step_to_ns_per_day(DT, ms * 1e-3)
+    print(f"{label}: {n_steps} steps, {state['attempted']} attempts, "
+          f"{state['accepted']} accepted, proposal scale "
+          f"{float(aux['mc_baro']['scale']):.4f} nm^3; volume {vol0:.4f} -> "
+          f"{vol:.4f} nm^3, density {rho0:.4f} -> {density(system):.4f} "
+          f"g/cm^3; {launches} pair-kernel launches = 1 + {n_steps} steps + "
+          f"3 x {attempts} attempts ({energy} with energy); T {temp:.2f} K, "
+          f"max constraint violation {viol:.3e} nm; unlisted atom pairs at "
+          f"the rebuilds at least {closest:.4f} nm apart", flush=True)
+    print(f"{label}: {ms:.4f} ms/step, {ns_day:.4f} ns/day "
+          f"({step - timed0} timed steps; card {line})", flush=True)
+    if not state["accepted"]:
+        raise RuntimeError(f"{label}: no move accepted")
+    if abs(vol / vol0 - 1.0) > NPT_VOLUME_BAND:
+        raise RuntimeError(f"{label}: the volume left the "
+                           f"{NPT_VOLUME_BAND:.0%} band")
+    with uncounted():
+        check_f64(label, system, aux["forces"],
+                  pt.potential_energy(system, nb))
+    moved["launches"] = energy
+    return dict(moved=moved, ms=ms, ns_day=ns_day, launches=launches,
+                system=system, nb=nb, aux=aux, sim=sim, gen=gen, step=step)
+
+
+def npt_crescale(run, line):
+    """C-rescale on the NPT-MC end state: the virial instance on the main
+    path every CRESCALE_EVERY steps, in pieces of CRESCALE_PIECE steps with
+    npt_resetup between them, until CRESCALE_STEPS steps are done and the
+    finder has been set up anew for a drifted box with CRESCALE_PIECE steps
+    run after it. Gates: launches (1 + steps + one recompute per move, the
+    virial steps with energy), a re-setup and the steps after it, the main
+    path's state, stale-list and float64 gates; the instantaneous pressure
+    is printed. No volume gate: without the constraint virial (as the JAX
+    package) rigid water reads ~+13 kbar and the box expands."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "NPT-PME (C-rescale)"
+    system, nb, gen, first = (run[k] for k in ("system", "nb", "gen",
+                                               "step"))
+    baro = pt.CRescaleBarostat(
+        NPT_BAR * pt.units.BAR, TEMP, CRESCALE_TAU,
+        compressibility=WATER_COMPRESSIBILITY_PER_BAR / pt.units.BAR,
+        n_steps=CRESCALE_EVERY, scale_molecules=True)
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION,
+                      coupling=(baro,))
+    vol0 = float(system.boundary.volume())
+    pk.reset_launch_counts()
+    aux = sim.init_aux(system, nb)
+    closest, step, resetups = math.inf, first, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while (step - first < CRESCALE_STEPS or not resetups
+           or step - resetups[0] < CRESCALE_PIECE):
+        if step - first >= 3 * CRESCALE_STEPS:
+            raise RuntimeError(f"{label}: no re-setup in {step - first} "
+                               "steps")
+        system, nb, aux, near = pt.run_chunk(sim, system, nb, aux, step,
+                                             CRESCALE_PIECE, generator=gen)
+        closest, step = min(closest, near), step + CRESCALE_PIECE
+        finder = system.neighbor_finder
+        system, nb = pt.npt_resetup(sim, system, nb, step)
+        if system.neighbor_finder is not finder:
+            resetups.append(step)
+    torch.cuda.synchronize()
+    n_steps = step - first
+    ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    moves = sum(1 for s in range(first, step) if s % CRESCALE_EVERY == 0)
+    launches, energy = pk.LAUNCHES, pk.ENERGY_LAUNCHES[NPT_FAMILY]
+    if (launches != 1 + n_steps + moves
+            or pk.INSTANCE_LAUNCHES[NPT_FAMILY] != launches
+            or energy != moves):
+        raise RuntimeError(f"{label}: {launches} pair-kernel launches "
+                           f"({energy} with energy) for {n_steps} "
+                           f"steps and {moves} moves")
+    temp, viol = check_state(label, system)
+    with uncounted():
+        _, vir = pt.forces_virial(system, nb, needs_virial=True)
+        p_bar = float(pt.scalar_pressure(pt.kinetic_energy_tensor(
+            system.masses, system.velocities), vir,
+            system.boundary.volume())) / pt.units.BAR
+        check_f64(label, system, aux["forces"],
+                  pt.potential_energy(system, nb))
+    print(f"{label}: {n_steps} steps in pieces of {CRESCALE_PIECE}, "
+          f"{moves} box moves; neighbor finder set up anew for the drifted "
+          f"box after steps {resetups}; volume {vol0:.4f} -> "
+          f"{float(system.boundary.volume()):.4f} nm^3, density "
+          f"{density(system):.4f} g/cm^3; instantaneous pressure "
+          f"{p_bar:.1f} bar (no constraint virial, as the JAX package); "
+          f"{launches} pair-kernel launches ({energy} with energy and "
+          f"virial); T {temp:.2f} K, max constraint violation {viol:.3e} "
+          f"nm; unlisted atom pairs at the rebuilds at least "
+          f"{closest:.4f} nm apart; {ms:.4f} ms/step over an expanding box, "
+          f"re-setups included ({line})", flush=True)
+    return dict(ms=ms, launches=launches)
+
+
+def sync_check(run):
+    """One rebuild interval that holds a Monte Carlo attempt, stepped on one
+    list under torch.cuda.set_sync_debug_mode("error"): a host sync anywhere
+    in the step (the integrator, the barostat's attempt with its trial
+    energies, the force recompute) raises and fails the run. A known sync
+    is made under the same mode first, to show that the mode catches one."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops.blockpairs import unlisted_min_distance
+    from mollytpu_torch.sim.coupling import virial_due
+    from mollytpu_torch.sim.simulate import list_cutoff, raise_if_stale
+    sim, system, nb, aux, gen, step = (run[k] for k in (
+        "sim", "system", "nb", "aux", "gen", "step"))
+    attempt = step + (-step) % MC_EVERY
+    start = attempt - attempt % CADENCE
+    if start > step:
+        system, nb, aux, _ = pt.run_chunk(sim, system, nb, aux, step,
+                                          start - step, generator=gen)
+    elif start < step:
+        raise RuntimeError("sync check: the attempt's interval has begun")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            float(system.coords.sum())
+        except RuntimeError:
+            pass
+        else:
+            raise RuntimeError("sync check: the sync debug mode let a known "
+                               "host sync through")
+        for step_n in range(start, start + CADENCE):
+            try:
+                system, aux = sim.step(
+                    system, nb, aux, step_n, generator=gen,
+                    needs_virial=virial_due(sim.coupling, step_n))
+            except RuntimeError as err:
+                raise RuntimeError(f"sync check: a host sync in step "
+                                   f"{step_n}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cutoff = list_cutoff(system)
+    raise_if_stale(unlisted_min_distance(nb, system.coords, system.boundary,
+                                         cutoff), cutoff)
+    print(f"sync check, steps {start}-{start + CADENCE - 1} (attempt at "
+          f"{attempt}) on one list under set_sync_debug_mode(\"error\"): no "
+          "host sync (a known one made first was caught)", flush=True)
+
+
+def npt_components(run):
+    """CUDA-event times (median of 20) of the NPT step's parts on the
+    NPT-MC end state."""
+    import mollytpu_torch as pt
+    from mollytpu_torch import forces_virial
+    sim, system, nb, aux, gen, step = (run[k] for k in (
+        "sim", "system", "nb", "aux", "gen", "step"))
+    baro = sim.coupling[0]
+    attempt = step + (-step) % MC_EVERY
+    parts = {
+        "Langevin step without an attempt": lambda: sim.step(
+            system, nb, aux, attempt + 1, generator=gen),
+        "Langevin step with an attempt": lambda: sim.step(
+            system, nb, aux, attempt, generator=gen),
+        "MC attempt (barostat apply)": lambda: baro.apply(
+            system, aux, DT, attempt, gen, neighbors=nb),
+        "potential_energy (one trial energy)": lambda: pt.potential_energy(
+            system, nb),
+        "forces_virial (the recompute)": lambda: forces_virial(system, nb),
+        "scale_coords_molecular": lambda: pt.scale_coords_molecular(
+            system.boundary, system.coords, 1.001, system.masses,
+            system.molecule_ids, system.n_molecules),
+    }
+    for name, fn in parts.items():
+        print(f"NPT-PME (MC) component: {name}: {_time(fn, 2, 20):.4f} ms",
+              flush=True)
+
+
+def npt_phase(built, run, line):
+    """The NPT phase on the PME box: the minimizer on the lattice start,
+    the Monte Carlo barostat from the PME path's end state (with the kernel
+    at the first moved box), the host-sync check, the step's components,
+    then C-rescale. Returns the NPT-MC summary and the energy instance's
+    entry."""
+    minimize_phase(built)
+    mc = npt_mc(run, line)
+    sync_check(mc)
+    npt_components(mc)
+    crescale = npt_crescale(mc, line)
+    return {"MC": {k: mc[k] for k in ("ms", "ns_day", "launches")},
+            "C-rescale": crescale}, mc["moved"]
+
+
 def other_modes(label, system, modes):
     """K1b's other modes on the built water box at 1.0 nm radii: each
     against its twin, timed, with its bound."""
@@ -1266,6 +1673,8 @@ def main():
             elif label == "RF-dodecahedron":
                 other_modes(label, system, OTHER_MODES_TRICLINIC)
             runs[label] = main_path(label, system, n_chunks, family)
+            if label == "PME":
+                npt, npt_energy = npt_phase(system, runs[label], line)
             if label == "RF-ortho":
                 components(label, runs[label])
             runs[label] = {k: runs[label][k]
@@ -1297,7 +1706,11 @@ def main():
     paths.append(("FEP-water", FEP_FAMILY))
     print(f"card: {line}; " + "; ".join(
         f"{label} {r['ms']:.4f} ms/step, {r['ns_day']:.4f} ns/day"
-        for label, r in runs.items()), flush=True)
+        for label, r in runs.items()) + f"; NPT-PME (MC) "
+        f"{npt['MC']['ms']:.4f} ms/step, {npt['MC']['ns_day']:.4f} ns/day; "
+        f"NPT-PME (C-rescale) {npt['C-rescale']['ms']:.4f} ms/step (an "
+        "expanding box, re-setups included: not a representative NPT "
+        "rate)", flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
@@ -1308,6 +1721,15 @@ def main():
         "bound_ms": stats[family]["bound_ms"],
         "bound_by": stats[family]["bound_by"], "library_ms": None}
         for label, family in paths]
+    kernels.append({
+        "name": "pair_nonbonded K1a with energy and virial (LJ + Ewald "
+                "real space, orthorhombic; the NPT path's Monte Carlo trial "
+                "energies)", "route": "cuda",
+        "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
+        "replaces": "mollytpu/ops/pallas_pairwise.py:636",
+        **{k: npt_energy[k] for k in ("launches", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None})
     kernels += [{
         "name": f"{FAMILIES[e['family']]}, roofline probe {e['probe']} "
                 "(wrong physics on purpose; not on a main path)",

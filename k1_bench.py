@@ -14,8 +14,12 @@ example an earlier commit's, written into a directory that .gitignore lists:
 
     git show REV:mollytpu_torch/csrc/pair_nonbonded.cu > _baseline/k1.cu
 
-Its LaunchSpec must be a prefix of this one's (fields are only appended).
-Needs one CUDA card and nvcc, as chip_smoke.py does.
+Its C interface must be this one's: the launcher takes the box's
+minimum-image row as a device pointer after lam_role, and its LaunchSpec is
+a prefix of this one's (fields are only appended). A source that still
+carries the box in LaunchSpec (``float mic[9]``) has another interface and
+cannot be compared here. Needs one CUDA card and nvcc, as chip_smoke.py
+does.
 """
 
 import argparse

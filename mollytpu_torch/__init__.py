@@ -30,11 +30,20 @@ from .ops.pairwise import (
     CoulombSoftCoreGapsysReactionField, LennardJones,
     LennardJonesSoftCoreBeutler, LennardJonesSoftCoreGapsys)
 from .ops.blockpairs import BlockPairFinder, BlockPairs
-from .sim.integrators import Langevin
-from .sim.simulate import StaleNeighborList, run_chunk, simulate
-from .spatial import (kinetic_energy, kinetic_energy_tensor, n_dof,
-                      random_velocities, remove_cm_motion, temperature)
-from .system import Exclusions, System
+from .sim.coupling import (AndersenThermostat, BerendsenBarostat,
+                           BerendsenThermostat, CRescaleBarostat,
+                           ImmediateThermostat, MonteCarloBarostat,
+                           VelocityRescaleThermostat, apply_couplers,
+                           couplers_invalidate_forces, needs_virial_interval)
+from .sim.integrators import Langevin, VelocityVerlet
+from .sim.minimize import SteepestDescentMinimizer
+from .sim.simulate import (StaleNeighborList, npt_resetup, run_chunk,
+                           simulate)
+from .spatial import (kinetic_energy, kinetic_energy_tensor,
+                      molecule_centers, n_dof, pressure_tensor,
+                      random_velocities, remove_cm_motion, scalar_pressure,
+                      scale_coords, scale_coords_molecular, temperature)
+from .system import Exclusions, System, molecule_ids_from_bonds
 from .free_energy.mbar import (MBARInput, assemble_mbar_inputs,
                                free_energy_differences, iterate_mbar,
                                mbar_weights)

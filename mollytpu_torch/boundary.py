@@ -7,10 +7,15 @@ the box vectors a = (h11, 0, 0), b = (h21, h22, 0), c = (h31, h32, h33).
 
 Two minimum images live here. ``displacement`` is the JAX package's own
 (per-axis rounding, fractional rounding for a Triclinic box); ``mic`` is
-the pair kernel's back-substitution form over the 9-float ``mic_row``
-(round out the c image, then b, then a). Both give the shortest image for
-every pair closer than half the smallest perpendicular width in a reduced
-box (a test checks it against 125 images for the boxes used).
+the pair kernel's back-substitution form over the box's 9-float row
+(``mic_row_tensor``: round out the c image, then b, then a). Both give the
+shortest image for every pair closer than half the smallest perpendicular
+width in a reduced box (a test checks it against 125 images for the boxes
+used).
+
+A barostat moves the box on the device: ``scale`` and ``where`` build the
+new box from tensors alone, and ``mic_row_tensor`` hands the pair kernel
+its row as a device tensor, so no box change waits for the host.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ class Orthorhombic:
     """Cubic / rectangular box. ``side_lengths`` is a (3,) tensor in nm."""
 
     side_lengths: torch.Tensor
+
+    def __post_init__(self):
+        _init_rows(self)
 
     def volume(self):
         return torch.prod(self.side_lengths)
@@ -62,13 +70,36 @@ class Orthorhombic:
         side lengths (inf for an open axis)."""
         return [float(s) for s in self.side_lengths.tolist()]
 
-    def mic_row(self):
+    def _row(self, dtype):
+        box = self.side_lengths.to(dtype)
+        periodic = torch.isfinite(box)
+        side = torch.where(periodic, box, torch.zeros_like(box))
+        inv = torch.where(periodic, 1.0 / box, torch.zeros_like(box))
+        zero = torch.zeros_like(box[0])
+        return torch.stack([side[0], zero, side[1], zero, zero, side[2],
+                            inv[0], inv[1], inv[2]])
+
+    def mic_row_tensor(self, dtype=None):
         """The kernel's 9 floats h11, h21, h22, h31, h32, h33, 1/h11, 1/h22,
-        1/h33 on the host; an open axis gets side 0 and inverse 0, so the
-        minimum image leaves it alone."""
-        s = [L if math.isfinite(L) else 0.0 for L in self.perp_widths()]
-        return (s[0], 0.0, s[1], 0.0, 0.0, s[2],
-                *(1.0 / L if L else 0.0 for L in s))
+        1/h33 as a (9,) tensor on the box's device, built there once per
+        box and dtype (no host read); an open axis gets side 0 and inverse
+        0, so the minimum image leaves it alone."""
+        return _cached_row(self, dtype)
+
+    def scale(self, mu):
+        """The box scaled by a barostat's mu: a scalar, a (3,) per-axis
+        tensor, or a (3, 3) matrix whose diagonal scales the sides."""
+        mu = torch.as_tensor(mu, dtype=self.side_lengths.dtype,
+                             device=self.side_lengths.device)
+        if mu.dim() == 2:
+            mu = torch.diagonal(mu)
+        return Orthorhombic(self.side_lengths * mu)
+
+    def where(self, cond, other):
+        """This box where the 0-d bool tensor ``cond`` holds, else
+        ``other``, selected on the device."""
+        return Orthorhombic(torch.where(cond, self.side_lengths,
+                                        other.side_lengths))
 
     def to(self, device=None, dtype=None):
         return Orthorhombic(self.side_lengths.to(device=device, dtype=dtype))
@@ -79,16 +110,23 @@ class Triclinic:
     """Triclinic box: ``basis`` is a (3, 3) lower-triangular tensor whose rows
     are the box vectors (a along x, b in the xy plane), as in the JAX
     package. ``displacement`` rounds fractional coordinates (the JAX
-    package's ``approx_images=True``)."""
+    package's ``approx_images=True``). ``inv`` is the basis's inverse:
+    given by ``scale`` and ``where``, which derive it on the device, or
+    computed once at construction."""
 
     basis: torch.Tensor
+    inv: torch.Tensor = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
     def __post_init__(self):
-        # the inverse once, on the host in float64: a per-call linalg.inv on
-        # the card would wait for its error check every step
-        inv = torch.linalg.inv(self.basis.detach().to("cpu", torch.float64))
-        object.__setattr__(self, "_inv", inv.to(self.basis.device,
-                                                self.basis.dtype))
+        _init_rows(self)
+        if self.inv is None:
+            # once, on the host in float64: a per-call linalg.inv on the
+            # card would wait for its error check every step
+            inv = torch.linalg.inv(self.basis.detach().to("cpu",
+                                                          torch.float64))
+            object.__setattr__(self, "inv", inv.to(self.basis.device,
+                                                   self.basis.dtype))
 
     def volume(self):
         # lower-triangular: the determinant is the diagonal's product
@@ -107,7 +145,7 @@ class Triclinic:
 
     def fractional(self, x):
         # x = f @ basis  =>  f = x @ inv(basis)
-        return x @ self._inv
+        return x @ self.inv
 
     def from_fractional(self, f):
         return f @ self.basis
@@ -128,20 +166,62 @@ class Triclinic:
         return [vol / float(torch.linalg.vector_norm(torch.linalg.cross(
             h[(k + 1) % 3], h[(k + 2) % 3]))) for k in range(3)]
 
-    def mic_row(self):
-        """The kernel's 9 floats (mollytpu/ops/blockpairs.py:107-129)."""
-        h = self.basis.tolist()
-        return (h[0][0], h[1][0], h[1][1], h[2][0], h[2][1], h[2][2],
-                1.0 / h[0][0], 1.0 / h[1][1], 1.0 / h[2][2])
+    def _row(self, dtype):
+        h = self.basis.to(dtype)
+        d = torch.diagonal(h)
+        return torch.cat([h[0, :1], h[1, :2], h[2], 1.0 / d])
+
+    def mic_row_tensor(self, dtype=None):
+        """The kernel's 9 floats (mollytpu/ops/blockpairs.py:107-129) as a
+        (9,) tensor on the box's device, built there once per box and
+        dtype (no host read)."""
+        return _cached_row(self, dtype)
+
+    def scale(self, mu):
+        """The box scaled by a barostat's mu (JAX boundary.py:164-170): a
+        scalar scales the basis, a (3,) tensor its columns (each Cartesian
+        axis), a (3, 3) matrix maps it to basis @ mu.T; the matrix must be
+        upper triangular, so that the basis stays lower triangular as the
+        volume and the kernel's minimum image need. The inverse follows on
+        the device: inv / mu, diag(1/mu) inv, or inv(mu.T) @ inv."""
+        mu = torch.as_tensor(mu, dtype=self.basis.dtype,
+                             device=self.basis.device)
+        if mu.dim() == 0:
+            return Triclinic(self.basis * mu, inv=self.inv / mu)
+        if mu.dim() == 1:
+            return Triclinic(self.basis * mu[None, :],
+                             inv=self.inv / mu[:, None])
+        inv_mu_t, _ = torch.linalg.inv_ex(mu.T)
+        return Triclinic(self.basis @ mu.T, inv=inv_mu_t @ self.inv)
+
+    def where(self, cond, other):
+        """This box where the 0-d bool tensor ``cond`` holds, else
+        ``other``, selected on the device."""
+        return Triclinic(torch.where(cond, self.basis, other.basis),
+                         inv=torch.where(cond, self.inv, other.inv))
 
     def to(self, device=None, dtype=None):
-        return Triclinic(self.basis.to(device=device, dtype=dtype))
+        return Triclinic(self.basis.to(device=device, dtype=dtype),
+                         inv=self.inv.to(device=device, dtype=dtype))
+
+
+def _init_rows(box):
+    object.__setattr__(box, "_rows", {})
+
+
+def _cached_row(box, dtype):
+    dtype = dtype or box.side_lengths.dtype
+    row = box._rows.get(dtype)
+    if row is None:
+        # boxes are immutable: a barostat move makes a new one
+        row = box._rows[dtype] = box._row(dtype)
+    return row
 
 
 def mic(row, dx, dy, dz):
     """Back-substitution minimum image of the components dx, dy, dz (any
     shape) over a 9-entry ``row`` (floats or 0-d tensors) laid out as
-    ``mic_row``: round out the c image, then b, then a. With zero
+    ``mic_row_tensor``: round out the c image, then b, then a. With zero
     off-diagonals this is per-axis rounding."""
     h11, h21, h22, h31, h32, h33, ih11, ih22, ih33 = row
     s3 = torch.round(dz * ih33)
@@ -158,7 +238,7 @@ def mic(row, dx, dy, dz):
 def mic_displacement(boundary, xi, xj):
     """The pair kernel's minimum-image vector from xi to xj, (..., 3)."""
     dr = xj - xi
-    row = torch.tensor(boundary.mic_row(), dtype=dr.dtype, device=dr.device)
+    row = boundary.mic_row_tensor(dr.dtype).to(dr.device)
     return torch.stack(mic(row, dr[..., 0], dr[..., 1], dr[..., 2]), dim=-1)
 
 

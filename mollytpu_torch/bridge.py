@@ -1,6 +1,7 @@
 """Build the port's System from a JAX-package System whose arrays were
 fetched to the host (``jax.device_get(sys)``): the "weights" of a run
-(atom parameters, box, interactions, exclusions, PME moduli, constraints)
+(atom parameters, box, interactions, exclusions, PME moduli, constraints,
+molecule ids)
 carried over as numpy arrays. Duck-typed on attribute and class names, so
 the port never imports the JAX package; the parity tests use it to hand
 both packages the same system.
@@ -180,4 +181,7 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                   general_inters=tuple(_general(g, dtype, device)
                                        for g in tree.general_inters),
                   constraints=tuple(constraints), exclusions=exclusions,
-                  neighbor_finder=finder, n_dof=int(tree.n_dof))
+                  neighbor_finder=finder, n_dof=int(tree.n_dof),
+                  molecule_ids=_tensor(tree.molecule_ids, torch.int32,
+                                       device),
+                  n_molecules=int(tree.n_molecules))

@@ -87,8 +87,18 @@
 // Minimum image: back-substitution over the lower-triangular box rows a =
 // (h11, 0, 0), b = (h21, h22, 0), c = (h31, h32, h33): round out the c
 // image, then b, then a; an orthorhombic box rounds each axis on its own,
-// and an open axis has side and inverse 0. Roles ride as floats (0 core,
-// 1 insert, 2 delete), as in the TPU kernel.
+// and an open axis has side and inverse 0. The box's 9 floats come from the
+// caller's device buffer (the call's box, built on the device): the
+// launcher copies them into constant memory on the launch's stream right
+// before the kernel, so a barostat's move reaches the kernel without a host
+// read, a captured launch would take the buffer's pointer, and the kernel
+// reads them as constant operands, as it read the launch parameters
+// (loading them into registers instead cost K1a 5-8 registers and made
+// three lambda/energy instances spill). Stream order gives every launch its
+// own box; as all streams share the one buffer, ops/pair_kernel.py's
+// launch_args makes a launch on another stream wait for the work queued on
+// the stream of the last launch.
+// Roles ride as floats (0 core, 1 insert, 2 delete), as in the TPU kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,7 +149,6 @@ struct LaunchSpec {
   int coul_mode;       // 0 none, 1 plain, 2 reaction field, 3 Ewald real
   int triclinic;       // 0: per-axis minimum image
   int compute_energy;
-  float mic[9];        // h11 h21 h22 h31 h32 h33 1/h11 1/h22 1/h33
   float cut2;          // cut_max^2: every pair beyond it is skipped
   float lj_rc2;        // LJ's own cutoff^2 (inf when it is cut_max or none)
   float coul_rc2;      // Coulomb's own cutoff^2 (inf likewise)
@@ -403,27 +412,29 @@ __device__ __forceinline__ void pair_terms(const LaunchSpec& p, float r2,
   }
 }
 
+// The box of the launch: h11 h21 h22 h31 h32 h33 1/h11 1/h22 1/h33.
+__constant__ float c_mic[9];
+
 // The minimum image of x_j - x_i (back-substitution) and r^2.
 template <bool TRICLINIC>
-__device__ __forceinline__ float min_image(const LaunchSpec& p, float4 pi,
-                                           float4 pj, float& dx, float& dy,
-                                           float& dz) {
+__device__ __forceinline__ float min_image(float4 pi, float4 pj, float& dx,
+                                           float& dy, float& dz) {
   dx = pj.x - pi.x;
   dy = pj.y - pi.y;
   dz = pj.z - pi.z;
   if (TRICLINIC) {
-    const float s3 = rintf(dz * p.mic[8]);
-    dx -= s3 * p.mic[3];
-    dy -= s3 * p.mic[4];
-    dz -= s3 * p.mic[5];
-    const float s2 = rintf(dy * p.mic[7]);
-    dx -= s2 * p.mic[1];
-    dy -= s2 * p.mic[2];
-    dx -= rintf(dx * p.mic[6]) * p.mic[0];
+    const float s3 = rintf(dz * c_mic[8]);
+    dx -= s3 * c_mic[3];
+    dy -= s3 * c_mic[4];
+    dz -= s3 * c_mic[5];
+    const float s2 = rintf(dy * c_mic[7]);
+    dx -= s2 * c_mic[1];
+    dy -= s2 * c_mic[2];
+    dx -= rintf(dx * c_mic[6]) * c_mic[0];
   } else {
-    dx -= p.mic[0] * rintf(dx * p.mic[6]);
-    dy -= p.mic[2] * rintf(dy * p.mic[7]);
-    dz -= p.mic[5] * rintf(dz * p.mic[8]);
+    dx -= c_mic[0] * rintf(dx * c_mic[6]);
+    dy -= c_mic[2] * rintf(dy * c_mic[7]);
+    dz -= c_mic[5] * rintf(dz * c_mic[8]);
   }
   return dx * dx + dy * dy + dz * dz;
 }
@@ -519,7 +530,7 @@ __device__ __forceinline__ void rotate_tile(
     const int jl = (lane + k) & (kWarp - 1);
     const float4 pj = t.jpos[jl];
     float dx, dy, dz;
-    const float r2 = min_image<TRICLINIC>(p, pi, pj, dx, dy, dz);
+    const float r2 = min_image<TRICLINIC>(pi, pj, dx, dy, dz);
     bool special;
     const bool live = slot_live(p, idi, t.jid[jl], bi, r2, special);
     float coef = 0.f, e = 0.f;
@@ -655,7 +666,7 @@ __device__ __forceinline__ void compact_tile(
     for (int k = k0; k < k0 + kGroup<LAM>; ++k) {
       const int jl = (lane + k) & (kWarp - 1);
       float dx, dy, dz;
-      const float r2 = min_image<TRICLINIC>(p, pi, t.jpos[jl], dx, dy, dz);
+      const float r2 = min_image<TRICLINIC>(pi, t.jpos[jl], dx, dy, dz);
       bool special;
       const bool live = slot_live(p, idi, t.jid[jl], bi, r2, special) &&
                         (!self_tile || jl > lane);
@@ -846,14 +857,17 @@ void launch_lam(const Args& a, const LaunchSpec& p) {
 
 // Launch on `stream`. forces (n_atoms, 3) f32 and energy_virial (7) f64 must
 // be zeroed by the caller; energy_virial may be null when compute_energy is
-// 0, lam_role (one (lambda, role) float2 per slot) when use_lam is 0.
-// `spec` is read on the host before the launch. Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for a mode outside the table.
+// 0, lam_role (one (lambda, role) float2 per slot) when use_lam is 0. mic
+// is the box's 9 floats in device memory, copied to the kernel's constant
+// memory on `stream` before the launch. `spec` is read on the host before
+// the launch. Returns the copy's error, cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a mode outside the table.
 extern "C" int pair_nonbonded_launch(const void* pos, const void* lj,
                                      const void* ids, const void* bits,
                                      const void* pairs, const void* lam_role,
-                                     const void* spec, void* forces,
-                                     void* energy_virial, void* stream) {
+                                     const void* mic, const void* spec,
+                                     void* forces, void* energy_virial,
+                                     void* stream) {
   const LaunchSpec p = *static_cast<const LaunchSpec*>(spec);
   if (p.lj_mode < 0 || p.lj_mode > 4 || p.coul_mode < 0 || p.coul_mode > 3)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -865,7 +879,12 @@ extern "C" int pair_nonbonded_launch(const void* pos, const void* lj,
   if (p.probe < 0 || p.probe > kNoOcc ||
       (p.probe && (p.coul_mode != 3 || p.triclinic || p.compute_energy)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mic == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (p.n_pairs <= 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t copied = cudaMemcpyToSymbolAsync(
+      c_mic, mic, sizeof(c_mic), 0, cudaMemcpyDeviceToDevice,
+      static_cast<cudaStream_t>(stream));
+  if (copied != cudaSuccess) return static_cast<int>(copied);
   const Args a{static_cast<const float4*>(pos),
                static_cast<const float2*>(lj),
                static_cast<const int*>(ids),

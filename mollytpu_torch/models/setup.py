@@ -27,7 +27,7 @@ from ..ops.ewald import PME, EwaldExclusionCorrection, ewald_error_alpha
 from ..ops.general import LJDispersionCorrection
 from ..ops.pairwise import (CRF_SOLVENT_DIELECTRIC, CoulombEwald,
                             CoulombReactionField, LennardJones)
-from ..system import Exclusions, System
+from ..system import Exclusions, System, molecule_ids_from_bonds
 from .forcefield import detect_bonds, find_template_by_graph
 from .pdb import read_pdb
 
@@ -344,7 +344,9 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                                           device=device),)
     finder = BlockPairFinder.setup(boundary, float(dist_neighbors), n, atoms,
                                    n_steps=neighbor_n_steps)
+    mol_ids, n_mol = molecule_ids_from_bonds(n, bonds, device=device)
     return System(atoms=atoms, coords=coords, boundary=boundary,
                   pairwise_inters=pairwise, general_inters=tuple(general),
                   constraints=constrainers,
-                  exclusions=exclusions, neighbor_finder=finder)
+                  exclusions=exclusions, neighbor_finder=finder,
+                  molecule_ids=mol_ids, n_molecules=n_mol)

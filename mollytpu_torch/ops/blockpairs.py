@@ -49,10 +49,6 @@ class BlockPairs:
     gap: torch.Tensor       # (C, C) AABB gaps at this rebuild; pairs with
                             # gap >= the list radius are the unlisted ones
     coords_built: torch.Tensor  # (N, 3) wrapped coordinates at this rebuild
-    box_host: tuple = ()    # the box's 9-float minimum-image row
-                            # (boundary.mic_row) at this rebuild, on the
-                            # host, so a kernel launch never waits on the
-                            # device
     list_radius: float = 0.0
     step_built: int = 0
 
@@ -71,12 +67,18 @@ class BlockPairFinder:
 
     dist_cutoff is the list radius (interaction cutoff + skin). atom_static
     is the (N, 3) [sigma, sqrt(epsilon), charge] snapshot packed into the
-    kernel rows at every rebuild."""
+    kernel rows at every rebuild. The sort grid and the half-width check
+    are sized for the setup box, whose perpendicular widths are
+    ``ref_sides``; under a barostat, a box that drifts more than
+    ``resetup_drift`` (relative, any axis) from them is set up anew between
+    chunks (sim.simulate.npt_resetup; mollytpu/ops/blockpairs.py:232-247)."""
 
     dist_cutoff: float
     atom_static: torch.Tensor
     sort_dims: tuple = (1, 1, 1)
     n_steps: int = 1
+    ref_sides: tuple = None
+    resetup_drift: float = 0.05
 
     @classmethod
     def setup(cls, boundary, dist_cutoff, n_atoms, atoms, n_steps=1):
@@ -102,7 +104,26 @@ class BlockPairFinder:
         atom_static = torch.stack([atoms.sigma, torch.sqrt(atoms.epsilon),
                                    atoms.charge], dim=1)
         return cls(dist_cutoff=float(dist_cutoff), atom_static=atom_static,
-                   sort_dims=sort_dims, n_steps=int(n_steps))
+                   sort_dims=sort_dims, n_steps=int(n_steps),
+                   ref_sides=tuple(sides))
+
+    def box_drift_exceeded(self, boundary):
+        """Host-side check between chunks: has a periodic perpendicular
+        width moved more than ``resetup_drift`` from the setup box's
+        (mollytpu/ops/blockpairs.py:266-277)?"""
+        if self.ref_sides is None:
+            return False
+        return any(abs(cur / ref - 1.0) > self.resetup_drift
+                   for cur, ref in zip(boundary.perp_widths(), self.ref_sides)
+                   if math.isfinite(cur) and math.isfinite(ref))
+
+    def resetup(self, boundary, n_atoms, atoms):
+        """A finder set up for the current box, same list radius and
+        cadence (mollytpu/ops/blockpairs.py:279-287). ``setup`` checks the
+        half-width condition again and raises if a compressed box breaks
+        it."""
+        return type(self).setup(boundary, self.dist_cutoff, n_atoms, atoms,
+                                n_steps=self.n_steps)
 
     def _sort_order(self, wrapped, boundary):
         """Serpentine cell order, then position along the last axis within
@@ -153,7 +174,6 @@ class BlockPairFinder:
         return BlockPairs(ids=ids.to(torch.int32).contiguous(), src=src,
                           pos4=pos4, lj2=lj2, bits=bits, pairs=pairs,
                           gap=gap, coords_built=wrapped,
-                          box_host=boundary.mic_row(),
                           list_radius=self.dist_cutoff,
                           step_built=int(step_n))
 

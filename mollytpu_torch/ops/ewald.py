@@ -14,6 +14,7 @@ matching the pair kernel's -(dU/dr / r) dr (x) dr.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -50,6 +51,14 @@ def pme_mesh_dims(side_lengths, alpha, error_tol, smooth=True):
         s = max(s, 6)
         dims.append(_smooth_size(s) if smooth else s)
     return tuple(dims)
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_tensor(mesh_dims, dtype, device):
+    """The mesh dimensions as a (3,) tensor, built once per mesh, dtype and
+    device: a tensor made from host values on each call would copy them to
+    the card and sync the host."""
+    return torch.tensor(mesh_dims, dtype=dtype, device=device)
 
 
 def bspline_moduli(order, mesh_dims, dtype=np.float64):
@@ -172,7 +181,7 @@ class PME:
         K = self.mesh_dims
         inv_l = 1.0 / boundary.side_lengths.to(coords.dtype)
         t = coords * inv_l                                   # fractional
-        kk = torch.tensor(K, dtype=coords.dtype, device=coords.device)
+        kk = _mesh_tensor(K, coords.dtype, coords.device)
         t = (t - torch.floor(t)) * kk
         ti = torch.floor(t)
         theta, dtheta = bspline_weights(t - ti, self.order)  # (N, 3, o)

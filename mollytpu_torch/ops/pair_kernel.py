@@ -6,8 +6,9 @@ pallas_block_nonbonded and _far_pair_corrections).
 
 ``pair_nonbonded`` dispatches on the device of its inputs: CPU tensors go to
 ``pair_nonbonded_plain``, CUDA tensors to the kernel, which counts its
-launches in ``LAUNCHES`` and, per compiled instance family, in
-``INSTANCE_LAUNCHES``. There is no fallback between the two.
+launches in ``LAUNCHES``, per compiled instance family in
+``INSTANCE_LAUNCHES``, and those with energy and virial per family in
+``ENERGY_LAUNCHES``. There is no fallback between the two.
 
 Every mode of the TPU kernel is ported: LJ with no / distance /
 shifted-potential / shifted-force cutoff (lj_mode 4 / 1 / 2 / 3, or 0 for
@@ -61,12 +62,20 @@ LAUNCHES = 0
 #: the same launches per compiled instance family (``instance_family``;
 #: a kernel probe's launches under "<family>+<probe>")
 INSTANCE_LAUNCHES = collections.Counter()
+#: the launches of INSTANCE_LAUNCHES that computed energy and virial
+ENERGY_LAUNCHES = collections.Counter()
+#: the stream of the last launch, per device: the box row goes into one
+#: module-wide __constant__ buffer, written on the launch's stream right
+#: before the kernel (launch_args orders a launch on another stream after
+#: the launches already queued)
+_LAST_STREAM = {}
 
 
 def reset_launch_counts():
     global LAUNCHES
     LAUNCHES = 0
     INSTANCE_LAUNCHES.clear()
+    ENERGY_LAUNCHES.clear()
 
 
 class _Launch(ctypes.Structure):
@@ -75,7 +84,7 @@ class _Launch(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "n_pairs", "n_atoms", "lj_mode", "coul_mode", "triclinic",
-        "compute_energy")] + [("mic", ctypes.c_float * 9)] + [
+        "compute_energy")] + [
         (name, ctypes.c_float) for name in (
             "cut2", "lj_rc2", "coul_rc2", "lj_rc", "inv_lj_rc",
             "inv_lj_rc2", "lj_w", "coul_w", "ke", "alpha", "krf", "crf")] + [
@@ -86,7 +95,7 @@ class _Launch(ctypes.Structure):
         ("probe", ctypes.c_int)]
 
 
-_SIG = {"pair_nonbonded_launch": [ctypes.c_void_p] * 10}
+_SIG = {"pair_nonbonded_launch": [ctypes.c_void_p] * 11}
 
 #: the roofline probes: the kernel instances' ids (LaunchSpec.probe), and
 #: every probe name the ``probe`` keywords take
@@ -568,11 +577,11 @@ def _tile_geometry(spec, row, xi, xj, idi, idj, bi, n_atoms):
 
 
 def _tiles(blockpairs, boundary, chunk):
-    """Per-cluster views of the packed rows, the box row as a tensor and
-    the cluster pairs in chunks of ``chunk``."""
+    """Per-cluster views of the packed rows, the call's box row (the
+    kernel's ``mic`` buffer) and the cluster pairs in chunks of
+    ``chunk``."""
     pos4 = blockpairs.pos4
-    dtype, dev = pos4.dtype, pos4.device
-    row = torch.tensor(boundary.mic_row(), dtype=dtype, device=dev)
+    row = boundary.mic_row_tensor(pos4.dtype).to(pos4.device)
     x = pos4[:, :3].view(-1, CLUSTER, 3)
     par = torch.cat([blockpairs.lj2, pos4[:, 3:4]], dim=1).view(
         -1, CLUSTER, 3)
@@ -688,7 +697,6 @@ def _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy,
         lj_mode=spec.lj_mode, coul_mode=spec.coul_mode,
         triclinic=int(getattr(boundary, "basis", None) is not None),
         compute_energy=int(bool(compute_energy)),
-        mic=(ctypes.c_float * 9)(*blockpairs.box_host),
         cut2=spec.cut_max ** 2,
         lj_rc2=spec.lj_rc ** 2 if spec.lj_masked else inf,
         coul_rc2=spec.coul_rc ** 2 if spec.coul_masked else inf,
@@ -702,12 +710,25 @@ def _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy,
         coul_sigma_q=spec.coul_sigma_q, probe=KERNEL_PROBES.get(probe, 0))
 
 
+def _order_after_last_launch(device, stream):
+    """The launcher copies the box row into the kernel's one __constant__
+    buffer on ``stream``; a kernel still queued on another stream reads
+    that buffer, so ``stream`` first waits for the work queued there."""
+    last = _LAST_STREAM.get(device)
+    if last is not None and last != stream:
+        stream.wait_stream(last)
+    _LAST_STREAM[device] = stream
+
+
 def launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
                 energy_virial=None, probe=""):
     """Check the inputs and return the arguments of the C launcher
     ``pair_nonbonded_launch`` for a launch into the caller's zeroed
-    ``forces`` (N, 3) f32 and, with energy, ``energy_virial`` (7,) f64;
-    the launch struct rides as the last element (kept alive with them)."""
+    ``forces`` (N, 3) f32 and, with energy, ``energy_virial`` (7,) f64, on
+    the current stream, ordered after any launch queued on another one.
+    The box reaches the kernel as ``boundary``'s minimum-image row in
+    device memory (``mic_row_tensor``), the box of this call; the launch
+    struct and the row ride as the last element (kept alive with them)."""
     _check_probe(probe)
     compute_energy = energy_virial is not None
     if probe in KERNEL_PROBES and (
@@ -723,6 +744,10 @@ def launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
     _check_cuda_input("lj2", lj2, torch.float32, 2)
     _check_cuda_input("ids", ids.view(-1, 1), torch.int32, 1)
     _check_cuda_input("bits", bits, torch.int32, 4)
+    mic_row = boundary.mic_row_tensor(torch.float32)
+    _check_cuda_input("mic_row", mic_row, torch.float32, 9)
+    if mic_row.device != pos4.device:
+        raise ValueError("the box and the rows lie on different devices")
     if pairs.numel():
         _check_cuda_input("pairs", pairs, torch.int32, 2)
     lr_ptr = None
@@ -733,11 +758,13 @@ def launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
         lr_ptr = lam_role.data_ptr()
     launch = _launch_spec(spec, blockpairs, boundary, n_atoms, compute_energy,
                           probe)
+    stream = torch.cuda.current_stream(pos4.device)
+    _order_after_last_launch(pos4.device, stream)
     return (pos4.data_ptr(), lj2.data_ptr(), ids.data_ptr(), bits.data_ptr(),
-            pairs.data_ptr(), lr_ptr, ctypes.addressof(launch),
-            forces.data_ptr(),
+            pairs.data_ptr(), lr_ptr, mic_row.data_ptr(),
+            ctypes.addressof(launch), forces.data_ptr(),
             energy_virial.data_ptr() if compute_energy else None,
-            torch.cuda.current_stream(pos4.device).cuda_stream, launch)
+            stream.cuda_stream, (launch, mic_row))
 
 
 def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
@@ -760,8 +787,10 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
             raise RuntimeError(f"pair_nonbonded kernel launch failed: CUDA "
                                f"error {err}")
         LAUNCHES += 1
-        INSTANCE_LAUNCHES[instance_family(spec, boundary) + (
-            f"+{probe}" if probe in KERNEL_PROBES else "")] += 1
+        family = instance_family(spec, boundary) + (
+            f"+{probe}" if probe in KERNEL_PROBES else "")
+        INSTANCE_LAUNCHES[family] += 1
+        ENERGY_LAUNCHES[family] += int(compute_energy)
     if not compute_energy:
         return forces, None, None
     energy = ev[0].to(torch.float32)

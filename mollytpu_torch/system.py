@@ -1,5 +1,5 @@
-"""The System container and exclusion tables
-(counterpart of mollytpu/system.py:31-199).
+"""The System container, exclusion tables and molecule ids
+(counterpart of mollytpu/system.py:31-220).
 
 A System holds tensors on one device. Steps return updated Systems through
 ``update`` (``dataclasses.replace``); the tensors they share are not copied.
@@ -129,6 +129,8 @@ class System:
     exclusions: Exclusions = None
     neighbor_finder: object = None
     n_dof: int = 0
+    molecule_ids: torch.Tensor = None   # (N,) int32; all 0 by default
+    n_molecules: int = 1
 
     def __post_init__(self):
         if self.velocities is None:
@@ -138,6 +140,9 @@ class System:
             object.__setattr__(self, "exclusions",
                                Exclusions.empty(self.n_atoms,
                                                 self.coords.device))
+        if self.molecule_ids is None:
+            object.__setattr__(self, "molecule_ids", torch.zeros(
+                self.n_atoms, dtype=torch.int32, device=self.coords.device))
         if self.n_dof == 0:
             n_constr = sum(c.n_constraints for c in self.constraints)
             object.__setattr__(self, "n_dof", calc_n_dof(
@@ -161,3 +166,26 @@ class System:
 
     def update(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+def molecule_ids_from_bonds(n_atoms, bond_pairs, device=None):
+    """Connected components of the bond graph: ((N,) int32 molecule id per
+    atom on ``device``, number of molecules). Union-find on the host at
+    setup time (mollytpu/system.py:202-220)."""
+    parent = np.arange(n_atoms)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in bond_pairs:
+        ra, rb = find(int(a)), find(int(b))
+        if ra != rb:
+            parent[ra] = rb
+    roots = np.array([find(i) for i in range(n_atoms)], dtype=np.int64)
+    _, ids = np.unique(roots, return_inverse=True)
+    return (torch.as_tensor(ids.astype(np.int32),
+                            device=resolve_device(device)),
+            int(ids.max()) + 1 if n_atoms else 0)

@@ -63,7 +63,7 @@ def test_triclinic_matches_jax(name):
         np64(pb.displacement(tx, ty)),
         np64(jb.displacement(jnp.asarray(x), jnp.asarray(y))), atol=TOL)
     # the kernel's 9-float row
-    np.testing.assert_allclose(pb.mic_row(),
+    np.testing.assert_allclose(pb.mic_row_tensor().tolist(),
                                np64(kernel_mic_row(jb, jnp.float64))[0, :9],
                                rtol=TOL)
 
@@ -71,7 +71,8 @@ def test_triclinic_matches_jax(name):
 def test_orthorhombic_mic_row_opens_infinite_axes():
     box = pt.rectangular([2.0, float("inf"), 4.0], dtype=torch.float64,
                          device=CPU)
-    assert box.mic_row() == (2.0, 0.0, 0.0, 0.0, 0.0, 4.0, 0.5, 0.0, 0.25)
+    assert box.mic_row_tensor().tolist() == [2.0, 0.0, 0.0, 0.0, 0.0, 4.0,
+                                             0.5, 0.0, 0.25]
     d = mic_displacement(
         box, torch.tensor([[0.1, 0.0, 0.1]], dtype=torch.float64),
         torch.tensor([[1.9, 7.0, 3.9]], dtype=torch.float64))

@@ -324,16 +324,39 @@ def test_unlisted_min_distance_in_triclinic_box(move):
     assert (brute < cutoff) == (move > 0.1)
 
 
-def test_launch_spec_layout():
-    """The ctypes struct the launcher reads: 6 ints, 9 + 12 floats, then the
+class _Stream:
+    """Stands in for a torch.cuda.Stream: a handle, and the streams it was
+    told to wait for."""
+
+    def __init__(self, handle):
+        self.cuda_stream, self.waited = handle, []
+
+    def wait_stream(self, other):
+        self.waited.append(other)
+
+
+def _cpu_launch_args(monkeypatch, spec, nb, box, stream):
+    """launch_args on CPU tensors with ``stream`` as the current stream,
+    its CUDA input checks stubbed."""
+    monkeypatch.setattr(pair_kernel, "_check_cuda_input", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: stream)
+    forces = torch.zeros((64, 3), dtype=torch.float32)
+    return pair_kernel.launch_args(spec, nb, box, 64, None, forces)
+
+
+def test_launch_spec_layout(monkeypatch):
+    """The ctypes struct the launcher reads: 6 ints, 12 floats, then the
     lambda path's 4 ints and 3 floats and the probe id, no padding, in
     csrc/pair_nonbonded.cu's LaunchSpec order; radii that need no mask
-    inside cut_max are sent as inf, and a launch without lambda says so."""
+    inside cut_max are sent as inf, and a launch without lambda says so.
+    The box is no field of it: launch_args hands the launcher, in its mic
+    slot, the call's boundary's f32 minimum-image row (mic_row_tensor)."""
     L = pair_kernel._Launch
-    assert ctypes.sizeof(L) == 35 * 4 and L.probe.offset == 34 * 4
-    assert L.mic.offset == 6 * 4 and L.cut2.offset == 15 * 4
-    assert L.crf.offset == 26 * 4
-    assert L.use_lam.offset == 27 * 4 and L.coul_sigma_q.offset == 33 * 4
+    assert ctypes.sizeof(L) == 26 * 4 and L.probe.offset == 25 * 4
+    assert not hasattr(L, "mic") and L.cut2.offset == 6 * 4
+    assert L.crf.offset == 17 * 4
+    assert L.use_lam.offset == 18 * 4 and L.coul_sigma_q.offset == 24 * 4
     spec = pair_kernel.build_fused_spec(_inters(pt, "lj3-rf", True))
     box = _box("skewed", pt)
     nb = BlockPairFinder.setup(box, LIST, 64, pt.make_atoms(
@@ -345,7 +368,33 @@ def test_launch_spec_layout():
     assert math.isinf(launch.lj_rc2)
     assert launch.coul_rc2 == pytest.approx(0.64)
     assert launch.cut2 == pytest.approx(0.81)
-    assert list(launch.mic) == pytest.approx(list(box.mic_row()))
     assert launch.krf == pytest.approx(spec.krf)
     assert (launch.use_lam, launch.lj_kind, launch.coul_sc) == (0, 0, 0)
     assert pair_kernel.instance_family(spec, box) == "coul2-triclinic"
+    monkeypatch.setattr(pair_kernel, "_LAST_STREAM", {})
+    moved = box.scale(1.01)
+    for b in (box, moved):
+        args = _cpu_launch_args(monkeypatch, spec, nb, b, _Stream(7))
+        row = b.mic_row_tensor(torch.float32)
+        assert args[6] == row.data_ptr() and args[-1][1] is row
+        assert args[-2] == 7
+    assert moved.mic_row_tensor(torch.float32).tolist() == pytest.approx(
+        (1.01 * box.mic_row_tensor()[:6]).tolist()
+        + (box.mic_row_tensor()[6:] / 1.01).tolist(), rel=1e-6)
+
+
+def test_launch_stream_order(monkeypatch):
+    """The kernel's box row lives in one __constant__ buffer written on the
+    launch's stream: a launch on another stream than the last one first
+    waits for the work queued there; launches on one stream never wait."""
+    monkeypatch.setattr(pair_kernel, "_LAST_STREAM", {})
+    spec = pair_kernel.build_fused_spec(_inters(pt, "lj1-ewald", False))
+    box = _box("cubic", pt)
+    nb = BlockPairFinder.setup(box, LIST, 64, pt.make_atoms(
+        n=64, mass=1.0, dtype=torch.float64, device=CPU)).find(
+        torch.as_tensor(_system("cubic")[0]), box,
+        pt.Exclusions.build(64, device=CPU))
+    a, b = _Stream(1), _Stream(2)
+    for s in (a, a, b, b, a):
+        _cpu_launch_args(monkeypatch, spec, nb, box, s)
+    assert a.waited == [b] and b.waited == [a]

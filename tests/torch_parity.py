@@ -3,6 +3,7 @@ boxes built by the JAX package (the reference) and by mollytpu_torch, and
 the JAX pair list / kernel call as tests/test_kernel_consistency.py uses it
 (BlockPairFinder with block=32, lanes=128; Pallas in interpret mode)."""
 
+import dataclasses
 import functools
 import os
 import tempfile
@@ -73,6 +74,70 @@ def port_system(name, method="pme"):
         dtype=torch.float64, device=CPU, constraints="hbonds",
         rigid_water=True, dist_neighbors=LIST_RADIUS,
         neighbor_n_steps=CADENCE)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dense_rf_system(name="tiny64", seed=1, temp=300.0):
+    """The reaction-field box built by the JAX package (f64), on its dense
+    all-pairs path (no list: exact on both sides, and seconds to compile
+    where the Pallas kernel in interpret mode takes tens), with seeded
+    Maxwell-Boltzmann velocities."""
+    sys = jax_system_from_pdb(
+        box_path(name), JaxForceField(pt.TIP3P_XML),
+        nonbonded_method="cutoff", dtype=jnp.float64, constraints="hbonds",
+        rigid_water=True, build_cache=False, neighbor_finder=None)
+    inters = tuple(dataclasses.replace(i, use_neighbors=False)
+                   for i in sys.pairwise_inters)
+    rng = np.random.default_rng(seed)
+    m = np.asarray(sys.atoms.mass)
+    v = rng.normal(size=(sys.n_atoms, 3)) * np.sqrt(
+        pt.units.KB * temp / m)[:, None]
+    return sys.update(pairwise_inters=inters, velocities=jnp.asarray(v))
+
+
+def jax_coupler_draws(coupler, key, n_atoms, n_dof):
+    """The random numbers the JAX package's ``coupler.apply`` draws from
+    ``key`` (mollytpu/sim/coupling.py), as the port's ``draws`` dict of
+    tensors."""
+    f64 = jnp.float64
+    name = type(coupler).__name__
+    k1, k2 = jax.random.split(key)
+    out = {}
+    if name == "CRescaleBarostat":
+        out = {"xi": jax.random.normal(key, (), f64)}
+    elif name == "VelocityRescaleThermostat":
+        out = {"r1": jax.random.normal(k1, (), f64),
+               "g": 2.0 * jax.random.gamma(k2, 0.5 * (n_dof - 1),
+                                           dtype=f64)}
+    elif name == "AndersenThermostat":
+        out = {"u": jax.random.uniform(k1, (n_atoms,)),
+               "z": jax.random.normal(k2, (n_atoms, 3), dtype=f64)}
+    elif name == "MonteCarloBarostat":
+        out = {"dv": jax.random.uniform(k1, (), f64, minval=-1.0,
+                                        maxval=1.0),
+               "u": jax.random.uniform(jax.random.fold_in(k2, 7), (), f64)}
+        if coupler.coupling == "anisotropic":
+            out["axis"] = jax.random.randint(k2, (), 0, 3)
+        elif coupler.coupling == "semiisotropic":
+            out["pick_z"] = jax.random.bernoulli(k2)
+    return {k: torch.as_tensor(np.array(v)) for k, v in out.items()}
+
+
+def jax_step_draws(key, n_steps, n_atoms, n_dof, couplers=()):
+    """Per step of the JAX chunk runner from ``key`` (simulate.py:71): the
+    step's Langevin noise, normal(sub), and each coupler's draws from the
+    keys apply_couplers splits off sub (coupling.py:344-347)."""
+    noise, draws = [], []
+    for _ in range(n_steps):
+        key, sub = jax.random.split(key)
+        noise.append(torch.as_tensor(np64(jax.random.normal(
+            sub, (n_atoms, 3), jnp.float64))))
+        per, ck = [], sub
+        for c in couplers:
+            ck, csub = jax.random.split(ck)
+            per.append(jax_coupler_draws(c, csub, n_atoms, n_dof))
+        draws.append(per)
+    return noise, draws
 
 
 def jax_neighbors(sys):
