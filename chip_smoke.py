@@ -60,8 +60,27 @@ Phases, each printing one line or more before the next starts:
    piece has run on it; the virial instance on the main path; the same
    gates but the volume band (without the constraint virial, as in the
    JAX package, the box expands) and the instantaneous pressure;
+   then, on the PME path's end state, the bonded phase: every bonded kind
+   (synthetic lists, one row per water) in f32 against a float64
+   evaluation on the CPU (max|dF|/rms|F| < 1e-3, relative dE and dvirial
+   < 1e-5), with the ms and device calls per all_specific_forces call;
+   and MTS-PME: bench.py's MTS headline, MTSLangevinIntegrator at 4 fs
+   outer steps with the pair kernel and the bonded lists twice and PME
+   and its corrections once per outer step, a rebuild every 5 outer steps,
+   50 warm-up and 100 timed outer steps (after 200 Langevin steps from
+   the same state, timed as a yardstick); gates: K1a launched exactly
+   1 + 2 per outer step, PME evaluated 1 + 1 per outer step, the main-path
+   gates and the float64 gate, and 5 outer steps on one list under
+   set_sync_debug_mode("error");
 6. for the reaction field in the cube: CUDA-event times of the step's
-   components and a torch.profiler summary of 20 steps;
+   components and a torch.profiler summary of 20 steps; then Bonded-PME:
+   the PME cube with flexible H-O-H angles (constraints="hbonds",
+   rigid_water=False: 10,636 O-H constraints, 5,318 harmonic angles), the
+   kernel against its twin on the built frame, the angle list's ms and
+   device calls per evaluation, the main path (100 warm-up + 200 timed
+   steps) with its gates, the float64 check including the angles, the
+   step's components, and 10 steps on one list under
+   set_sync_debug_mode("error");
 7. the alchemical free-energy path (FEP-water): the PME water box with the
    water nearest the box centre inserted alchemically, Beutler soft-core
    LJ + Beutler soft-core Ewald real space (K1c) and PME on the scheduled
@@ -73,7 +92,8 @@ Phases, each printing one line or more before the next starts:
    solve on the CPU; the main-path gates and the step's components.
 
 The second-to-last line is a JSON object {"kernels": [...]}: the four
-main-path instance families, K1a's energy and virial instance on the NPT
+main-path instance families (K1a's launches those of the PME, Bonded-PME
+and MTS-PME paths together), K1a's energy and virial instance on the NPT
 path, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
 probe phase); the last is
@@ -157,6 +177,20 @@ WATER_COMPRESSIBILITY_PER_BAR = 4.6e-5
 G_CM3_PER_AMU_NM3 = 1.66053906660e-3
 #: the NPT path's volume gate: within 5% of the start
 NPT_VOLUME_BAND = 0.05
+
+#: the bonded slice: Bonded-PME is the PME cube with flexible H-O-H angles
+#: (constraints="hbonds", rigid_water=False: 10,636 O-H constraints and
+#: 5,318 harmonic angles), Langevin as the main paths; MTS-PME is
+#: bench.py's MTS headline (bench.py:128-147) on the rigid PME box from the
+#: PME path's end state: BAOAB-RESPA at 4 fs outer and 2 fs inner steps,
+#: PME and its corrections once per outer step, the pair kernel and the
+#: bonded lists twice, a rebuild every 5 outer steps
+BONDED_FAMILY = "coul3-ortho"
+MTS_DT, MTS_REBUILD, MTS_WARMUP, MTS_STEPS = 0.004, 5, 50, 100
+#: the bonded phase: the card's f32 lists against a float64 evaluation of
+#: the same lists on the CPU from the same coordinates (max|dF|/rms|F|;
+#: relative energy and virial)
+TOL_BONDED_FORCE, TOL_BONDED_REL = 1e-3, 1e-5
 
 #: the TPU kernel's probe sites the kernel probes replace
 PROBE_SITES = {
@@ -307,14 +341,14 @@ def build_kernels():
           flush=True)
 
 
-def water_system(device, dtype, workdir, method, angles):
+def water_system(device, dtype, workdir, method, angles, rigid=True):
     import mollytpu_torch as pt
     tag = "cube" if angles == CUBE else "dodeca"
     path = pt.water_box_pdb(os.path.join(workdir, f"water-{tag}.pdb"),
                             N_WATERS, seed=SEED, angles=angles)
     return pt.system_from_pdb(
         path, pt.ForceField(pt.TIP3P_XML), nonbonded_method=method,
-        dtype=dtype, device=device, constraints="hbonds", rigid_water=True,
+        dtype=dtype, device=device, constraints="hbonds", rigid_water=rigid,
         dist_neighbors=LIST_RADIUS, neighbor_n_steps=CADENCE)
 
 
@@ -865,9 +899,9 @@ def near_cutoff_atoms(spec, nb, boundary, n):
 
 
 def reference_forces(sys32, coords32):
-    """Forces and potential energy of the full force field on coords32,
-    evaluated in float64 through the plain twins on the card, and the
-    atoms near a cutoff (near_cutoff_atoms)."""
+    """Forces and potential energy of the full force field (bonded lists
+    included) on coords32, evaluated in float64 through the plain twins on
+    the card, and the atoms near a cutoff (near_cutoff_atoms)."""
     import torch
     import mollytpu_torch as pt
     from mollytpu_torch.ops import pair_kernel as pk
@@ -876,6 +910,8 @@ def reference_forces(sys32, coords32):
         coords=coords32.double(), boundary=sys32.boundary.to(
             dtype=torch.float64),
         pairwise_inters=sys32.pairwise_inters,
+        specific_lists=tuple(s.to(dtype=torch.float64)
+                             for s in sys32.specific_lists),
         general_inters=tuple(
             g if not hasattr(g, "moduli_x") else dataclasses.replace(
                 g, moduli_x=g.moduli_x.double(),
@@ -895,6 +931,10 @@ def reference_forces(sys32, coords32):
     f, e, v = pk.far_pair_corrections(spec, system.coords, system.boundary,
                                       system.atoms, system.exclusions, f, e,
                                       v, charge)
+    f = f + pt.all_specific_forces(system.specific_lists, system.coords,
+                                   system.boundary)[0]
+    for sl in system.specific_lists:
+        e = e + pt.specific_energy(sl, system.coords, system.boundary)
     for g in system.general_inters:
         fg, _ = g.force_virial(system.coords, system.boundary, system.atoms)
         f = f + fg
@@ -913,9 +953,12 @@ def describe(system):
         shape = f"{float(box.side_lengths[0]):.4f} nm cube"
     mesh = [g.mesh_dims for g in system.general_inters
             if hasattr(g, "mesh_dims")]
+    bonded = ", ".join(f"{sl.kind} {sl.n_terms}"
+                       for sl in system.specific_lists)
     return (f"{system.n_atoms} atoms in a {shape}, "
             f"{system.constraints[0].n_constraints} constraints, "
-            + (f"PME mesh {mesh[0]}" if mesh else "reaction field"))
+            + (f"PME mesh {mesh[0]}" if mesh else "reaction field")
+            + f"; bonded lists: {bonded or 'none'}")
 
 
 def check_state(label, system):
@@ -1194,11 +1237,13 @@ def npt_mc(run, line):
 
 def npt_crescale(run, line):
     """C-rescale on the NPT-MC end state: the virial instance on the main
-    path every CRESCALE_EVERY steps, in pieces of CRESCALE_PIECE steps with
-    npt_resetup between them, until CRESCALE_STEPS steps are done and the
-    finder has been set up anew for a drifted box with CRESCALE_PIECE steps
-    run after it. Gates: launches (1 + steps + one recompute per move, the
-    virial steps with energy), a re-setup and the steps after it, the main
+    path every CRESCALE_EVERY steps (the step's evaluation and the
+    recompute at the moved box, which refreshes the virial too), in pieces
+    of CRESCALE_PIECE steps with npt_resetup between them, until
+    CRESCALE_STEPS steps are done and the finder has been set up anew for
+    a drifted box with CRESCALE_PIECE steps run after it. Gates: launches
+    (1 + steps + one recompute per move, both evaluations of a move step
+    with energy), a re-setup and the steps after it, the main
     path's state, stale-list and float64 gates; the instantaneous pressure
     is printed. No volume gate: without the constraint virial (as the JAX
     package) rigid water reads ~+13 kbar and the box expands."""
@@ -1239,7 +1284,7 @@ def npt_crescale(run, line):
     launches, energy = pk.LAUNCHES, pk.ENERGY_LAUNCHES[NPT_FAMILY]
     if (launches != 1 + n_steps + moves
             or pk.INSTANCE_LAUNCHES[NPT_FAMILY] != launches
-            or energy != moves):
+            or energy != 2 * moves):
         raise RuntimeError(f"{label}: {launches} pair-kernel launches "
                            f"({energy} with energy) for {n_steps} "
                            f"steps and {moves} moves")
@@ -1265,17 +1310,50 @@ def npt_crescale(run, line):
     return dict(ms=ms, launches=launches)
 
 
-def sync_check(run):
-    """One rebuild interval that holds a Monte Carlo attempt, stepped on one
-    list under torch.cuda.set_sync_debug_mode("error"): a host sync anywhere
-    in the step (the integrator, the barostat's attempt with its trial
-    energies, the force recompute) raises and fails the run. A known sync
-    is made under the same mode first, to show that the mode catches one."""
+def steps_without_sync(label, run, start, n):
+    """Step ``run``'s integrator n steps from ``start`` on its list under
+    torch.cuda.set_sync_debug_mode("error"): a host sync anywhere in a step
+    raises and fails the run. A known sync is made under the same mode
+    first, to show that the mode catches one. The list is checked for stale
+    pairs after. Returns the run's state after the steps."""
     import torch
-    import mollytpu_torch as pt
     from mollytpu_torch.ops.blockpairs import unlisted_min_distance
     from mollytpu_torch.sim.coupling import virial_due
     from mollytpu_torch.sim.simulate import list_cutoff, raise_if_stale
+    sim, system, nb, aux, gen = (run[k] for k in (
+        "sim", "system", "nb", "aux", "gen"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            float(system.coords.sum())
+        except RuntimeError:
+            pass
+        else:
+            raise RuntimeError(f"{label} sync check: the sync debug mode let "
+                               "a known host sync through")
+        for step_n in range(start, start + n):
+            try:
+                system, aux = sim.step(
+                    system, nb, aux, step_n, generator=gen,
+                    needs_virial=virial_due(sim.coupling, step_n))
+            except RuntimeError as err:
+                raise RuntimeError(f"{label} sync check: a host sync in step "
+                                   f"{step_n}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cutoff = list_cutoff(system)
+    raise_if_stale(unlisted_min_distance(nb, system.coords, system.boundary,
+                                         cutoff), cutoff)
+    return {**run, "system": system, "aux": aux, "step": start + n}
+
+
+def sync_check(run):
+    """One rebuild interval that holds a Monte Carlo attempt, stepped on one
+    list under torch.cuda.set_sync_debug_mode("error") (steps_without_sync):
+    the integrator, the barostat's attempt with its trial energies, the
+    force recompute."""
+    import mollytpu_torch as pt
     sim, system, nb, aux, gen, step = (run[k] for k in (
         "sim", "system", "nb", "aux", "gen", "step"))
     attempt = step + (-step) % MC_EVERY
@@ -1285,29 +1363,8 @@ def sync_check(run):
                                           start - step, generator=gen)
     elif start < step:
         raise RuntimeError("sync check: the attempt's interval has begun")
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        try:
-            float(system.coords.sum())
-        except RuntimeError:
-            pass
-        else:
-            raise RuntimeError("sync check: the sync debug mode let a known "
-                               "host sync through")
-        for step_n in range(start, start + CADENCE):
-            try:
-                system, aux = sim.step(
-                    system, nb, aux, step_n, generator=gen,
-                    needs_virial=virial_due(sim.coupling, step_n))
-            except RuntimeError as err:
-                raise RuntimeError(f"sync check: a host sync in step "
-                                   f"{step_n}") from err
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    cutoff = list_cutoff(system)
-    raise_if_stale(unlisted_min_distance(nb, system.coords, system.boundary,
-                                         cutoff), cutoff)
+    steps_without_sync("NPT-PME (MC)", {**run, "system": system, "nb": nb,
+                                        "aux": aux}, start, CADENCE)
     print(f"sync check, steps {start}-{start + CADENCE - 1} (attempt at "
           f"{attempt}) on one list under set_sync_debug_mode(\"error\"): no "
           "host sync (a known one made first was caught)", flush=True)
@@ -1354,6 +1411,247 @@ def npt_phase(built, run, line):
     crescale = npt_crescale(mc, line)
     return {"MC": {k: mc[k] for k in ("ms", "ns_day", "launches")},
             "C-rescale": crescale}, mc["moved"]
+
+
+def synthetic_lists(system):
+    """Every bonded kind over the frame's waters, one row per water: its
+    oxygen O, hydrogens H1 and H2, and the oxygen O' of the water whose
+    oxygen is nearest (minimum image). Bonds O-O', angles H1-O-O',
+    torsions H2-H1-O-O', a restraint of O to a point 0.05 nm off it. The
+    parameters keep every term finite (FENE's r0 twice |O-O'|) and the
+    energies of one sign."""
+    import torch
+    import mollytpu_torch as pt
+    x, box, dev = system.coords, system.boundary, system.device
+    o = torch.arange(0, system.n_atoms, 3, device=dev)
+    if not bool((system.masses[o] > 15.0).all()):
+        raise RuntimeError("bonded phase: the frame is not O, H1, H2 waters")
+    xo = x[o]
+    near = torch.empty_like(o)
+    for a in range(0, len(o), 1024):
+        d = box.displacement(xo[a:a + 1024, None], xo[None])
+        r2 = (d * d).sum(-1)
+        rows = torch.arange(r2.shape[0], device=dev)
+        r2[rows, rows + a] = math.inf
+        near[a:a + 1024] = r2.argmin(dim=1)
+    o2, h1, h2 = o[near], o + 1, o + 2
+    d = box.displacement(x[o], x[o2])
+    r = torch.sqrt((d * d).sum(-1))
+    pme = next(g for g in system.general_inters if isinstance(g, pt.PME))
+    q = system.atoms.charge
+    one = torch.ones_like(r)
+    kw = dict(dtype=x.dtype, device=dev)
+    shift = torch.tensor([0.05, -0.05, 0.025], **kw)
+    return (
+        pt.harmonic_bonds(o, o2, k=1000.0 * one, r0=0.8 * r, **kw),
+        pt.morse_bonds(o, o2, D=5.0 * one, a=2.0 * one, r0=0.9 * r, **kw),
+        pt.fene_bonds(o, o2, k=30.0 * one, r0=2.0 * r, sigma=0.3 * one,
+                      epsilon=one, **kw),
+        pt.ewald_exclusions(o, o2, kqq=pme.coulomb_const * q[o] * q[h1],
+                            alpha=pme.alpha * one, **kw),
+        pt.harmonic_angles(h1, o, o2, k=300.0 * one, theta0=1.2 * one,
+                           **kw),
+        pt.cosine_angles(h1, o, o2, k=20.0 * one, theta0=1.0 * one, **kw),
+        pt.urey_bradleys(h1, o, o2, kangle=300.0 * one, theta0=1.9 * one,
+                         kbond=5000.0 * one, r0=0.3 * one, **kw),
+        pt.periodic_torsions(h2, h1, o, o2, periodicity=3.0 * one,
+                             phase=0.5 * one, k=5.0 * one, **kw),
+        pt.rb_torsions(h2, h1, o, o2, coeffs=torch.tensor(
+            [10.0, 1.8, 0.5, -2.4, 0.3, 0.1], **kw).expand(len(o), 6),
+            **kw),
+        pt.harmonic_torsions(h2, h1, o, o2, k=4.0 * one, theta0=0.5 * one,
+                             **kw),
+        pt.position_restraints(o, k=500.0 * one, x0=x[o] + shift, **kw))
+
+
+def bonded_layer(label, system, lists):
+    """Device ms per all_specific_forces call of ``lists`` (CUDA events,
+    median of 20) and runtime calls per call that put work on the device
+    (profiler), forces-only as on the main path."""
+    import mollytpu_torch as pt
+
+    def call():
+        return pt.all_specific_forces(lists, system.coords, system.boundary)
+    ms = _time(call, 3, 20)
+    _, work = profiled(call, 10)
+    rows = sum(sl.n_terms for sl in lists)
+    print(f"{label}: all_specific_forces over {len(lists)} lists, {rows} "
+          f"rows: {ms:.4f} ms per call (CUDA events, median of 20), "
+          f"{work:g} runtime calls that put work on the device per call",
+          flush=True)
+    return {"ms": ms, "launches": work}
+
+
+def bonded_phase(system):
+    """Every bonded kind on the PME path's end state (synthetic_lists; on
+    the lattice start an H1-O-O' angle would be straight, its torsions
+    undefined): the card's f32
+    forces, energy and virial against a float64 evaluation of the same
+    lists on the CPU from the same coordinates; gates max|dF|/rms|F| <
+    TOL_BONDED_FORCE and relative dE and dvirial < TOL_BONDED_REL. Then
+    the layer's time and device calls per evaluation."""
+    import torch
+    import mollytpu_torch as pt
+    lists = synthetic_lists(system)
+    x, box = system.coords, system.boundary
+
+    def evaluate(lists, x, box):
+        f, v = pt.all_specific_forces(lists, x, box, needs_virial=True)
+        return f, v, sum(pt.specific_energy(sl, x, box) for sl in lists)
+    f, v, e = evaluate(lists, x, box)
+    f64, v64, e64 = evaluate(
+        tuple(sl.to("cpu", torch.float64) for sl in lists),
+        x.detach().cpu().double(), box.to("cpu", torch.float64))
+    rms = float(f64.pow(2).sum(dim=1).mean().sqrt())
+    df = float((f.cpu().double() - f64).abs().max()) / rms
+    de = abs(float(e) - float(e64)) / abs(float(e64))
+    dv = float((v.cpu().double() - v64).abs().max()) / float(
+        v64.abs().max())
+    line = (f"Bonded phase: {len(lists)} kinds x {lists[0].n_terms} rows on "
+            "the PME path's end state, card f32 against CPU float64: "
+            f"max|dF|/rms|F| "
+            f"{df:.3e} (rms|F| {rms:.4e}), rel dE {de:.3e} (E "
+            f"{float(e64):.6e} kJ/mol), rel dvir {dv:.3e}")
+    print(line, flush=True)
+    if not (df < TOL_BONDED_FORCE and de < TOL_BONDED_REL
+            and dv < TOL_BONDED_REL):
+        raise RuntimeError(line + " exceeds the tolerance")
+    # where the f32 error comes from: each kind alone, against the rms|F|
+    # of all kinds together
+    for sl in lists:
+        fk = pt.specific_forces(sl, x, box)[0].cpu().double()
+        fk64 = pt.specific_forces(sl.to("cpu", torch.float64),
+                                  x.detach().cpu().double(),
+                                  box.to("cpu", torch.float64))[0]
+        print(f"Bonded phase {sl.kind}: max|dF| "
+              f"{float((fk - fk64).abs().max()):.4e} kJ/mol/nm "
+              f"({float((fk - fk64).abs().max()) / rms:.3e} of the rms|F| "
+              f"above), max|F| {float(fk64.abs().max()):.4e}", flush=True)
+    return bonded_layer("Bonded phase", system, lists)
+
+
+def bonded_pme_path(dev, workdir, line):
+    """The Bonded-PME main path: the PME cube with flexible H-O-H angles,
+    the kernel against its twin on the built frame, the main path's run
+    and gates (its float64 check with the angles), the bonded layer's cost
+    per evaluation, and a rebuild interval stepped without a host sync."""
+    import torch
+    label = "Bonded-PME"
+    t0 = time.perf_counter()
+    system = water_system(dev, torch.float32, workdir, "pme", CUBE,
+                          rigid=False)
+    torch.cuda.synchronize()
+    print(f"{label}: {describe(system)}; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    compare(f"{label} water{system.n_atoms}", system)
+    layer = bonded_layer(label, system, system.specific_lists)
+    run = main_path(label, system, 2, BONDED_FAMILY)
+    components(label, run)
+    steps_without_sync(label, run, run["step"], CADENCE)
+    print(f"{label} sync check, steps {run['step']}-"
+          f"{run['step'] + CADENCE - 1} on one list under "
+          "set_sync_debug_mode(\"error\"): no host sync (a known one made "
+          f"first was caught); card {line}", flush=True)
+    return {**{k: run[k] for k in ("launches", "ms", "ns_day")},
+            "layer": layer}
+
+
+@contextlib.contextmanager
+def counted_pme():
+    """Counts PME force evaluations inside (a one-element list)."""
+    import mollytpu_torch as pt
+    calls, orig = [0], pt.PME.force_virial
+
+    def counted(self, *args, **kwargs):
+        calls[0] += 1
+        return orig(self, *args, **kwargs)
+    pt.PME.force_virial = counted
+    try:
+        yield calls
+    finally:
+        pt.PME.force_virial = orig
+
+
+def mts_path(run, line):
+    """The MTS-PME main path from the PME path's end state: BAOAB-RESPA
+    (MTSLangevinIntegrator) at MTS_DT outer steps with the pair kernel and
+    the bonded lists twice and PME with its corrections once per outer
+    step (bench.py's fractions), a rebuild every MTS_REBUILD outer steps;
+    MTS_WARMUP warm-up and MTS_STEPS timed outer steps, after the PME
+    path's Langevin timed from the same state as a yardstick in the same
+    call. Gates: K1a launched
+    exactly 1 + 2 per outer step, PME evaluated 1 + 1 per outer step, the
+    main path's state, stale-list and float64 gates; then a rebuild
+    interval stepped without a host sync."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "MTS-PME"
+    system, nb, gen, step = (run[k] for k in ("system", "nb", "gen", "step"))
+    if step % MTS_REBUILD:
+        raise RuntimeError(f"{label}: start {step} is off the rebuild grid")
+    system = system.update(neighbor_finder=dataclasses.replace(
+        system.neighbor_finder, n_steps=MTS_REBUILD))
+    sim = pt.MTSLangevinIntegrator(
+        dt=MTS_DT, temperature=TEMP, friction=FRICTION,
+        pi_fractions=(2,) * len(system.pairwise_inters),
+        si_fractions=(2,) * len(system.specific_lists),
+        gi_fractions=(1,) * len(system.general_inters))
+    # the yardstick in this call: the PME path's Langevin at 2 fs from the
+    # same state, as many inner steps as MTS_STEPS outer steps take
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.run_chunk(run["sim"], run["system"], nb, run["aux"], step,
+                 2 * MTS_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    ref_ms = 1e3 * (time.perf_counter() - t0) / (2 * MTS_STEPS)
+    pk.reset_launch_counts()
+    with counted_pme() as pme_calls:
+        aux = sim.init_aux(system, nb)
+        system, nb, aux, closest = pt.run_chunk(sim, system, nb, aux, step,
+                                                MTS_WARMUP, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system, nb, aux, near = pt.run_chunk(sim, system, nb, aux,
+                                             step + MTS_WARMUP, MTS_STEPS,
+                                             generator=gen)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    outer = MTS_WARMUP + MTS_STEPS
+    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[BONDED_FAMILY]
+    if (launches != 1 + 2 * outer or own != launches
+            or pk.ENERGY_LAUNCHES[BONDED_FAMILY]
+            or pme_calls[0] != 1 + outer):
+        raise RuntimeError(
+            f"{label}: {launches} pair-kernel launches ({own} of instance "
+            f"{BONDED_FAMILY}) and {pme_calls[0]} PME evaluations for "
+            f"{outer} outer steps (want {1 + 2 * outer} and {1 + outer})")
+    temp, viol = check_state(label, system)
+    ms = 1e3 * elapsed / MTS_STEPS
+    ns_day = pt.units.ps_per_step_to_ns_per_day(MTS_DT, ms * 1e-3)
+    print(f"{label}: {outer} outer steps ({2 * outer} inner) of "
+          f"{MTS_DT * 1e3:g} fs, {launches} pair-kernel launches = 1 + 2 x "
+          f"{outer}, {pme_calls[0]} PME evaluations = 1 + {outer}; T "
+          f"{temp:.2f} K, max constraint violation {viol:.3e} nm; unlisted "
+          f"atom pairs at the rebuilds at least {min(closest, near):.4f} nm "
+          "apart", flush=True)
+    ref_ns = pt.units.ps_per_step_to_ns_per_day(DT, ref_ms * 1e-3)
+    print(f"{label}: {ms:.4f} ms per outer step ({ms / 2:.4f} per 2 fs), "
+          f"{ns_day:.4f} ns/day ({MTS_STEPS} timed outer steps); Langevin "
+          f"at 2 fs from the same start just before: {ref_ms:.4f} ms/step, "
+          f"{ref_ns:.4f} ns/day ({2 * MTS_STEPS} steps; card {line})",
+          flush=True)
+    with uncounted():
+        check_f64(label, system, aux["forces"],
+                  pt.potential_energy(system, nb))
+    start = step + outer
+    steps_without_sync(label, {"sim": sim, "system": system, "nb": nb,
+                               "aux": aux, "gen": gen}, start, MTS_REBUILD)
+    print(f"{label} sync check, outer steps {start}-"
+          f"{start + MTS_REBUILD - 1} ({2 * MTS_REBUILD} inner) on one list "
+          "under set_sync_debug_mode(\"error\"): no host sync (a known one "
+          "made first was caught)", flush=True)
+    return dict(launches=launches, ms=ms, ns_day=ns_day, ref_ms=ref_ms)
 
 
 def other_modes(label, system, modes):
@@ -1403,6 +1701,9 @@ def components(label, run, hamiltonian=None, lams=()):
         if isinstance(g, pt.PME):
             parts["PME force_virial"] = lambda pme=g: pme.force_virial(
                 x, box, system.atoms)
+    if any(sl.n_terms for sl in system.specific_lists):
+        parts["bonded lists (all_specific_forces)"] = \
+            lambda: pt.all_specific_forces(system.specific_lists, x, box)
     if hamiltonian is not None:
         parts[f"cross-energy sample ({len(lams)} lambdas)"] = \
             lambda: hamiltonian.energies(system, lams, nb)
@@ -1675,6 +1976,8 @@ def main():
             runs[label] = main_path(label, system, n_chunks, family)
             if label == "PME":
                 npt, npt_energy = npt_phase(system, runs[label], line)
+                bonded = bonded_phase(runs[label]["system"])
+                runs["MTS-PME"] = mts_path(runs[label], line)
             if label == "RF-ortho":
                 components(label, runs[label])
             runs[label] = {k: runs[label][k]
@@ -1682,6 +1985,7 @@ def main():
             if label == "PME":
                 pme_system = system
             del system
+        runs["Bonded-PME"] = bonded_pme_path(dev, workdir, line)
 
         t0 = time.perf_counter()
         fep, mask = fep_system(pme_system)
@@ -1705,17 +2009,27 @@ def main():
     paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
     paths.append(("FEP-water", FEP_FAMILY))
     print(f"card: {line}; " + "; ".join(
-        f"{label} {r['ms']:.4f} ms/step, {r['ns_day']:.4f} ns/day"
-        for label, r in runs.items()) + f"; NPT-PME (MC) "
+        f"{label} {r['ms']:.4f} ms/{'outer ' if label == 'MTS-PME' else ''}"
+        f"step, {r['ns_day']:.4f} ns/day" for label, r in runs.items())
+        + f"; NPT-PME (MC) "
         f"{npt['MC']['ms']:.4f} ms/step, {npt['MC']['ns_day']:.4f} ns/day; "
         f"NPT-PME (C-rescale) {npt['C-rescale']['ms']:.4f} ms/step (an "
         "expanding box, re-setups included: not a representative NPT "
-        "rate)", flush=True)
+        "rate); bonded layer: Bonded-PME "
+        f"{runs['Bonded-PME']['layer']['ms']:.4f} ms and "
+        f"{runs['Bonded-PME']['layer']['launches']:g} device calls per "
+        f"evaluation, all eleven kinds {bonded['ms']:.4f} ms and "
+        f"{bonded['launches']:g}; pair-kernel K1a launches: PME "
+        f"{runs['PME']['launches']}, Bonded-PME "
+        f"{runs['Bonded-PME']['launches']}, MTS-PME "
+        f"{runs['MTS-PME']['launches']}", flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
         "replaces": "mollytpu/ops/pallas_pairwise.py:636",
-        "launches": runs[label]["launches"],
+        "launches": runs[label]["launches"] + (
+            runs["Bonded-PME"]["launches"] + runs["MTS-PME"]["launches"]
+            if label == "PME" else 0),
         "max_abs_err": stats[family]["max_abs_err"],
         "ms": stats[family]["ms"], "plain_ms": stats[family]["plain_ms"],
         "bound_ms": stats[family]["bound_ms"],

@@ -15,8 +15,13 @@ from .boundary import (Orthorhombic, Triclinic, cubic, rectangular,
 from .config import resolve_device
 from .forces import forces_virial, potential_energy
 from .models.forcefield import ForceField
-from .models.setup import system_from_pdb
+from .models.setup import add_position_restraints, system_from_pdb
 from .models.waterbox import DODECAHEDRON, TIP3P_XML, water_box_pdb
+from .ops.bonded import (
+    SpecificList, all_specific_forces, cosine_angles, ewald_exclusions,
+    fene_bonds, harmonic_angles, harmonic_bonds, harmonic_torsions,
+    morse_bonds, periodic_torsions, position_restraints, rb_torsions,
+    register_term, specific_energy, specific_forces, urey_bradleys)
 from .ops.cutoffs import (DistanceCutoff, NoCutoff, ShiftedForceCutoff,
                           ShiftedPotentialCutoff)
 from .ops.ewald import PME, EwaldExclusionCorrection
@@ -35,7 +40,8 @@ from .sim.coupling import (AndersenThermostat, BerendsenBarostat,
                            ImmediateThermostat, MonteCarloBarostat,
                            VelocityRescaleThermostat, apply_couplers,
                            couplers_invalidate_forces, needs_virial_interval)
-from .sim.integrators import Langevin, VelocityVerlet
+from .sim.integrators import (Langevin, MTSIntegrator,
+                              MTSLangevinIntegrator, VelocityVerlet)
 from .sim.minimize import SteepestDescentMinimizer
 from .sim.simulate import (StaleNeighborList, npt_resetup, run_chunk,
                            simulate)

@@ -1,7 +1,7 @@
 """Build the port's System from a JAX-package System whose arrays were
 fetched to the host (``jax.device_get(sys)``): the "weights" of a run
-(atom parameters, box, interactions, exclusions, PME moduli, constraints,
-molecule ids)
+(atom parameters, box, interactions, bonded lists, exclusions, PME moduli,
+constraints, molecule ids)
 carried over as numpy arrays. Duck-typed on attribute and class names, so
 the port never imports the JAX package; the parity tests use it to hand
 both packages the same system.
@@ -20,6 +20,7 @@ from .config import resolve_device
 from .free_energy import alchemy
 from .ops import cutoffs, mixing, pairwise
 from .ops.blockpairs import BlockPairFinder
+from .ops.bonded import TERM_FUNCS, SpecificList
 from .ops.constraints import SHAKERattle
 from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection
@@ -129,6 +130,16 @@ def _general(gi, dtype, device):
     raise NotImplementedError(f"general interaction {name} is not ported")
 
 
+def _specific(slist, dtype, device):
+    """The port's list of the same kind: indices and every parameter
+    column, weight included."""
+    if slist.kind not in TERM_FUNCS:
+        raise NotImplementedError(f"bonded kind {slist.kind} is not ported")
+    return SpecificList(
+        slist.kind, _tensor(slist.atom_idx, torch.int64, device),
+        {k: _tensor(v, dtype, device) for k, v in slist.params.items()})
+
+
 def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                        n_steps=None):
     """The port's System for a host-side JAX System ``tree``, on ``device``
@@ -166,8 +177,6 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
         pairs = np.stack([np.asarray(c.idx_i), np.asarray(c.idx_j)], axis=1)
         constraints.append(SHAKERattle.build(pairs, np.asarray(c.dists),
                                              dtype=dtype, device=device))
-    if any(np.asarray(s.atom_idx).shape[0] for s in tree.specific_lists):
-        raise NotImplementedError("bonded terms are not ported yet")
     finder = None
     n = coords.shape[0]
     if dist_neighbors is not None:
@@ -178,6 +187,8 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                   velocities=_tensor(tree.velocities, dtype, device),
                   pairwise_inters=tuple(_pairwise(i)
                                         for i in tree.pairwise_inters),
+                  specific_lists=tuple(_specific(s, dtype, device)
+                                       for s in tree.specific_lists),
                   general_inters=tuple(_general(g, dtype, device)
                                        for g in tree.general_inters),
                   constraints=tuple(constraints), exclusions=exclusions,

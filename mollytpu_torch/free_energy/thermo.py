@@ -64,7 +64,11 @@ class AlchemicalPartition:
     energies of K states evaluate the shared part once. Perturbed are the
     pairwise interactions that read lambda (those with a scheduler, a lambda
     mixing or, through the zero-lambda shortcut of the LJ family, a sigma
-    mixing); general interactions are shared, as in the JAX package."""
+    mixing) and the general interactions with a scheduler (PME on scheduled
+    charges). The JAX package counts every general interaction as shared,
+    so its cross energies miss the scheduled PME's change with lambda
+    (mollytpu/free_energy/thermo.py:91-97); here they equal
+    LambdaHamiltonian.energies."""
 
     atom_mask: torch.Tensor = None
 
@@ -77,9 +81,13 @@ class AlchemicalPartition:
         pert = tuple(i for i in sys.pairwise_inters if self._is_perturbed(i))
         shared = tuple(i for i in sys.pairwise_inters
                        if not self._is_perturbed(i))
-        return (sys.update(pairwise_inters=shared),
+        g_pert = tuple(g for g in sys.general_inters
+                       if getattr(g, "scheduler", None) is not None)
+        g_shared = tuple(g for g in sys.general_inters
+                         if getattr(g, "scheduler", None) is None)
+        return (sys.update(pairwise_inters=shared, general_inters=g_shared),
                 sys.update(pairwise_inters=pert, specific_lists=(),
-                           general_inters=()))
+                           general_inters=g_pert))
 
     def evaluate_energy(self, sys, lam, neighbors=None, shared_energy=None):
         """Total energy at lambda, reusing a cached shared part."""

@@ -1,13 +1,14 @@
 """System construction from a PDB file and an OpenMM-format force field
-(counterpart of mollytpu/models/setup.py:44-170, 291-764, 789-814).
+(counterpart of mollytpu/models/setup.py:44-245, 291-764, 789-843).
 
 Ported: nonbonded_method "cutoff" (LJ truncation + reaction field, in an
-orthorhombic or triclinic box) and "pme" (orthorhombic boxes),
-constraints "none" or "hbonds", rigid water, the LJ dispersion correction.
-Everything else raises NotImplementedError naming what is missing: the
-no-cutoff method, open boundaries, PME in a triclinic box, NBFix, virtual
-sites, implicit solvent, CMAP, and any bonded term that survives the
-constraint filter.
+orthorhombic or triclinic box) and "pme" (orthorhombic boxes), the bonded
+terms (harmonic bonds and angles, periodic and RB proper and improper
+torsions, Urey-Bradley), constraints "none" or "hbonds", rigid water,
+hydrogen mass repartitioning, the LJ dispersion correction, and position
+restraints on a built system. Everything else raises NotImplementedError
+naming what is missing: the no-cutoff method, open boundaries, PME in a
+triclinic box, NBFix, virtual sites, implicit solvent and CMAP.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from .. import boundary as bnd
 from ..atoms import make_atoms
 from ..config import resolve_device
+from ..ops import bonded
 from ..ops.blockpairs import BlockPairFinder
 from ..ops.constraints import SHAKERattle, setup_constraints
 from ..ops.cutoffs import DistanceCutoff
@@ -117,6 +119,145 @@ def build_impropers(adj):
     return imps
 
 
+def _improper_ordering(ff, rule, perm, c, j, k, l, struct, type_of):
+    """OpenMM's atom order of an improper term: (p1, p2, center, p4), the
+    central atom third (mollytpu/models/setup.py:172-245). The matched
+    permutation puts the peripherals in the rule's pattern positions; the
+    ordering's tie-break swaps follow, Amber's comparing (residue index,
+    position in the residue)."""
+    ordering = getattr(rule, "ordering", "default")
+    res_of = struct.res_index_of_atom
+    elements = struct.elements
+    src = (c, j, k, l)
+    j, k, l = (src[perm[m] - 1] for m in (1, 2, 3))
+
+    def pos_in_res(a):
+        return struct.residues[res_of[a]].atom_indices.index(a)
+
+    def later(a, b):
+        """Atom a comes after atom b in (residue, position) order."""
+        return (res_of[a], pos_in_res(a)) > (res_of[b], pos_in_res(b))
+
+    if ordering == "amber":
+        key = (type_of if not rule.has_wild else elements)
+        if key[j] == key[l] and later(j, l):
+            j, l = l, j
+        if key[k] == key[l] and later(k, l):
+            k, l = l, k
+        if (key[j] == key[k] or rule.has_wild) and later(j, k):
+            j, k = k, j
+        return (j, k, c, l)
+    if ordering == "charmm":
+        if rule.has_wild:
+            if elements[j] == elements[l] and later(j, l):
+                j, l = l, j
+            if elements[k] == elements[l] and later(k, l):
+                k, l = l, k
+        return (j, k, c, l)
+    # "default": element / carbon / mass tie-break of the first two
+    # peripherals when the match used a wildcard
+    if rule.has_wild:
+        e1, e2 = elements[j], elements[k]
+        m1 = ff.atom_types[type_of[j]].mass
+        m2 = ff.atom_types[type_of[k]].mass
+        if (j > k) if e1 == e2 else (e1 != "C" and (e2 == "C" or m1 < m2)):
+            j, k = k, j
+    return (j, k, c, l)
+
+
+def _bonded_lists(ff, struct, adj, bonds, type_of, dtype, device):
+    """The bonded lists of the topology, in the JAX package's order
+    (mollytpu/models/setup.py:483-578): harmonic bonds, harmonic angles,
+    proper torsions (one row per Fourier term), impropers (OpenMM's atom
+    order), Urey-Bradley (kangle 0: the angle is already in the angle
+    list), RB propers, RB impropers; each only where it has rows. Returns
+    (lists, bond rows (i, j, r0), angle rows (i, j, k, theta0)) for the
+    constraint filter."""
+    top_angles = build_angles(adj, bonds)
+    bond_rows, angle_rows, ub_rows = [], [], []
+    for (i, j) in bonds:
+        rule = ff.resolve_bond(type_of[i], type_of[j])
+        if rule is not None:
+            bond_rows.append((i, j, rule.k, rule.length))
+    for (i, j, k) in top_angles:
+        rule = ff.resolve_angle(type_of[i], type_of[j], type_of[k])
+        if rule is not None:
+            angle_rows.append((i, j, k, rule.k, rule.theta0))
+            if rule.ub_k != 0.0:
+                ub_rows.append((i, j, k, rule.theta0, rule.ub_k, rule.ub_d))
+    pt_rows, rb_rows, imp_rows, imp_rb_rows = [], [], [], []
+    for (i, j, k, l) in build_torsions(adj, top_angles):
+        rule = ff.resolve_proper(type_of[i], type_of[j], type_of[k],
+                                 type_of[l])
+        if rule is None:
+            continue
+        if hasattr(rule, "terms"):
+            pt_rows += [(i, j, k, l, per, phase, kk)
+                        for (per, phase, kk) in rule.terms if kk != 0.0]
+        else:
+            rb_rows.append((i, j, k, l, rule.coeffs))
+    for (c, j, k, l) in build_impropers(adj):
+        rule, perm = ff.resolve_improper(type_of[c], type_of[j], type_of[k],
+                                         type_of[l])
+        if rule is None:
+            continue
+        atoms = _improper_ordering(ff, rule, perm, c, j, k, l, struct,
+                                   type_of)
+        if hasattr(rule, "terms"):
+            imp_rows += [atoms + (per, phase, kk)
+                         for (per, phase, kk) in rule.terms if kk != 0.0]
+        else:
+            imp_rb_rows.append(atoms + (rule.coeffs,))
+
+    def cols(rows, n):
+        return [np.array([r[m] for r in rows]) for m in range(n)]
+
+    kw = dict(dtype=dtype, device=device)
+    lists = []
+    if bond_rows:
+        i, j, k, r0 = cols(bond_rows, 4)
+        lists.append(bonded.harmonic_bonds(i, j, k=k, r0=r0, **kw))
+    if angle_rows:
+        i, j, k, kk, t0 = cols(angle_rows, 5)
+        lists.append(bonded.harmonic_angles(i, j, k, k=kk, theta0=t0, **kw))
+    for rows in (pt_rows, imp_rows):
+        if rows:
+            i, j, k, l, per, phase, kk = cols(rows, 7)
+            lists.append(bonded.periodic_torsions(
+                i, j, k, l, periodicity=per, phase=phase, k=kk, **kw))
+    if ub_rows:
+        i, j, k, t0, kb, d = cols(ub_rows, 6)
+        lists.append(bonded.urey_bradleys(
+            i, j, k, kangle=np.zeros(len(ub_rows)), theta0=t0, kbond=kb,
+            r0=d, **kw))
+    for rows in (rb_rows, imp_rb_rows):
+        if rows:
+            i, j, k, l, coeffs = cols(rows, 5)
+            lists.append(bonded.rb_torsions(i, j, k, l, coeffs=coeffs,
+                                            **kw))
+    return (tuple(lists),
+            tuple([r[m] for r in bond_rows] for m in (0, 1, 3)),
+            tuple([r[m] for r in angle_rows] for m in (0, 1, 2, 4)))
+
+
+def _repartition(mass, bonds, elements, hydrogen_mass):
+    """Hydrogen mass repartitioning in place: each hydrogen bonded to a
+    heavy atom takes ``hydrogen_mass`` (u), the heavy atom gives up the
+    difference (mollytpu/models/setup.py:600-611)."""
+    hm = float(hydrogen_mass)
+    if not 0.9 <= hm <= 5.0:
+        raise ValueError("hydrogen_mass must be between ~1 and 5 u")
+    for (i, j) in bonds:
+        hi = elements[i].upper() == "H"
+        hj = elements[j].upper() == "H"
+        if hi and not hj:
+            mass[j] -= hm - mass[i]
+            mass[i] = hm
+        elif hj and not hi:
+            mass[i] -= hm - mass[j]
+            mass[j] = hm
+
+
 def bfs_exclusions(adj, n):
     """(excl_pairs, special_pairs): graph distance 1-2 -> excluded,
     3 -> special 1-4 (the shorter path wins)."""
@@ -175,7 +316,8 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                     pme_error_tol=0.0005,
                     solvent_dielectric=CRF_SOLVENT_DIELECTRIC,
                     dtype=torch.float32, device=None, constraints="none",
-                    rigid_water=False, implicit_solvent=None):
+                    rigid_water=False, hydrogen_mass=None,
+                    implicit_solvent=None):
     """Build a System from a PDB file and a ForceField, on ``device`` (the
     CUDA card unless the caller names another, config.resolve_device).
 
@@ -183,7 +325,8 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
     ``solvent_dielectric``) or "pme" (LJ truncation + Ewald real space +
     PME), both with the dispersion correction. The neighbor finder is a
     BlockPairFinder with list radius ``dist_neighbors`` rebuilt every
-    ``neighbor_n_steps`` steps."""
+    ``neighbor_n_steps`` steps. ``hydrogen_mass`` (u) repartitions the
+    masses of hydrogens and the heavy atoms they are bonded to."""
     if nonbonded_method == "none":
         raise NotImplementedError(
             "nonbonded_method='none' needs a dense all-pairs path, which is "
@@ -265,41 +408,14 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
     adj = _adjacency(n, bonds)
     excl_pairs, spec_pairs = bfs_exclusions(adj, n)
 
-    top_angles = build_angles(adj, bonds)
-    b_i, b_j, b_r0 = [], [], []
-    for (i, j) in bonds:
-        rule = ff.resolve_bond(type_of[i], type_of[j])
-        if rule is not None:
-            b_i.append(i)
-            b_j.append(j)
-            b_r0.append(rule.length)
-    a_i, a_j, a_k, a_t0 = [], [], [], []
-    for (i, j, k) in top_angles:
-        rule = ff.resolve_angle(type_of[i], type_of[j], type_of[k])
-        if rule is not None:
-            a_i.append(i)
-            a_j.append(j)
-            a_k.append(k)
-            a_t0.append(rule.theta0)
-    for (i, j, k, l) in build_torsions(adj, top_angles):
-        if ff.resolve_proper(type_of[i], type_of[j], type_of[k],
-                             type_of[l]) is not None:
-            raise NotImplementedError("torsions are not ported yet "
-                                      "(ops/bonded.py)")
-    for (c, j, k, l) in build_impropers(adj):
-        if ff.resolve_improper(type_of[c], type_of[j], type_of[k],
-                               type_of[l])[0] is not None:
-            raise NotImplementedError("improper torsions are not ported yet "
-                                      "(ops/bonded.py)")
+    lists, (b_i, b_j, b_r0), (a_i, a_j, a_k, a_t0) = _bonded_lists(
+        ff, struct, adj, bonds, type_of, dtype, device)
+    if hydrogen_mass is not None:
+        _repartition(mass, bonds, struct.elements, hydrogen_mass)
 
-    pairs, dists, drop_b, drop_a = setup_constraints(
-        struct, b_i, b_j, b_r0, a_i, a_j, a_k, a_t0, constraints,
+    pairs, dists, lists = setup_constraints(
+        struct, lists, b_i, b_j, b_r0, a_i, a_j, a_k, a_t0, constraints,
         rigid_water)
-    if len(b_i) - len(drop_b) or len(a_i) - len(drop_a):
-        raise NotImplementedError(
-            f"{len(b_i) - len(drop_b)} bonds and {len(a_i) - len(drop_a)} "
-            "angles survive the constraint filter; bonded terms are not "
-            "ported yet (ops/bonded.py)")
 
     if struct.box.ndim == 1:
         boundary = bnd.rectangular(struct.box, dtype=dtype, device=device)
@@ -346,7 +462,37 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                                    n_steps=neighbor_n_steps)
     mol_ids, n_mol = molecule_ids_from_bonds(n, bonds, device=device)
     return System(atoms=atoms, coords=coords, boundary=boundary,
-                  pairwise_inters=pairwise, general_inters=tuple(general),
+                  pairwise_inters=pairwise, specific_lists=lists,
+                  general_inters=tuple(general),
                   constraints=constrainers,
                   exclusions=exclusions, neighbor_finder=finder,
                   molecule_ids=mol_ids, n_molecules=n_mol)
+
+
+def add_position_restraints(sys, k, atom_selector=None):
+    """The system with its selected atoms restrained harmonically to their
+    current positions (mollytpu/models/setup.py:817-843): one
+    position_restraint list appended. k (kJ/mol/nm^2) is a scalar or one
+    value per atom; atom_selector a boolean mask, an index array, or a
+    predicate on the atom index (None: every atom)."""
+    n = sys.n_atoms
+    if isinstance(atom_selector, torch.Tensor):
+        atom_selector = atom_selector.detach().cpu().numpy()
+    if atom_selector is None:
+        idx = np.arange(n)
+    elif callable(atom_selector):
+        idx = np.asarray([i for i in range(n) if atom_selector(i)],
+                         dtype=np.int64)
+    else:
+        sel = np.asarray(atom_selector)
+        idx = np.nonzero(sel)[0] if sel.dtype == bool else sel
+    if idx.size == 0:
+        return sys
+    if isinstance(k, torch.Tensor):
+        k = k.detach().cpu().numpy()
+    k_arr = np.broadcast_to(np.asarray(k, dtype=np.float64), (n,))[idx]
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=sys.device)
+    slist = bonded.position_restraints(idx, k_arr, sys.coords[idx],
+                                       dtype=sys.coords.dtype,
+                                       device=sys.device)
+    return sys.update(specific_lists=sys.specific_lists + (slist,))

@@ -261,12 +261,14 @@ class SHAKERattle:
         return torch.max(torch.abs(r - self.dists.to(coords.dtype)))
 
 
-def setup_constraints(struct, b_i, b_j, b_r0, a_i, a_j, a_k, a_t0,
-                      constraints="none", rigid_water=False):
-    """Constraint pairs and distances from the topology, and the bond and
-    angle rows they replace: (pairs, dists, dropped bond rows, dropped
-    angle rows). Rigid water is an O-H, O-H, H-H triangle; "hbonds" adds
-    every other bond to a hydrogen."""
+def setup_constraints(struct, specific_lists, b_i, b_j, b_r0, a_i, a_j, a_k,
+                      a_t0, constraints="none", rigid_water=False):
+    """Constraint pairs and distances from the topology, and the bonded
+    lists without the bond and angle rows the constraints replace:
+    (pairs, dists, lists). Rigid water is an O-H, O-H, H-H triangle;
+    "hbonds" adds every other bond to a hydrogen. A list that loses all
+    its rows stays, empty, in its place (mollytpu/ops/constraints.py:
+    732-745)."""
     from ..models.setup import is_water
 
     if constraints not in ("none", "hbonds"):
@@ -314,4 +316,17 @@ def setup_constraints(struct, b_i, b_j, b_r0, a_i, a_j, a_k, a_t0,
                 pairs.append((i, j))
                 dists.append(float(r0))
                 drop_bond_rows.add(row)
-    return pairs, dists, drop_bond_rows, drop_angle_rows
+    drops = {"harmonic_bond": drop_bond_rows,
+             "harmonic_angle": drop_angle_rows}
+    lists = tuple(_filter_rows(sl, drops[sl.kind]) if drops.get(sl.kind)
+                  else sl for sl in specific_lists)
+    return pairs, dists, lists
+
+
+def _filter_rows(slist, drop):
+    """The list without the rows in ``drop``."""
+    keep = torch.as_tensor([r not in drop for r in range(slist.n_terms)],
+                           device=slist.atom_idx.device)
+    return dataclasses.replace(
+        slist, atom_idx=slist.atom_idx[keep],
+        params={k: v[keep] for k, v in slist.params.items()})

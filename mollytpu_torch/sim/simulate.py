@@ -53,10 +53,12 @@ def raise_if_stale(closest, cutoff):
 
 def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
               noise=None, draws=None):
-    """Advance n steps from step number step0. ``noise`` is an optional
-    callable step_n -> (N, 3) standard-normal tensor that replaces the
-    generator's Langevin draws, ``draws`` one step_n -> per-coupler draws
-    (coupling.py) for the couplers'. Returns (sys, neighbors, aux, closest
+    """Advance n steps from step number step0 (outer steps of an MTS
+    integrator, which the rebuild cadence counts). ``noise`` is an optional
+    callable step_n -> the step's standard-normal draws that replace the
+    generator's: an (N, 3) tensor for Langevin, a sequence of one per
+    innermost substep for MTSLangevinIntegrator; ``draws`` one step_n ->
+    per-coupler draws (coupling.py) for the couplers'. Returns (sys, neighbors, aux, closest
     distance of an unlisted atom pair at the checked evaluations, in
     nm)."""
     finder = sys.neighbor_finder

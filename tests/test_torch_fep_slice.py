@@ -190,8 +190,27 @@ def test_lambda_hamiltonian_energies_match(cross):
 
 
 def test_cross_energies_match(cross):
-    _, p_j, _, p, _, _ = cross
-    np.testing.assert_allclose(np64(p), np64(p_j), rtol=TOL)
+    """The port's cross energies equal LambdaHamiltonian.energies (its own
+    and the JAX package's): the scheduled PME counts as perturbed and is
+    evaluated at each lambda. The JAX package's cross energies keep it at
+    the frame's lambda (mollytpu/free_energy/thermo.py:91-97), so they
+    differ from its energies by the scheduled PME's change with lambda,
+    except at the frame's own lambda: recorded here."""
+    h_j, p_j, h, p, ps, _ = cross
+    np.testing.assert_allclose(np64(p), np64(h), rtol=1e-12)
+    np.testing.assert_allclose(np64(p), np64(h_j), rtol=TOL)
+    tm = ps.atoms.alch_role != pt.ALCH_CORE
+    pme = next(g for g in ps.general_inters if isinstance(g, pt.PME))
+
+    def e_pme(lam):
+        at = pt.set_lambda(ps, lam, atom_mask=tm)
+        return float(pme.energy(at.coords, at.boundary, at.atoms))
+
+    frame = LAMS.index(0.75)
+    shift = np.array([e_pme(lam) - e_pme(LAMS[frame]) for lam in LAMS])
+    np.testing.assert_allclose(np64(h_j) - np64(p_j), shift, rtol=1e-6,
+                               atol=1e-6)
+    assert np.all(np.abs(np.delete(shift, frame)) > 10.0)
 
 
 def test_mbar_on_cross_energies(cross):

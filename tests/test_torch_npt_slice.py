@@ -265,6 +265,38 @@ def test_coupled_langevin_trajectory_matches_jax(start, kind):
         assert int(aux_p["mc_baro"]["attempted"]) == 4
 
 
+def test_virial_after_a_box_move_is_fresh(start):
+    """A C-rescale step that moves the box: the step's virial is that of a
+    fresh forces_virial at the new box, as after the JAX package's step
+    (mollytpu/sim/integrators.py:106-108), and not the one the barostat
+    read before the move."""
+    js, ps = start
+    sim_j = mt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION,
+                        coupling=(_barostat(mt, "crescale"),))
+    sim_p = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION,
+                        coupling=(_barostat(pt, "crescale"),))
+    key = jax.random.PRNGKey(3)
+    noise, draws = jax_step_draws(key, 1, js.n_atoms, js.n_dof,
+                                  sim_j.coupling)
+    _, sub = jax.random.split(key)
+    out_j, aux_j = jax.jit(lambda s: sim_j.step(
+        s, None, sim_j.init_aux(s, None, True), 0, sub,
+        needs_virial=True))(js)
+    nb = port_neighbors(ps)
+    out_p, aux_p = sim_p.step(ps, nb, sim_p.init_aux(ps, nb, True), 0,
+                              noise=noise[0], needs_virial=True,
+                              draws=draws[0])
+    assert float(out_p.boundary.volume()) != pytest.approx(
+        float(ps.boundary.volume()), rel=1e-6)
+    _, fresh = pt.forces_virial(out_p, nb, needs_virial=True)
+    assert torch.equal(aux_p["virial"], fresh)
+    assert max_rel(aux_j["virial"], aux_p["virial"]) < 1e-9
+    # a virial at the old box differs
+    sys_moved = out_p.update(boundary=ps.boundary)
+    _, before = pt.forces_virial(sys_moved, nb, needs_virial=True)
+    assert max_rel(fresh, before) > 1e-6
+
+
 def test_minimizer_matches_jax(start):
     """20 iterations from the lattice: every accepted move, the step
     sizes they imply, the energies and the coordinates. The first step is

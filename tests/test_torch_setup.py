@@ -80,9 +80,11 @@ def test_constraints_match(systems):
     for pb, jb in zip(pc.clusters, jc.clusters):
         np.testing.assert_array_equal(pb.atoms.numpy(), np.asarray(jb.atoms))
         np.testing.assert_allclose(np64(pb.dists), np64(jb.dists), atol=TOL)
-    # water bonds and angles all became constraints in both packages
+    # water bonds and angles all became constraints in both packages, and
+    # both keep the emptied lists
     assert [s.n_terms for s in js.specific_lists] == [0, 0]
-    assert ps.specific_lists == ()
+    assert [(s.kind, s.n_terms) for s in ps.specific_lists] == [
+        (s.kind, 0) for s in js.specific_lists]
 
 
 def test_pme_and_corrections_match(systems):
@@ -164,13 +166,11 @@ def test_triclinic_pme_raises():
     (dict(nonbonded_method="none"), "dense all-pairs"),
     (dict(constraints="allbonds"), "constraints="),
     (dict(implicit_solvent="obc2"), "implicit solvent"),
-    (dict(constraints="none"), "bonded terms are not ported"),
+    (dict(constraints="hangles"), "constraints="),
 ])
 def test_unported_options_raise(kwargs, what):
     args = dict(rigid_water=True, constraints="hbonds")
     args.update(kwargs)
-    if kwargs.get("constraints") == "none":
-        args["rigid_water"] = False
     with pytest.raises(NotImplementedError, match=what):
         pt.system_from_pdb(box_path("tiny64"), pt.ForceField(pt.TIP3P_XML),
                            device=CPU, **args)

@@ -13,7 +13,6 @@ one through the bridge, and directly by its own setup; both must agree."""
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,8 +23,9 @@ from mollytpu.sim.simulate import _make_chunk_fn
 import mollytpu_torch as pt
 from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_forces_virial,
-                          jax_neighbors, jax_potential_energy, jax_system,
-                          max_rel, np64, port_neighbors, port_system)
+                          jax_neighbors, jax_noise_sequence,
+                          jax_potential_energy, jax_system, max_rel, np64,
+                          port_neighbors, port_system, seeded_velocities)
 
 DT, TEMP, FRICTION = 0.002, 300.0, 1.0
 N_STEPS = 2 * CADENCE
@@ -34,24 +34,10 @@ N_STEPS = 2 * CADENCE
 @pytest.fixture(scope="module")
 def start():
     """JAX and port systems with the same seeded velocities."""
-    js = jax_system("tiny64")
-    rng = np.random.default_rng(1)
-    m = np64(js.atoms.mass)
-    v = rng.normal(size=(js.n_atoms, 3)) * np.sqrt(pt.units.KB * TEMP / m)[
-        :, None]
-    js = js.update(velocities=jnp.asarray(v))
+    js = seeded_velocities(jax_system("tiny64"), temp=TEMP)
     ps = system_from_arrays(jax.device_get(js), device=CPU,
                             dist_neighbors=LIST_RADIUS, n_steps=CADENCE)
     return js, ps
-
-
-def _noise_sequence(key, n_steps, shape):
-    """The noise the JAX chunk runner draws: split, then normal(sub)."""
-    out = []
-    for _ in range(n_steps):
-        key, sub = jax.random.split(key)
-        out.append(np.array(jax.random.normal(sub, shape, jnp.float64)))
-    return out
 
 
 def test_port_setup_equals_bridged_system(start):
@@ -82,7 +68,7 @@ def test_one_langevin_step_with_jax_noise(start):
     sim_j = mt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
     nbs = jax_neighbors(js)
     key = jax.random.PRNGKey(3)
-    noise = _noise_sequence(key, 1, (js.n_atoms, 3))[0]
+    noise = jax_noise_sequence(key, 1, (js.n_atoms, 3))[0]
 
     @jax.jit
     def jstep(sys, nbs):
@@ -93,8 +79,7 @@ def test_one_langevin_step_with_jax_noise(start):
     out_j = jstep(js, nbs)
     sim_p = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
     nb = port_neighbors(ps)
-    out_p, _ = sim_p.step(ps, nb, sim_p.init_aux(ps, nb), 0,
-                          noise=torch.as_tensor(noise))
+    out_p, _ = sim_p.step(ps, nb, sim_p.init_aux(ps, nb), 0, noise=noise)
     np.testing.assert_allclose(np64(out_p.coords), np64(out_j.coords),
                                atol=1e-9)
     np.testing.assert_allclose(np64(out_p.velocities),
@@ -110,10 +95,9 @@ def test_chunked_steps_with_rebuilds_match(start):
                                          align=0), n=N_STEPS))
     out_j, _, _, _ = run(js, nbs, sim_j.init_aux(js, nbs), key, 0)
 
-    noise = _noise_sequence(key, N_STEPS, (js.n_atoms, 3))
+    noise = jax_noise_sequence(key, N_STEPS, (js.n_atoms, 3))
     sim_p = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
-    out_p, nb, _ = pt.simulate(ps, sim_p, N_STEPS,
-                               noise=lambda k: torch.as_tensor(noise[k]))
+    out_p, nb, _ = pt.simulate(ps, sim_p, N_STEPS, noise=lambda k: noise[k])
     assert nb.step_built == N_STEPS
     np.testing.assert_allclose(np64(out_p.coords), np64(out_j.coords),
                                atol=1e-7)

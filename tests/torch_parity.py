@@ -53,13 +53,14 @@ def box_path(name):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_system(name, method="pme"):
-    """JAX-built f64 water box (PME or reaction field) with its block-pair
+def jax_system(name, method="pme", rigid=True):
+    """JAX-built f64 water box (PME or reaction field; rigid water, or
+    flexible H-O-H angles with constrained O-H bonds) with its block-pair
     finder attached."""
     sys = jax_system_from_pdb(
         box_path(name), JaxForceField(pt.TIP3P_XML),
         nonbonded_method=method, dtype=jnp.float64, constraints="hbonds",
-        rigid_water=True, dist_neighbors=LIST_RADIUS, build_cache=False)
+        rigid_water=rigid, dist_neighbors=LIST_RADIUS, build_cache=False)
     finder = JaxBlockPairFinder.setup(
         sys.boundary, LIST_RADIUS, sys.n_atoms, n_steps=CADENCE,
         coords=sys.coords, atoms=sys.atoms, block=32, lanes=128)
@@ -67,12 +68,12 @@ def jax_system(name, method="pme"):
 
 
 @functools.lru_cache(maxsize=None)
-def port_system(name, method="pme"):
+def port_system(name, method="pme", rigid=True):
     """The same box built by mollytpu_torch, f64 on the CPU."""
     return pt.system_from_pdb(
         box_path(name), pt.ForceField(pt.TIP3P_XML), nonbonded_method=method,
         dtype=torch.float64, device=CPU, constraints="hbonds",
-        rigid_water=True, dist_neighbors=LIST_RADIUS,
+        rigid_water=rigid, dist_neighbors=LIST_RADIUS,
         neighbor_n_steps=CADENCE)
 
 
@@ -88,11 +89,7 @@ def jax_dense_rf_system(name="tiny64", seed=1, temp=300.0):
         rigid_water=True, build_cache=False, neighbor_finder=None)
     inters = tuple(dataclasses.replace(i, use_neighbors=False)
                    for i in sys.pairwise_inters)
-    rng = np.random.default_rng(seed)
-    m = np.asarray(sys.atoms.mass)
-    v = rng.normal(size=(sys.n_atoms, 3)) * np.sqrt(
-        pt.units.KB * temp / m)[:, None]
-    return sys.update(pairwise_inters=inters, velocities=jnp.asarray(v))
+    return seeded_velocities(sys.update(pairwise_inters=inters), seed, temp)
 
 
 def jax_coupler_draws(coupler, key, n_atoms, n_dof):
@@ -138,6 +135,35 @@ def jax_step_draws(key, n_steps, n_atoms, n_dof, couplers=()):
             per.append(jax_coupler_draws(c, csub, n_atoms, n_dof))
         draws.append(per)
     return noise, draws
+
+
+def seeded_velocities(js, seed=1, temp=300.0):
+    """The JAX system with Maxwell-Boltzmann velocities drawn by numpy."""
+    rng = np.random.default_rng(seed)
+    m = np64(js.atoms.mass)
+    v = rng.normal(size=(js.n_atoms, 3)) * np.sqrt(
+        pt.units.KB * temp / m)[:, None]
+    return js.update(velocities=jnp.asarray(v))
+
+
+def jax_noise_sequence(key, n_steps, shape, n_sub=None):
+    """The noise the JAX chunk runner's steps draw from ``key``
+    (simulate.py:71): per step, split, then normal(sub) for Langevin; for
+    an MTS Langevin step of n_sub innermost substeps, one draw per substep
+    from split(sub, n_sub + 1), taken from the end as the step pops its
+    keys (integrators.py:514-531)."""
+    out = []
+    for _ in range(n_steps):
+        key, sub = jax.random.split(key)
+        if n_sub is None:
+            out.append(torch.as_tensor(np64(jax.random.normal(
+                sub, shape, jnp.float64))))
+        else:
+            keys = jax.random.split(sub, n_sub + 1)
+            out.append([torch.as_tensor(np64(jax.random.normal(
+                keys[n_sub - 1 - s], shape, jnp.float64)))
+                for s in range(n_sub)])
+    return out
 
 
 def jax_neighbors(sys):
