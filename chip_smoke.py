@@ -91,12 +91,33 @@ Phases, each printing one line or more before the next starts:
    lambdas every 20 steps; MBAR in float64 on the card against the same
    solve on the CPU; the main-path gates and the step's components.
 
+8. LJ-bench: LAMMPS's bench/in.lj at 32,000 atoms
+   (mollytpu_torch/models/ljbench.py) on the general pair path: the
+   neighbor-table engine over a CellListNeighborFinder (sized by its
+   Poisson rule), velocity Verlet, no pair kernel. Gates: the lattice's
+   pair energy per atom against a numpy lattice sum (1e-4 in f32, 1e-9 in
+   f64); in.lj's 100 steps with no overflow and no stale list at any
+   rebuild, at its cadence of 20 or, where the exact stale-list check
+   stops that run, at 10; the f32 NVE drift at most twice the f64 run's
+   plus 1e-3 epsilon per atom; f32 forces (1e-4 of rms|F|) and energy
+   (1e-5) against float64 on the frame after 100 steps; finite
+   coordinates and T < 1000 K; no pair-kernel launch over the phase; the
+   steps between two rebuilds under set_sync_debug_mode("error"). Then
+   200 timed steps after 100 (ms/step, timesteps/s, katom-step/s,
+   tau/day, ns/day), the step's components and a torch.profiler summary.
+   On in.melt's frame (4,000 atoms, 10^3 cells, 3.0 epsilon / kB): the
+   dense engine against the cell-list engine, and each new potential,
+   cutoff, mixing rule and an NBFix table, f32 against f64 and the
+   neighbor engine against the dense one. DPD: the pair noise on the
+   card bit for bit the CPU's, and 20 DPDVelocityVerlet steps in float64
+   on the card against the CPU (1e-9 nm).
+
 The second-to-last line is a JSON object {"kernels": [...]}: the four
 main-path instance families (K1a's launches those of the PME, Bonded-PME
 and MTS-PME paths together), K1a's energy and virial instance on the NPT
 path, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
-probe phase); the last is
+probe phase; LJ-bench launches no kernel and has no entry); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -276,6 +297,28 @@ ALCH_CASES = ([(lj, c) for lj in ("beutler", "gapsys") for c in ALCH_COULS]
                  ("lj", "sc-beutler-ewald"), ("lj", "sc-gapsys")])
 SCHEDULERS = ("DefaultLambdaScheduler", "NAMDLambdaScheduler",
               "QuartersLambdaScheduler", "EleScaledLambdaScheduler")
+
+#: LJ-bench: LAMMPS's in.lj (mollytpu_torch/models/ljbench.py), 20^3 fcc
+#: cells (32,000 atoms), on the general pair path: the neighbor-table
+#: engine over a CellListNeighborFinder, velocity Verlet (fix nve), no pair
+#: kernel. in.lj rebuilds every 20 steps unchecked; the port's exact check
+#: decides, and the run falls back to every 10 when a pair went missing
+LJ_CELLS, LJ_RUN, LJ_SAMPLE = 20, 100, 10
+LJ_WARMUP, LJ_TIMED = 100, 200
+LJ_CADENCES = (20, 10)
+#: in.lj's gates: the lattice's pair energy per atom against the numpy sum
+#: (f32, f64 on the card); f32 forces and energy against float64 on the
+#: frame after 100 steps; the f32 NVE drift at most twice the f64 run's
+#: plus 1e-3 epsilon per atom
+TOL_LJ_E0_F32, TOL_LJ_E0_F64 = 1e-4, 1e-9
+TOL_LJ_FORCE, TOL_LJ_ENERGY, LJ_DRIFT_SLACK = 1e-4, 1e-5, 1e-3
+#: in.melt's size (10^3 cells, 4,000 atoms, velocity create 3.0): the
+#: dense engine against the neighbor engine, and the other forms
+MELT_CELLS, MELT_T, MELT_STEPS = 10, 3.0, 50
+TOL_ENGINES, TOL_FORMS_F64 = 1e-5, 1e-4
+#: DPD on the card against the CPU: a fluid of 1,536 unit masses at
+#: density 3, 20 DPDVelocityVerlet steps in float64
+DPD_N, DPD_STEPS, TOL_DPD = 1536, 20, 1e-9
 
 
 def card_line():
@@ -1317,9 +1360,10 @@ def steps_without_sync(label, run, start, n):
     first, to show that the mode catches one. The list is checked for stale
     pairs after. Returns the run's state after the steps."""
     import torch
-    from mollytpu_torch.ops.blockpairs import unlisted_min_distance
     from mollytpu_torch.sim.coupling import virial_due
-    from mollytpu_torch.sim.simulate import list_cutoff, raise_if_stale
+    from mollytpu_torch.sim.simulate import (list_check, list_cutoff,
+                                             raise_if_overflow,
+                                             raise_if_stale)
     sim, system, nb, aux, gen = (run[k] for k in (
         "sim", "system", "nb", "aux", "gen"))
     torch.cuda.synchronize()
@@ -1343,8 +1387,10 @@ def steps_without_sync(label, run, start, n):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     cutoff = list_cutoff(system)
-    raise_if_stale(unlisted_min_distance(nb, system.coords, system.boundary,
-                                         cutoff), cutoff)
+    near, over = list_check(system, nb, cutoff)
+    if over is not None:
+        raise_if_overflow(over, start + n)
+    raise_if_stale(near, cutoff)
     return {**run, "system": system, "aux": aux, "step": start + n}
 
 
@@ -1946,6 +1992,429 @@ def fep_mbar(e):
           "steps)", flush=True)
 
 
+def lattice_energy():
+    """E_pair / N (epsilon) of in.lj's fcc lattice, summed over lattice
+    vectors with numpy in reduced units (independent of the port)."""
+    import numpy as np
+    a = (4.0 / 0.8442) ** (1.0 / 3.0)
+    basis = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    r = np.arange(-4, 5)
+    cells = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 1, 3)
+    d = np.linalg.norm(((cells + basis[None]) * a).reshape(-1, 3), axis=1)
+    d = d[(d > 0) & (d < 2.5)]
+    return 0.5 * float(np.sum(4.0 * (d ** -12 - d ** -6)))
+
+
+def total_energy(system, nb):
+    """(potential, kinetic) energy in kJ/mol, device scalars."""
+    import mollytpu_torch as pt
+    return (pt.potential_energy(system, nb),
+            pt.kinetic_energy(system.masses, system.velocities))
+
+
+def lj_nve(system, cadence, label):
+    """in.lj's run 100 from the built state at a rebuild ``cadence``, in
+    chunks of LJ_SAMPLE steps (run_chunk: its rebuilds, the stale-list
+    check and the overflow check); the total energy at every chunk end.
+    Returns (final system, list, aux, [(E_pot, E_kin)] per sample)."""
+    import dataclasses as dc
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    system = system.update(neighbor_finder=dc.replace(
+        system.neighbor_finder, n_steps=cadence))
+    sim = ljbench.lj_bench_integrator()
+    nb = pt.find_neighbors(system.neighbor_finder, system.coords,
+                           system.boundary, system.exclusions)
+    aux = sim.init_aux(system, nb)
+    samples = [total_energy(system, nb)]
+    for step in range(0, LJ_RUN, LJ_SAMPLE):
+        system, nb, aux, _ = pt.run_chunk(sim, system, nb, aux, step,
+                                          LJ_SAMPLE)
+        samples.append(total_energy(system, nb))
+    return system, nb, aux, [(float(a), float(b)) for a, b in samples]
+
+
+def lj_f64_check(label, sys32, f32, e32, sys64):
+    """The f32 forces and pair energy at sys32's frame against a float64
+    evaluation of the same frame (sys64's parameters), over the atoms with
+    no pair within NEAR_CUT of the cutoff, where the f32 r^2 may put the
+    pair on the other side of lj/cut's force jump."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    s64 = sys64.update(coords=sys32.coords.double())
+    nb = pt.find_neighbors(s64.neighbor_finder, s64.coords, s64.boundary,
+                           s64.exclusions)
+    f64, _ = pt.forces_virial(s64, nb)
+    e64 = pt.potential_energy(s64, nb)
+    n = s64.n_atoms
+    safe = torch.clamp(nb.idx, max=n - 1).long()
+    dr = s64.boundary.mic_parts(tuple(s64.coords[:, k][safe]
+                                      - s64.coords[:, k][:, None]
+                                      for k in range(3)))
+    r = torch.sqrt(dr[0] ** 2 + dr[1] ** 2 + dr[2] ** 2)
+    close = (nb.idx < n) & ((r - ljbench.CUTOFF).abs() < NEAR_CUT)
+    near = close.any(dim=1)
+    near[safe[close]] = True
+    rms = float(f64.pow(2).sum(dim=1).mean().sqrt())
+    err = (f32.double() - f64).abs().amax(dim=1) / rms
+    df = float(err[~near].max())
+    de = abs(float(e32) - float(e64)) / abs(float(e64))
+    print(f"{label}: f32 vs float64 on the frame: max|dF|/rms|F| {df:.3e} "
+          f"over the {int((~near).sum())} atoms with no pair within "
+          f"{NEAR_CUT} nm of the cutoff ({int(near.sum())} others, "
+          f"{float(err[near].max()) if near.any() else 0.0:.3e}), rms|F| "
+          f"{rms:.4f} kJ/mol/nm, rel dE {de:.3e}", flush=True)
+    if df > TOL_LJ_FORCE or de > TOL_LJ_ENERGY:
+        raise RuntimeError(f"{label}: f32 disagrees with float64")
+
+
+def lj_components(label, system, nb, aux, cadence):
+    """CUDA-event times (median of 20) of the step's parts and a
+    torch.profiler summary of 20 steps: (ms per part, launches per step,
+    device-busy share)."""
+    import time as _t
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    from mollytpu_torch.sim.simulate import list_check
+    sim = ljbench.lj_bench_integrator()
+    x, box = system.coords, system.boundary
+    inters = system.pairwise_inters
+    parts = {
+        "whole step": lambda: sim.step(system, nb, aux, 0),
+        "neighbor_forces": lambda: pt.neighbor_forces(
+            inters, system.atoms, x, box, nb),
+        "find (per rebuild)": lambda: system.neighbor_finder.find(
+            x, box, system.exclusions),
+        "stale check (per rebuild)": lambda: list_check(
+            system, nb, ljbench.CUTOFF, nb),
+    }
+    ms = {}
+    for name, fn in parts.items():
+        ms[name] = _time(fn, 2, 20)
+        print(f"{label} component: {name}: {ms[name]:.4f} ms", flush=True)
+    ms["rest of the step"] = ms["whole step"] - ms["neighbor_forces"]
+    print(f"{label} component: rest of the step (whole - neighbor_forces): "
+          f"{ms['rest of the step']:.4f} ms; per step at a rebuild every "
+          f"{cadence}: find + check "
+          f"{(ms['find (per rebuild)'] + ms['stale check (per rebuild)']) / cadence:.4f}"
+          " ms", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = _t.perf_counter()
+        s, a = system, aux
+        for k in range(20):
+            s, a = sim.step(s, nb, a, k)
+        torch.cuda.synchronize()
+        wall = (_t.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    launches = sum(e.count for e in avgs
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    # the device's own events (kernels, copies, fills): an operator's row
+    # repeats the time of the kernels it launched
+    device = [e for e in avgs
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(_dev_us(e) for e in device) / 1e3
+    top = sorted(device, key=_dev_us, reverse=True)[:5]
+    print(f"{label} profile, 20 steps: {launches / 20:g} kernel launches "
+          f"per step, {busy / 20:.4f} ms device time per step ({wall / 20:.4f}"
+          f" ms per step under the profiler); top: " + "; ".join(
+              f"{e.key[:40]} {_dev_us(e) / 1e3:.3f} ms" for e in top),
+          flush=True)
+    return ms, launches / 20, busy / 20
+
+
+def lj_bench_path(dev, line):
+    """LJ-bench: LAMMPS's in.lj at 32,000 atoms on the general pair path.
+    Gates: the lattice energy (f32 and f64), no overflow and no stale list
+    at any rebuild (run_chunk raises), f32 against float64 after in.lj's
+    100 steps, the NVE drift against the f64 run's, finite coordinates
+    and T < 1000 K, no pair-kernel launch, no host sync between two
+    rebuilds; then the timed run and its components."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "LJ-bench"
+    t0 = time.perf_counter()
+    sys32 = ljbench.lj_bench_system(LJ_CELLS, torch.float32, dev, SEED)
+    sys64 = ljbench.lj_bench_system(LJ_CELLS, torch.float64, dev, SEED)
+    f = sys32.neighbor_finder
+    print(f"{label}: {sys32.n_atoms} atoms in a "
+          f"{float(sys32.boundary.side_lengths[0]):.4f} nm cube (in.lj, "
+          f"{LJ_CELLS}^3 fcc cells); CellListNeighborFinder radius "
+          f"{f.dist_cutoff:.4f} nm, grid {f.grid_dims}, cell capacity "
+          f"{f.cell_capacity}, {f.max_neighbors} neighbors per row "
+          f"(Poisson mean + 6 sigma); setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    k1 = (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES))
+    ref = lattice_energy()
+    e0 = {}
+    for name, s in (("f32", sys32), ("f64", sys64)):
+        nb = pt.find_neighbors(s.neighbor_finder, s.coords, s.boundary,
+                               s.exclusions)
+        e0[name] = float(pt.potential_energy(s, nb)) / s.n_atoms \
+            / ljbench.EPSILON
+    d32, d64 = (abs(e0[k] / ref - 1.0) for k in ("f32", "f64"))
+    print(f"{label}: step-0 E_pair/N {e0['f32']:.9f} (f32), "
+          f"{e0['f64']:.12f} (f64) epsilon against the numpy lattice sum "
+          f"{ref:.12f} (LAMMPS prints -6.7733681): relative {d32:.3e}, "
+          f"{d64:.3e}", flush=True)
+    if d32 > TOL_LJ_E0_F32 or d64 > TOL_LJ_E0_F64:
+        raise RuntimeError(f"{label}: the step-0 lattice energy is off")
+    for cadence in LJ_CADENCES:
+        try:
+            out32, nb32, aux32, en32 = lj_nve(sys32, cadence, label)
+            break
+        except pt.StaleNeighborList as err:
+            print(f"{label}: at a rebuild every {cadence} steps the stale-"
+                  f"list check stopped in.lj's run: {err}", flush=True)
+    else:
+        raise RuntimeError(f"{label}: stale at every cadence tried")
+    out64, _, _, en64 = lj_nve(sys64, cadence, label)
+    drift = {}
+    for name, en in (("f32", en32), ("f64", en64)):
+        e_tot = [a + b for a, b in en]
+        drift[name] = max(abs(e - e_tot[0]) for e in e_tot) \
+            / sys32.n_atoms / ljbench.EPSILON
+    temp = {}
+    for name, s in (("0", sys32), (str(LJ_RUN), out32)):
+        temp[name] = float(pt.temperature(s.masses, s.velocities, s.n_dof))
+    print(f"{label}: run {LJ_RUN} at a rebuild every {cadence} steps: T "
+          f"{temp['0']:.3f} K at step 0, {temp[str(LJ_RUN)]:.3f} K at step "
+          f"{LJ_RUN}; E_pair/N {en32[0][0] / sys32.n_atoms:.6f} and "
+          f"{en32[-1][0] / sys32.n_atoms:.6f} epsilon at steps 0 and "
+          f"{LJ_RUN}; NVE drift max|E(t) - E(0)|/N, E sampled every "
+          f"{LJ_SAMPLE} steps: f32 {drift['f32']:.3e}, f64 "
+          f"{drift['f64']:.3e} epsilon (gate: f32 <= 2 f64 + "
+          f"{LJ_DRIFT_SLACK})", flush=True)
+    if not bool(torch.isfinite(out32.coords).all()) or not (
+            temp[str(LJ_RUN)] < 1000.0):
+        raise RuntimeError(f"{label}: the state after the run is bad")
+    if drift["f32"] > 2.0 * drift["f64"] + LJ_DRIFT_SLACK:
+        raise RuntimeError(f"{label}: f32 drift beyond twice f64's")
+    lj_f64_check(label, out32, aux32["forces"],
+                 pt.potential_energy(out32, nb32), sys64)
+    run = {"sim": ljbench.lj_bench_integrator(), "system": out32,
+           "nb": nb32, "aux": aux32, "gen": None}
+    start = LJ_RUN + (-LJ_RUN) % cadence
+    if start > LJ_RUN:
+        run["system"], run["nb"], run["aux"], _ = pt.run_chunk(
+            run["sim"], out32, nb32, aux32, LJ_RUN, start - LJ_RUN)
+    steps_without_sync(label, run, start, cadence - 1)
+    print(f"{label}: steps {start}-{start + cadence - 2} between two "
+          "rebuilds stepped under set_sync_debug_mode(\"error\"): no host "
+          "sync (a known one made first was caught)", flush=True)
+
+    # the timed run, from the in.lj end state
+    sim = ljbench.lj_bench_integrator()
+    system, nb, aux = out32, nb32, aux32
+    system, nb, aux, _ = pt.run_chunk(sim, system, nb, aux, LJ_RUN,
+                                      LJ_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system, nb, aux, _ = pt.run_chunk(sim, system, nb, aux,
+                                      LJ_RUN + LJ_WARMUP, LJ_TIMED)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / LJ_TIMED
+    if (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES)) != k1:
+        raise RuntimeError(f"{label}: the pair kernel was launched")
+    n = system.n_atoms
+    per_s = 1e3 / ms
+    tau_day = 86400.0 * per_s * 0.005
+    print(f"card: {line}; {label}: {ms:.4f} ms/step over {LJ_TIMED} steps "
+          f"after {LJ_WARMUP} (rebuild every {cadence}): {per_s:.2f} "
+          f"timesteps/s, {n * per_s / 1e3:.1f} katom-step/s, "
+          f"{tau_day:.1f} tau/day, "
+          f"{pt.units.ps_per_step_to_ns_per_day(ljbench.DT, ms * 1e-3):.4f}"
+          f" ns/day; pair-kernel launches over the phase: 0", flush=True)
+    comps, calls, dev_ms = lj_components(label, system, nb, aux, cadence)
+    print(f"{label}: device busy {dev_ms / ms:.3f} of the step "
+          f"({dev_ms:.4f} ms device time per {ms:.4f} ms step)", flush=True)
+    return {"ms": ms, "cadence": cadence, "calls": calls,
+            "busy": dev_ms / ms, "tau_day": tau_day, "components": comps}
+
+
+def melt_frame(dev):
+    """in.melt's size: 10^3 fcc cells (4,000 atoms) at 3.0 epsilon / kB,
+    melted by MELT_STEPS f32 steps (a rebuild every 5): the frame of the
+    engine and form checks, with per-atom sigma and epsilon (so that the
+    mixing rules differ), charges, Buckingham parameters, lambdas, roles
+    and type ids from a seeded generator."""
+    import dataclasses as dc
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    s = ljbench.lj_bench_system(MELT_CELLS, torch.float32, dev, SEED,
+                                n_steps=5, t_reduced=MELT_T)
+    sim = ljbench.lj_bench_integrator()
+    s, _, _ = pt.simulate(s, sim, MELT_STEPS)
+    n = s.n_atoms
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    atoms = dc.replace(
+        s.atoms, sigma=uniform(0.32, 0.36), epsilon=uniform(0.8, 1.2),
+        charge=uniform(-0.5, 0.5), lam=uniform(0.2, 1.0),
+        alch_role=torch.randint(0, 3, (n,), generator=gen, device=dev,
+                                dtype=torch.int32),
+        atom_type=torch.randint(0, 3, (n,), generator=gen, device=dev,
+                                dtype=torch.int32),
+        buck_A=uniform(2e5, 3e5), buck_B=uniform(30.0, 35.0),
+        buck_C=uniform(4e-3, 6e-3))
+    return s.update(atoms=atoms)
+
+
+def form_inters():
+    """The forms the general path adds, each with a 0.85 nm cutoff whose
+    force goes to zero there (a truncated force jumps, which f32 and f64
+    may put on either side): the nine potentials, the two new cutoffs,
+    the three new mixing rules and an NBFix table."""
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    rc = ljbench.CUTOFF
+    sf = pt.ShiftedForceCutoff(rc)
+    table = pt.ExceptionTable((0, 1), (1, 2), (0.30, 0.36))
+    eps = pt.ExceptionTable((0, 1), (1, 2), (1.5, 0.5))
+    kw = dict(use_neighbors=True)
+    forms = {
+        "AshbaughHatch": pt.AshbaughHatch(cutoff=sf, **kw),
+        "SoftSphere": pt.SoftSphere(cutoff=sf, **kw),
+        "Mie": pt.Mie(m=6.0, n=10.0, cutoff=sf, **kw),
+        "Buckingham": pt.Buckingham(cutoff=sf, **kw),
+        "DoubleExponential": pt.DoubleExponential(16.5, 4.5, cutoff=sf,
+                                                  **kw),
+        "DoubleExponentialSoftCore": pt.DoubleExponentialSoftCore(
+            16.5, 4.5, cutoff=sf, **kw),
+        "Gravity": pt.Gravity(G=1e-3, cutoff=sf, **kw),
+        "Yukawa": pt.Yukawa(cutoff=sf, kappa=2.0, **kw),
+        "DPDInteraction": pt.DPDInteraction(r_c=rc, dt=ljbench.DT, **kw),
+        "CubicSplineCutoff": pt.LennardJones(
+            cutoff=pt.CubicSplineCutoff(0.7, rc), **kw),
+        "PolynomialCutoff": pt.LennardJones(
+            cutoff=pt.PolynomialCutoff(0.7, rc), **kw),
+        "NBFix": pt.LennardJones(
+            cutoff=sf, sigma_mixing=pt.MixingException(pt.LorentzMixing(),
+                                                       table),
+            epsilon_mixing=pt.MixingException(pt.GeometricMixing(), eps),
+            **kw),
+    }
+    for rule in ("WaldmanHaglerMixing", "FenderHalseyMixing",
+                 "InverseMixing"):
+        r = getattr(pt, rule)()
+        forms[rule] = pt.LennardJones(cutoff=sf, sigma_mixing=r,
+                                      epsilon_mixing=r, **kw)
+    return forms
+
+
+def forms_phase(dev):
+    """On in.melt's frame: the dense engine against the neighbor engine for
+    in.lj's LJ (f32), then each form: f32 against f64 (neighbor engine)
+    and the neighbor engine against the dense one (f32)."""
+    import dataclasses as dc
+    import torch
+    import mollytpu_torch as pt
+    t0 = time.perf_counter()
+    frame = melt_frame(dev)
+    n = frame.n_atoms
+    frame64 = frame.update(
+        atoms=frame.atoms.to(dtype=torch.float64),
+        coords=frame.coords.double(),
+        boundary=frame.boundary.to(dtype=torch.float64),
+        velocities=frame.velocities.double())
+    nb = pt.find_neighbors(frame.neighbor_finder, frame.coords,
+                           frame.boundary, frame.exclusions)
+    nb64 = pt.find_neighbors(frame64.neighbor_finder, frame64.coords,
+                             frame64.boundary, frame64.exclusions)
+    print(f"forms: in.melt frame, {n} atoms after {MELT_STEPS} steps at "
+          f"{MELT_T} epsilon / kB; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def forces(s, inter, table, dense):
+        inter = dc.replace(inter, use_neighbors=not dense)
+        f, _ = pt.forces_virial(s.update(pairwise_inters=(inter,)),
+                                None if dense else table, step_n=3)
+        return f.double()
+
+    def ratio(a, b):
+        rms = max(1.0, float(b.pow(2).sum(dim=1).mean().sqrt()))
+        return float((a - b).abs().max()) / rms, rms
+
+    lj = frame.pairwise_inters[0]
+    eng, rms = ratio(forces(frame, lj, nb, True), forces(frame, lj, nb,
+                                                          False))
+    print(f"forms: in.lj's LJ, dense engine against the cell-list engine "
+          f"(f32): max|dF|/rms|F| {eng:.3e} (rms|F| {rms:.3f})", flush=True)
+    if eng > TOL_ENGINES:
+        raise RuntimeError("forms: the engines disagree")
+    worst = {}
+    for name, inter in form_inters().items():
+        f32 = forces(frame, inter, nb, False)
+        f64 = forces(frame64, inter, nb64, False)
+        dense = forces(frame, inter, nb, True)
+        r64, rms = ratio(f32, f64)
+        rdense, _ = ratio(dense, f32)
+        worst[name] = (r64, rdense)
+        print(f"forms: {name}: f32 vs f64 {r64:.3e}, neighbor vs dense "
+              f"(f32) {rdense:.3e} of rms|F| {rms:.4f}", flush=True)
+        if not (r64 <= TOL_FORMS_F64 and rdense <= TOL_ENGINES):
+            raise RuntimeError(f"forms: {name} disagrees")
+    return worst
+
+
+def dpd_card_phase(dev):
+    """DPD: the pair noise's bits on the card equal the CPU's for the same
+    (i, j, step); 20 DPDVelocityVerlet steps in float64 on the card match
+    the CPU's to TOL_DPD nm."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    d = pt.DPDInteraction()
+    rng = np.random.default_rng(SEED)
+    i = rng.integers(0, 1 << 20, 200_000)
+    j = rng.integers(0, 1 << 20, 200_000)
+    for step in (0, 12345):
+        xi = {name: d._xi(torch.as_tensor(i, device=where),
+                          torch.as_tensor(j, device=where), step).cpu()
+              for name, where in (("card", dev), ("cpu", "cpu"))}
+        same = bool(torch.equal(xi["card"].view(torch.int32),
+                                xi["cpu"].view(torch.int32)))
+        print(f"DPD: xi bits on the card vs the CPU at step {step}, "
+              f"{len(i)} pairs: {'equal' if same else 'DIFFERENT'}",
+              flush=True)
+        if not same:
+            raise RuntimeError("DPD: the card's noise differs from the CPU's")
+    side = (DPD_N / 3.0) ** (1.0 / 3.0)
+    x = rng.uniform(0.0, side, (DPD_N, 3))
+    v = rng.normal(size=(DPD_N, 3))
+    out = []
+    for where in (dev, torch.device("cpu")):
+        s = pt.System(
+            atoms=pt.make_atoms(n=DPD_N, mass=1.0, dtype=torch.float64,
+                                device=where),
+            coords=torch.as_tensor(x, device=where),
+            boundary=pt.cubic(side, dtype=torch.float64, device=where),
+            velocities=torch.as_tensor(v, device=where),
+            pairwise_inters=(pt.DPDInteraction(),),
+            neighbor_finder=pt.CellListNeighborFinder.setup(
+                pt.cubic(side, dtype=torch.float64, device=where), 1.8,
+                DPD_N, n_steps=5))
+        o, _, _ = pt.simulate(s, pt.DPDVelocityVerlet(dt=0.01), DPD_STEPS)
+        out.append(o.coords.cpu())
+    dx = float((out[0] - out[1]).abs().max())
+    print(f"DPD: {DPD_N} particles, {DPD_STEPS} DPDVelocityVerlet steps in "
+          f"float64, card vs CPU: max|dx| {dx:.3e} nm", flush=True)
+    if not dx <= TOL_DPD:
+        raise RuntimeError("DPD: the card's trajectory differs from the CPU's")
+
+
 def main():
     line = require_cuda()
     import torch
@@ -2006,6 +2475,9 @@ def main():
         components(f"FEP-water lambda={FEP_TIMED}", timed, ham, FEP_LAMS)
         runs["FEP-water"] = {k: timed[k] for k in ("launches", "ms",
                                                    "ns_day")}
+    lj = lj_bench_path(dev, line)
+    forms_phase(dev)
+    dpd_card_phase(dev)
     paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
     paths.append(("FEP-water", FEP_FAMILY))
     print(f"card: {line}; " + "; ".join(
@@ -2022,7 +2494,10 @@ def main():
         f"{bonded['launches']:g}; pair-kernel K1a launches: PME "
         f"{runs['PME']['launches']}, Bonded-PME "
         f"{runs['Bonded-PME']['launches']}, MTS-PME "
-        f"{runs['MTS-PME']['launches']}", flush=True)
+        f"{runs['MTS-PME']['launches']}; LJ-bench (in.lj, 32,000 atoms, "
+        f"the general pair path) {lj['ms']:.4f} ms/step at a rebuild every "
+        f"{lj['cadence']} steps, {lj['tau_day']:.1f} tau/day, no pair-kernel "
+        "launch", flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",

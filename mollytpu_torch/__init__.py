@@ -10,10 +10,12 @@ Entry points build on the CUDA card unless given ``device="cpu"``.
 
 from . import units
 from .atoms import ALCH_CORE, ALCH_DELETE, ALCH_INSERT, Atoms, make_atoms
-from .boundary import (Orthorhombic, Triclinic, cubic, rectangular,
+from .boundary import (Orthorhombic, Triclinic, cubic, place_atoms,
+                       place_diatomics, random_coords, rectangular,
                        triclinic, triclinic_from_lengths_angles)
 from .config import resolve_device
-from .forces import forces_virial, potential_energy
+from .forces import (accelerations, forces, forces_virial,
+                     potential_energy, total_energy)
 from .models.forcefield import ForceField
 from .models.setup import add_position_restraints, system_from_pdb
 from .models.waterbox import DODECAHEDRON, TIP3P_XML, water_box_pdb
@@ -22,25 +24,37 @@ from .ops.bonded import (
     fene_bonds, harmonic_angles, harmonic_bonds, harmonic_torsions,
     morse_bonds, periodic_torsions, position_restraints, rb_torsions,
     register_term, specific_energy, specific_forces, urey_bradleys)
-from .ops.cutoffs import (DistanceCutoff, NoCutoff, ShiftedForceCutoff,
-                          ShiftedPotentialCutoff)
+from .ops.cutoffs import (CubicSplineCutoff, DistanceCutoff, NoCutoff,
+                          PolynomialCutoff, ShiftedForceCutoff,
+                          ShiftedPotentialCutoff, cutoff_distance)
 from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection
-from .ops.mixing import GeometricMixing, LorentzMixing, MinimumMixing
+from .ops.mixing import (ExceptionTable, FenderHalseyMixing,
+                         GeometricMixing, InverseMixing, LorentzMixing,
+                         MinimumMixing, MixingException,
+                         WaldmanHaglerMixing, mix_epsilon, mix_lambda,
+                         mix_sigma)
+from .ops.neighbors import (CellListNeighborFinder, DistanceNeighborFinder,
+                            Neighbors, NoNeighborFinder, find_neighbors,
+                            maybe_rebuild)
+from .ops.nonbonded import (dense_energy, dense_forces, dense_pair_mask,
+                            neighbor_energy, neighbor_forces)
 from .ops.pairwise import (
-    Coulomb, CoulombEwald, CoulombEwaldScaled, CoulombReactionField,
-    CoulombReactionFieldScaled, CoulombScaled, CoulombSoftCoreBeutler,
-    CoulombSoftCoreBeutlerEwald, CoulombSoftCoreBeutlerReactionField,
-    CoulombSoftCoreGapsys, CoulombSoftCoreGapsysEwald,
-    CoulombSoftCoreGapsysReactionField, LennardJones,
-    LennardJonesSoftCoreBeutler, LennardJonesSoftCoreGapsys)
+    AshbaughHatch, Buckingham, Coulomb, CoulombEwald, CoulombEwaldScaled,
+    CoulombReactionField, CoulombReactionFieldScaled, CoulombScaled,
+    CoulombSoftCoreBeutler, CoulombSoftCoreBeutlerEwald,
+    CoulombSoftCoreBeutlerReactionField, CoulombSoftCoreGapsys,
+    CoulombSoftCoreGapsysEwald, CoulombSoftCoreGapsysReactionField,
+    DoubleExponential, DoubleExponentialSoftCore, DPDInteraction, Gravity,
+    LennardJones, LennardJonesSoftCoreBeutler, LennardJonesSoftCoreGapsys,
+    Mie, SoftSphere, Yukawa, interaction_cutoff)
 from .ops.blockpairs import BlockPairFinder, BlockPairs
 from .sim.coupling import (AndersenThermostat, BerendsenBarostat,
                            BerendsenThermostat, CRescaleBarostat,
                            ImmediateThermostat, MonteCarloBarostat,
                            VelocityRescaleThermostat, apply_couplers,
                            couplers_invalidate_forces, needs_virial_interval)
-from .sim.integrators import (Langevin, MTSIntegrator,
+from .sim.integrators import (DPDVelocityVerlet, Langevin, MTSIntegrator,
                               MTSLangevinIntegrator, VelocityVerlet)
 from .sim.minimize import SteepestDescentMinimizer
 from .sim.simulate import (StaleNeighborList, npt_resetup, run_chunk,

@@ -19,7 +19,8 @@ ALCH_DELETE = 2
 class Atoms:
     """(N,) tensors: mass (u), charge (e), sigma (nm), epsilon (kJ/mol), an
     int32 force-field type id, the alchemical coupling parameter lam in
-    [0, 1] and the int32 alchemical role (ALCH_*)."""
+    [0, 1], the int32 alchemical role (ALCH_*) and, for Buckingham, the
+    per-atom A (kJ/mol), B (1/nm) and C (kJ/mol nm^6), None when unused."""
 
     mass: torch.Tensor
     charge: torch.Tensor
@@ -28,6 +29,9 @@ class Atoms:
     atom_type: torch.Tensor = None
     lam: torch.Tensor = None
     alch_role: torch.Tensor = None
+    buck_A: torch.Tensor = None
+    buck_B: torch.Tensor = None
+    buck_C: torch.Tensor = None
 
     def to(self, device=None, dtype=None):
         def cast(t, floating=True):
@@ -37,11 +41,13 @@ class Atoms:
 
         return Atoms(cast(self.mass), cast(self.charge), cast(self.sigma),
                      cast(self.epsilon), cast(self.atom_type, False),
-                     cast(self.lam), cast(self.alch_role, False))
+                     cast(self.lam), cast(self.alch_role, False),
+                     cast(self.buck_A), cast(self.buck_B), cast(self.buck_C))
 
 
 def make_atoms(n=None, mass=1.0, charge=0.0, sigma=0.0, epsilon=0.0,
                atom_type=None, lam=1.0, alch_role=ALCH_CORE,
+               buck_A=None, buck_B=None, buck_C=None,
                dtype=torch.float32, device=None):
     """Broadcast scalars or sequences to (N,) tensors on ``device`` (the
     CUDA card unless the caller names another)."""
@@ -64,6 +70,9 @@ def make_atoms(n=None, mass=1.0, charge=0.0, sigma=0.0, epsilon=0.0,
         type_t = torch.zeros((n_atoms,), dtype=torch.int32, device=device)
     else:
         type_t = arr(atom_type, torch.int32)
+    buck = {name: None if val is None else arr(val, size=n_atoms)
+            for name, val in (("buck_A", buck_A), ("buck_B", buck_B),
+                              ("buck_C", buck_C))}
     return Atoms(mass=mass_t, charge=arr(charge), sigma=arr(sigma),
                  epsilon=arr(epsilon), atom_type=type_t, lam=lam_t,
-                 alch_role=role_t)
+                 alch_role=role_t, **buck)

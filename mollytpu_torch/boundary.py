@@ -65,6 +65,22 @@ class Orthorhombic:
     def fractional(self, x):
         return x / self.side_lengths
 
+    def from_fractional(self, f):
+        return f * self.side_lengths
+
+    def mic_parts(self, diffs):
+        """The JAX package's per-component minimum image
+        (mollytpu/boundary.py:86-98) of the raw differences (dx, dy, dz),
+        each any shape; an open axis is left alone."""
+        safe, mult = _cached(self, "mic", self._mic_consts)
+        return tuple(d - torch.round(d / safe[k]) * mult[k]
+                     for k, d in enumerate(diffs))
+
+    def _mic_consts(self):
+        periodic, safe = self._periodic()
+        return safe, torch.where(periodic, self.side_lengths,
+                                 torch.zeros_like(safe))
+
     def perp_widths(self):
         """Widths of the cell normal to each face, as Python floats: the
         side lengths (inf for an open axis)."""
@@ -154,6 +170,17 @@ class Triclinic:
         f = self.fractional(xj - xi)
         return self.from_fractional(f - torch.round(f))
 
+    def mic_parts(self, diffs):
+        """The JAX package's per-component fractional-rounding minimum
+        image (mollytpu/boundary.py:175-190) of (dx, dy, dz)."""
+        dx, dy, dz = diffs
+        inv, b = self.inv, self.basis
+        fs = [dx * inv[0, k] + dy * inv[1, k] + dz * inv[2, k]
+              for k in range(3)]
+        fs = [f - torch.round(f) for f in fs]
+        return tuple(fs[0] * b[0, k] + fs[1] * b[1, k] + fs[2] * b[2, k]
+                     for k in range(3))
+
     def wrap(self, x):
         f = self.fractional(x)
         return self.from_fractional(f - torch.floor(f))
@@ -211,11 +238,16 @@ def _init_rows(box):
 
 def _cached_row(box, dtype):
     dtype = dtype or box.side_lengths.dtype
-    row = box._rows.get(dtype)
-    if row is None:
-        # boxes are immutable: a barostat move makes a new one
-        row = box._rows[dtype] = box._row(dtype)
-    return row
+    return _cached(box, dtype, lambda: box._row(dtype))
+
+
+def _cached(box, key, make):
+    """make(), built once per box (boxes are immutable: a barostat move
+    makes a new one)."""
+    value = box._rows.get(key)
+    if value is None:
+        value = box._rows[key] = make()
+    return value
 
 
 def mic(row, dx, dy, dz):
@@ -272,3 +304,46 @@ def triclinic_from_lengths_angles(lengths, angles, dtype=torch.float32,
     return triclinic([[a, 0.0, 0.0],
                       [b * math.cos(ga), b * math.sin(ga), 0.0],
                       [cx, cy, cz]], dtype=dtype, device=device)
+
+
+def random_coords(generator, boundary, n, dtype=torch.float32):
+    """n uniform random positions in the box, drawn on the box's device
+    from ``generator``."""
+    device = boundary.side_lengths.device
+    f = torch.rand((n, 3), generator=generator, dtype=dtype, device=device)
+    return boundary.from_fractional(f)
+
+
+def place_atoms(generator, boundary, n, min_dist=0.0, max_attempts=100,
+                dtype=torch.float32):
+    """n positions, each at least min_dist (nm, minimum image) from those
+    placed before it, rejection-sampled one at a time
+    (mollytpu/boundary.py:248-272). A setup-time helper: it reads every
+    draw on the host."""
+    min2 = float(min_dist) ** 2
+    coords = []
+    for i in range(n):
+        for _ in range(max_attempts):
+            c = random_coords(generator, boundary, 1, dtype=dtype)[0]
+            if not coords or min2 == 0.0:
+                break
+            dr = boundary.displacement(torch.stack(coords), c[None, :])
+            if bool(torch.all((dr * dr).sum(dim=-1) > min2)):
+                break
+        else:
+            raise RuntimeError(f"place_atoms: could not place atom {i} "
+                               f"after {max_attempts} attempts")
+        coords.append(c)
+    return torch.stack(coords)
+
+
+def place_diatomics(generator, boundary, n_molecules, bond_length,
+                    min_dist=0.0, max_attempts=100, dtype=torch.float32):
+    """n_molecules diatomics: place_atoms for the first atoms, each second
+    atom bond_length (nm) along x from its first, wrapped; the atoms of
+    molecule m are 2m and 2m + 1 (mollytpu/boundary.py:275-285)."""
+    first = place_atoms(generator, boundary, n_molecules, min_dist=min_dist,
+                        max_attempts=max_attempts, dtype=dtype)
+    second = first.clone()
+    second[:, 0] += bond_length
+    return boundary.wrap(torch.stack([first, second], dim=1).reshape(-1, 3))

@@ -21,6 +21,8 @@ from .free_energy import alchemy
 from .ops import cutoffs, mixing, pairwise
 from .ops.blockpairs import BlockPairFinder
 from .ops.bonded import TERM_FUNCS, SpecificList
+from .ops.neighbors import (CellListNeighborFinder, DistanceNeighborFinder,
+                            NoNeighborFinder)
 from .ops.constraints import SHAKERattle
 from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection
@@ -46,29 +48,50 @@ def pairs_from_bitmap(bits, far):
     return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
 
 
-def _cutoff(c):
-    name = type(c).__name__
-    if name == "NoCutoff":
-        return cutoffs.NoCutoff()
-    if name in ("DistanceCutoff", "ShiftedPotentialCutoff",
-                "ShiftedForceCutoff"):
-        return getattr(cutoffs, name)(float(c.dist_cutoff))
-    raise NotImplementedError(f"cutoff {name} is not ported")
-
-
-#: mixing rules and schedulers the port carries, by class name
-_MIXINGS = ("LorentzMixing", "GeometricMixing", "MinimumMixing")
+#: the cutoffs, mixing rules, schedulers and pairwise interactions the
+#: port carries, by class name
+_CUTOFFS = ("NoCutoff", "DistanceCutoff", "ShiftedPotentialCutoff",
+            "ShiftedForceCutoff", "CubicSplineCutoff", "PolynomialCutoff")
+_MIXINGS = ("LorentzMixing", "GeometricMixing", "WaldmanHaglerMixing",
+            "FenderHalseyMixing", "InverseMixing", "MinimumMixing")
 _SCHEDULERS = ("DefaultLambdaScheduler", "NAMDLambdaScheduler",
                "QuartersLambdaScheduler", "EleScaledLambdaScheduler")
-#: the pairwise interactions the port carries, by class name
 _PAIRWISE = ("LennardJones", "LennardJonesSoftCoreBeutler",
-             "LennardJonesSoftCoreGapsys", "Coulomb", "CoulombScaled",
-             "CoulombReactionField", "CoulombReactionFieldScaled",
-             "CoulombEwald", "CoulombEwaldScaled", "CoulombSoftCoreBeutler",
+             "LennardJonesSoftCoreGapsys", "AshbaughHatch", "SoftSphere",
+             "Mie", "Buckingham", "DoubleExponential",
+             "DoubleExponentialSoftCore", "Gravity", "Coulomb",
+             "CoulombScaled", "CoulombReactionField",
+             "CoulombReactionFieldScaled", "CoulombEwald",
+             "CoulombEwaldScaled", "CoulombSoftCoreBeutler",
              "CoulombSoftCoreGapsys", "CoulombSoftCoreBeutlerEwald",
              "CoulombSoftCoreGapsysEwald",
              "CoulombSoftCoreBeutlerReactionField",
-             "CoulombSoftCoreGapsysReactionField")
+             "CoulombSoftCoreGapsysReactionField", "Yukawa",
+             "DPDInteraction")
+
+
+def _cutoff(c):
+    name = type(c).__name__
+    if name not in _CUTOFFS:
+        raise NotImplementedError(f"cutoff {name} is not ported")
+    cls = getattr(cutoffs, name)
+    return cls(**{f.name: float(getattr(c, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def _mixing(rule):
+    """The port's rule; a MixingException with its exception table."""
+    name = type(rule).__name__
+    if name == "MixingException":
+        table = rule.exceptions
+        return mixing.MixingException(_mixing(rule.mixing), None if table
+                                      is None else mixing.ExceptionTable(
+            tuple(int(k) for k in table.keys_i),
+            tuple(int(k) for k in table.keys_j),
+            tuple(float(v) for v in table.values)))
+    if name not in _MIXINGS:
+        raise NotImplementedError(f"mixing rule {name} is not ported")
+    return getattr(mixing, name)()
 
 
 def _scheduler(s):
@@ -85,14 +108,13 @@ def _field(name, value):
     if name == "cutoff":
         return _cutoff(value)
     if name.endswith("_mixing"):
-        rule = type(value).__name__
-        if rule not in _MIXINGS:
-            raise NotImplementedError(f"{name} {rule} is not ported")
-        return getattr(mixing, rule)()
+        return _mixing(value)
     if name == "scheduler":
         return _scheduler(value)
     if name in ("use_neighbors", "approximate_erfc"):
         return bool(value)
+    if name == "seed":
+        return int(value)
     return None if value is None else float(value)
 
 
@@ -104,6 +126,31 @@ def _pairwise(inter):
     cls = getattr(pairwise, name)
     return cls(**{f.name: _field(f.name, getattr(inter, f.name))
                   for f in dataclasses.fields(cls)})
+
+
+def _finder(f, boundary, n, atoms, dist_neighbors, n_steps):
+    """The JAX System's neighbor finder, field for field, or a
+    BlockPairFinder of list radius ``dist_neighbors`` when one is given."""
+    if dist_neighbors is not None:
+        return BlockPairFinder.setup(boundary, dist_neighbors, n, atoms,
+                                     n_steps=n_steps or 1)
+    if f is None:
+        return None
+    name = type(f).__name__
+    if name == "NoNeighborFinder":
+        return NoNeighborFinder(n_steps=int(f.n_steps))
+    if name == "DistanceNeighborFinder":
+        return DistanceNeighborFinder(
+            dist_cutoff=float(f.dist_cutoff), n_steps=int(f.n_steps),
+            max_neighbors=int(f.max_neighbors))
+    if name == "CellListNeighborFinder":
+        return CellListNeighborFinder(
+            dist_cutoff=float(f.dist_cutoff),
+            grid_dims=tuple(int(d) for d in f.grid_dims),
+            n_steps=int(f.n_steps), max_neighbors=int(f.max_neighbors),
+            cell_capacity=int(f.cell_capacity))
+    raise NotImplementedError(f"neighbor finder {name} is not carried: "
+                              "pass dist_neighbors for a BlockPairFinder")
 
 
 def _general(gi, dtype, device):
@@ -144,22 +191,27 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                        n_steps=None):
     """The port's System for a host-side JAX System ``tree``, on ``device``
     (the CUDA card unless the caller names another). dtype defaults to the
-    coordinates' dtype; a BlockPairFinder is attached when dist_neighbors
-    (the list radius) is given."""
+    coordinates' dtype. The JAX System's NoNeighborFinder,
+    DistanceNeighborFinder or CellListNeighborFinder is carried with its
+    fields; a BlockPairFinder of list radius ``dist_neighbors`` replaces
+    it when dist_neighbors is given."""
     device = resolve_device(device)
     coords = np.asarray(tree.coords)
     dtype = dtype or (torch.float64 if coords.dtype == np.float64
                       else torch.float32)
     a = tree.atoms
-    atoms = Atoms(mass=_tensor(a.mass, dtype, device),
-                  charge=_tensor(a.charge, dtype, device),
-                  sigma=_tensor(a.sigma, dtype, device),
-                  epsilon=_tensor(a.epsilon, dtype, device),
-                  atom_type=(None if a.atom_type is None
-                             else _tensor(a.atom_type, torch.int32, device)),
-                  lam=None if a.lam is None else _tensor(a.lam, dtype, device),
-                  alch_role=(None if a.alch_role is None
-                             else _tensor(a.alch_role, torch.int32, device)))
+
+    def column(name, kind=dtype):
+        value = getattr(a, name, None)
+        return None if value is None else _tensor(value, kind, device)
+
+    atoms = Atoms(mass=column("mass"), charge=column("charge"),
+                  sigma=column("sigma"), epsilon=column("epsilon"),
+                  atom_type=column("atom_type", torch.int32),
+                  lam=column("lam"),
+                  alch_role=column("alch_role", torch.int32),
+                  buck_A=column("buck_A"), buck_B=column("buck_B"),
+                  buck_C=column("buck_C"))
     if type(tree.boundary).__name__ == "Triclinic":
         if not tree.boundary.approx_images:
             raise NotImplementedError("the 27-image triclinic minimum image "
@@ -177,11 +229,8 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
         pairs = np.stack([np.asarray(c.idx_i), np.asarray(c.idx_j)], axis=1)
         constraints.append(SHAKERattle.build(pairs, np.asarray(c.dists),
                                              dtype=dtype, device=device))
-    finder = None
-    n = coords.shape[0]
-    if dist_neighbors is not None:
-        finder = BlockPairFinder.setup(boundary, dist_neighbors, n, atoms,
-                                       n_steps=n_steps or 1)
+    finder = _finder(tree.neighbor_finder, boundary, coords.shape[0], atoms,
+                     dist_neighbors, n_steps)
     return System(atoms=atoms, coords=_tensor(coords, dtype, device),
                   boundary=boundary,
                   velocities=_tensor(tree.velocities, dtype, device),

@@ -2,13 +2,15 @@
 (counterpart of mollytpu/models/setup.py:44-245, 291-764, 789-843).
 
 Ported: nonbonded_method "cutoff" (LJ truncation + reaction field, in an
-orthorhombic or triclinic box) and "pme" (orthorhombic boxes), the bonded
-terms (harmonic bonds and angles, periodic and RB proper and improper
-torsions, Urey-Bradley), constraints "none" or "hbonds", rigid water,
-hydrogen mass repartitioning, the LJ dispersion correction, and position
-restraints on a built system. Everything else raises NotImplementedError
-naming what is missing: the no-cutoff method, open boundaries, PME in a
-triclinic box, NBFix, virtual sites, implicit solvent and CMAP.
+orthorhombic or triclinic box), "pme" (orthorhombic boxes) and "none"
+(plain LJ + Coulomb over all pairs), open boundaries for a PDB without
+CRYST1, NBFix pair overrides, the bonded terms (harmonic bonds and
+angles, periodic and RB proper and improper torsions, Urey-Bradley),
+constraints "none" or "hbonds", rigid water, hydrogen mass
+repartitioning, the LJ dispersion correction, the neighbor finders, and
+position restraints on a built system. Everything else raises
+NotImplementedError naming what is missing: PME in a triclinic box,
+virtual sites, implicit solvent and CMAP.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ from ..ops.constraints import SHAKERattle, setup_constraints
 from ..ops.cutoffs import DistanceCutoff
 from ..ops.ewald import PME, EwaldExclusionCorrection, ewald_error_alpha
 from ..ops.general import LJDispersionCorrection
-from ..ops.pairwise import (CRF_SOLVENT_DIELECTRIC, CoulombEwald,
+from ..ops.mixing import (ExceptionTable, GeometricMixing, LorentzMixing,
+                          MixingException)
+from ..ops.neighbors import CellListNeighborFinder, DistanceNeighborFinder
+from ..ops.pairwise import (CRF_SOLVENT_DIELECTRIC, Coulomb, CoulombEwald,
                             CoulombReactionField, LennardJones)
 from ..system import Exclusions, System, molecule_ids_from_bonds
 from .forcefield import detect_bonds, find_template_by_graph
@@ -311,41 +316,95 @@ def make_dispersion_correction(sigma, epsilon, rc):
                                   dist_cutoff=float(rc))
 
 
+def _nbfix_mixings(ff, uniq_types, type_id):
+    """NBFix overrides as (sigma, epsilon) MixingExceptions keyed by the
+    atom-type ids of the system (mollytpu/models/setup.py:637-656), or
+    (None, None) when the force field has none that applies."""
+    ki, kj, sv, ev = [], [], [], []
+    for (c1, c2, s_nb, e_nb) in ff.nbfix:
+        t1s = [t for t in uniq_types
+               if t == c1 or ff.type_to_class.get(t) == c1]
+        t2s = [t for t in uniq_types
+               if t == c2 or ff.type_to_class.get(t) == c2]
+        for t1 in t1s:
+            for t2 in t2s:
+                ki.append(type_id[t1])
+                kj.append(type_id[t2])
+                sv.append(float(s_nb))
+                ev.append(float(e_nb))
+    if not ki:
+        return None, None
+    return (MixingException(LorentzMixing(), ExceptionTable(
+                tuple(ki), tuple(kj), tuple(sv))),
+            MixingException(GeometricMixing(), ExceptionTable(
+                tuple(ki), tuple(kj), tuple(ev))))
+
+
+#: the neighbor_finder choices of system_from_pdb
+NEIGHBOR_FINDERS = ("block", "cell", "distance", None)
+
+
+def _neighbor_finder(kind, boundary, open_box, radius, n, atoms, coords,
+                     n_steps):
+    """The finder of a "cutoff" or "pme" system (models/setup.py:714-721
+    of the JAX package for "cell" and "distance")."""
+    if kind is None:
+        return None
+    if kind == "block":
+        if open_box:
+            raise NotImplementedError(
+                "the cluster-pair list (neighbor_finder=\"block\") needs a "
+                "periodic box: a PDB without CRYST1 takes "
+                "neighbor_finder=\"distance\"")
+        return BlockPairFinder.setup(boundary, radius, n, atoms,
+                                     n_steps=n_steps)
+    if kind == "cell" and not open_box:
+        return CellListNeighborFinder.setup(boundary, radius, n,
+                                            n_steps=n_steps, coords=coords)
+    return DistanceNeighborFinder(dist_cutoff=radius, n_steps=n_steps)
+
+
 def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                     dist_neighbors=1.2, neighbor_n_steps=10,
                     pme_error_tol=0.0005,
                     solvent_dielectric=CRF_SOLVENT_DIELECTRIC,
                     dtype=torch.float32, device=None, constraints="none",
                     rigid_water=False, hydrogen_mass=None,
-                    implicit_solvent=None):
+                    implicit_solvent=None, neighbor_finder="block"):
     """Build a System from a PDB file and a ForceField, on ``device`` (the
     CUDA card unless the caller names another, config.resolve_device).
 
     nonbonded_method: "cutoff" (LJ truncation + reaction field with
     ``solvent_dielectric``) or "pme" (LJ truncation + Ewald real space +
-    PME), both with the dispersion correction. The neighbor finder is a
-    BlockPairFinder with list radius ``dist_neighbors`` rebuilt every
-    ``neighbor_n_steps`` steps. ``hydrogen_mass`` (u) repartitions the
+    PME), both with the dispersion correction, or "none" (plain LJ +
+    Coulomb over all pairs, the dense engine, no finder). A PDB without
+    CRYST1 gets an open box. neighbor_finder (for "cutoff" and "pme"):
+    "block" (the default) the BlockPairFinder feeding the pair kernel;
+    "cell" and "distance" the JAX package's CellListNeighborFinder (set up
+    on the coordinates; "distance" for an open box, as in JAX) and
+    DistanceNeighborFinder, feeding the neighbor engine; None none. The
+    JAX package's default is "cell". Lists have radius ``dist_neighbors``
+    and are rebuilt every ``neighbor_n_steps`` steps. NBFix overrides in
+    the force field need "cell" or "distance": the pair kernel takes
+    Lorentz-Berthelot mixing only. ``hydrogen_mass`` (u) repartitions the
     masses of hydrogens and the heavy atoms they are bonded to."""
-    if nonbonded_method == "none":
-        raise NotImplementedError(
-            "nonbonded_method='none' needs a dense all-pairs path, which is "
-            "not ported")
-    if nonbonded_method not in ("cutoff", "pme"):
+    if nonbonded_method not in ("cutoff", "pme", "none"):
         raise ValueError(f"unknown nonbonded_method {nonbonded_method}")
+    if neighbor_finder not in NEIGHBOR_FINDERS:
+        raise ValueError(f"neighbor_finder must be one of "
+                         f"{NEIGHBOR_FINDERS}, got {neighbor_finder!r}")
     device = resolve_device(device)
     if implicit_solvent is not None:
         raise NotImplementedError("implicit solvent is not ported yet")
-    if ff.nbfix:
-        raise NotImplementedError("NBFix pair overrides are not ported yet")
     if ff.cmap_rules:
         raise NotImplementedError("CMAP terms are not ported yet")
 
     struct = read_pdb(path)
     n = struct.n_atoms
-    if struct.box is None:
-        raise NotImplementedError("no CRYST1 record: open boundaries are "
-                                  "not ported")
+    open_box = struct.box is None
+    if nonbonded_method == "pme" and open_box:
+        raise NotImplementedError("PME needs a periodic box: the PDB has "
+                                  "no CRYST1 record")
     if nonbonded_method == "pme" and struct.box.ndim != 1:
         raise NotImplementedError(
             "PME needs an orthorhombic periodic box: the port's PME mesh "
@@ -417,7 +476,10 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
         struct, lists, b_i, b_j, b_r0, a_i, a_j, a_k, a_t0, constraints,
         rigid_water)
 
-    if struct.box.ndim == 1:
+    if open_box:
+        boundary = bnd.rectangular([math.inf] * 3, dtype=dtype,
+                                   device=device)
+    elif struct.box.ndim == 1:
         boundary = bnd.rectangular(struct.box, dtype=dtype, device=device)
     else:
         boundary = bnd.triclinic(struct.box, dtype=dtype, device=device)
@@ -429,11 +491,24 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                        atom_type=[type_id[t] for t in type_of],
                        dtype=dtype, device=device)
 
+    sig_mixing, eps_mixing = _nbfix_mixings(ff, uniq_types, type_id)
+    if (sig_mixing is not None and nonbonded_method != "none"
+            and neighbor_finder == "block"):
+        raise NotImplementedError(
+            "NBFix pair overrides are not a mode of the pair kernel, which "
+            "the cluster-pair list feeds: build with neighbor_finder=\"cell\"")
+    mixing = {} if sig_mixing is None else dict(sigma_mixing=sig_mixing,
+                                                epsilon_mixing=eps_mixing)
+
     rc = float(dist_cutoff)
     lj = LennardJones(cutoff=DistanceCutoff(rc), use_neighbors=True,
-                      weight_special=ff.lj14scale)
+                      weight_special=ff.lj14scale, **mixing)
     general = []
-    if nonbonded_method == "cutoff":
+    if nonbonded_method == "none":
+        # without the NBFix mixing, as the JAX package builds it
+        pairwise = (LennardJones(weight_special=ff.lj14scale),
+                    Coulomb(weight_special=ff.coulomb14scale))
+    elif nonbonded_method == "cutoff":
         pairwise = (lj, CoulombReactionField(
             dist_cutoff=rc, solvent_dielectric=solvent_dielectric,
             use_neighbors=True, weight_special=ff.coulomb14scale))
@@ -448,7 +523,8 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
             general.append(EwaldExclusionCorrection.setup(
                 all_excl, ewald_error_alpha(rc, pme_error_tol),
                 device=device))
-    general.append(make_dispersion_correction(sigma, epsilon, rc))
+    if nonbonded_method != "none":
+        general.append(make_dispersion_correction(sigma, epsilon, rc))
 
     exclusions = Exclusions.build(
         n, excl_pairs, spec_pairs,
@@ -458,8 +534,11 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
     if pairs:
         constrainers = (SHAKERattle.build(pairs, dists, dtype=dtype,
                                           device=device),)
-    finder = BlockPairFinder.setup(boundary, float(dist_neighbors), n, atoms,
-                                   n_steps=neighbor_n_steps)
+    finder = None
+    if nonbonded_method != "none":
+        finder = _neighbor_finder(neighbor_finder, boundary, open_box,
+                                  float(dist_neighbors), n, atoms, coords,
+                                  neighbor_n_steps)
     mol_ids, n_mol = molecule_ids_from_bonds(n, bonds, device=device)
     return System(atoms=atoms, coords=coords, boundary=boundary,
                   pairwise_inters=pairwise, specific_lists=lists,

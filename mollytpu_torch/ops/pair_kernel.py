@@ -214,7 +214,9 @@ def build_fused_spec(inters):
             if not (isinstance(inter.sigma_mixing, LorentzMixing)
                     and isinstance(inter.epsilon_mixing, GeometricMixing)):
                 raise NotImplementedError(
-                    "only Lorentz-Berthelot mixing is ported (NBFix is not)")
+                    "only Lorentz-Berthelot mixing is a mode of the pair "
+                    "kernel (NBFix and the other rules run on the neighbor "
+                    "engine)")
             mode = _LJ_MODES.get(type(inter.cutoff))
             if mode is None:
                 raise NotImplementedError(
@@ -239,7 +241,7 @@ def build_fused_spec(inters):
                 f"pairwise interaction {name}: soft-core Coulomb under the "
                 "reaction field is not a mode of the pair kernel; the JAX "
                 "package runs it on its XLA pair path (its build_fused_spec "
-                "returns None), which is not ported")
+                "returns None), and so does the port (ops/nonbonded.py)")
         if not isinstance(inter, _COULOMBS):
             raise NotImplementedError(
                 f"pairwise interaction {name}: not a mode of the pair kernel")
@@ -294,8 +296,8 @@ def build_fused_spec(inters):
         raise NotImplementedError("no interaction for the pair kernel")
     if cut_max == 0.0:
         raise NotImplementedError(
-            "no finite cutoff: the dense all-pairs path "
-            "(nonbonded_method='none') is not ported")
+            "no finite cutoff: the pair kernel needs one; interactions "
+            "without a list (use_neighbors=False) run the dense engine")
     return FusedSpec(cut_max=cut_max, **spec)
 
 

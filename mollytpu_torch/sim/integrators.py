@@ -120,6 +120,33 @@ class VelocityVerlet(_IntegratorBase):
 
 
 @dataclasses.dataclass(frozen=True)
+class DPDVelocityVerlet(_IntegratorBase):
+    """Groot-Warren modified velocity Verlet for velocity-dependent DPD
+    forces: the forces at the new positions are evaluated with predicted
+    velocities v + lam dt a (integrators.py:381-405)."""
+
+    dt: float
+    lam: float = 0.5
+    coupling: tuple = ()
+    remove_cm: bool = True
+
+    def step(self, sys, neighbors, aux, step_n, generator=None,
+             needs_virial=False, draws=None):
+        dt = self.dt
+        m = sys.masses
+        a_t = _accels(m, aux["forces"])
+        coords = sys.boundary.wrap(sys.coords + dt * sys.velocities
+                                   + 0.5 * dt * dt * a_t)
+        v_pred = sys.velocities + self.lam * dt * a_t
+        new = _recompute(sys.update(coords=coords, velocities=v_pred),
+                         neighbors, step_n, needs_virial)
+        vels = sys.velocities + 0.5 * dt * (a_t + _accels(m, new["forces"]))
+        sys = sys.update(coords=coords, velocities=vels)
+        return self._finish_step(sys, neighbors, {**aux, **new}, step_n,
+                                 generator, needs_virial, draws=draws)
+
+
+@dataclasses.dataclass(frozen=True)
 class Langevin(_IntegratorBase):
     """BAOA middle-scheme Langevin leapfrog, OpenMM style. dt in ps,
     temperature in K, friction in 1/ps."""

@@ -16,9 +16,9 @@ import dataclasses
 import torch
 
 from ..forces import forces_virial, potential_energy
-from ..ops.blockpairs import unlisted_min_distance
 from ..ops.neighbors import find_neighbors
-from .simulate import list_cutoff, raise_if_stale
+from .simulate import (list_check, list_cutoff, raise_if_overflow,
+                       raise_if_stale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +57,19 @@ class SteepestDescentMinimizer:
                                                        step * 0.5))
             done = done | (max_f < self.tol)
             energies.append(e_prev)
-        cutoff = list_cutoff(sys)
-        closest = raise_if_stale(unlisted_min_distance(
-            neighbors, coords, sys.boundary, cutoff), cutoff) \
-            if neighbors is not None else float("inf")
+        closest = (_closest_unlisted(sys, neighbors, coords, self.max_steps)
+                   if neighbors is not None else float("inf"))
         return sys.update(coords=coords), {
             "energy_initial": e0, "energy_final": e_prev, "converged": done,
             "energies": torch.stack(energies) if energies else e0[None],
             "closest_unlisted": closest}
+
+
+def _closest_unlisted(sys, neighbors, coords, n_iterations):
+    """The stale-list check of run_chunk at the final coordinates."""
+    cutoff = list_cutoff(sys)
+    near, over = list_check(sys.update(coords=coords), neighbors, cutoff)
+    if over is not None:
+        raise_if_overflow(torch.maximum(neighbors.overflow, over),
+                          n_iterations)
+    return raise_if_stale(near, cutoff)

@@ -7,11 +7,16 @@ loop of eager steps.
 
 Stale lists fail loudly. A rebuild happens at the coordinates of the last
 force evaluation made with the old list, so at every rebuild (and at the
-end of the chunk) ops.blockpairs.unlisted_min_distance checks that
-evaluation exactly: the closest atom pair the old list left out must lie
-beyond the cutoff. The run raises at the end of the chunk otherwise. A
-box scaled between rebuilds moves atoms by up to (mu - 1) L / 2, which the
-skin must absorb; the same check proves it did.
+end of the chunk) that evaluation is checked exactly. On a cluster-pair
+list, ops.blockpairs.unlisted_min_distance gives the closest atom pair the
+old list left out, which must lie beyond the cutoff. On a neighbor table
+(ops.neighbors.Neighbors), every pair the table built at the same
+coordinates holds inside the cutoff must be in the old one
+(``missing_min_distance``); at the end of a chunk a table is built for
+the check alone. A table that overflowed its capacity raises the JAX
+package's RuntimeError at the end of the chunk. A box scaled between
+rebuilds moves atoms by up to (mu - 1) L / 2, which the skin must absorb;
+the same check proves it did.
 
 The virial is computed on the steps whose pressure a coupler reads
 (coupling.virial_due). Under a barostat, ``npt_resetup`` sets the neighbor
@@ -23,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.blockpairs import unlisted_min_distance
-from ..ops.neighbors import find_neighbors
-from ..ops.pair_kernel import build_fused_spec
+from ..ops.neighbors import Neighbors, find_neighbors
+from ..ops.pairwise import interaction_cutoff
 from .coupling import virial_due
 
 
@@ -33,10 +38,61 @@ class StaleNeighborList(RuntimeError):
 
 
 def list_cutoff(sys):
-    """The radius inside which the list must hold every pair (0 without
-    pairwise interactions)."""
-    return (build_fused_spec(sys.pairwise_inters).cut_max
-            if sys.pairwise_inters else 0.0)
+    """The radius inside which the list must hold every pair: the largest
+    interaction cutoff of the pairwise interactions (0 without one)."""
+    cuts = [interaction_cutoff(i) for i in sys.pairwise_inters]
+    return max([c for c in cuts if c is not None], default=0.0)
+
+
+def missing_min_distance(old, new, coords, boundary, cutoff):
+    """The closest atom pair that the table ``new``, built at ``coords``,
+    holds inside ``cutoff`` and the table ``old`` does not, as a device
+    scalar (inf when there is none). Both tables place a pair in the same
+    row (the balanced ownership), so a pair is looked up by its key
+    row * (N + 1) + column among the old table's sorted keys."""
+    n = coords.shape[0]
+    rows = torch.arange(n, device=coords.device, dtype=torch.int64)[:, None]
+    old_keys = torch.sort((rows * (n + 1) + old.idx).reshape(-1))[0]
+    new_keys = (rows * (n + 1) + new.idx).reshape(-1)
+    pos = torch.clamp(torch.searchsorted(old_keys, new_keys),
+                      max=old_keys.numel() - 1)
+    listed = (old_keys[pos] == new_keys).view(new.idx.shape)
+    safe_j = torch.clamp(new.idx, max=n - 1).to(torch.int64)
+    dx, dy, dz = boundary.mic_parts(tuple(coords[:, k][safe_j]
+                                          - coords[:, k][:, None]
+                                          for k in range(3)))
+    r = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    missing = (new.idx < n) & ~listed & (r < cutoff)
+    return torch.where(missing, r, float("inf")).amin()
+
+
+def list_check(sys, neighbors, cutoff, new=None):
+    """The stale-list check of a force evaluation on ``neighbors`` at sys's
+    coordinates: (a device scalar, the overflow of the table built for the
+    check or None). On a cluster-pair list the scalar is the closest
+    unlisted atom pair (exact below the cutoff); on a neighbor table it is
+    the closest pair inside the cutoff that a table built at these
+    coordinates (``new``, or one built here) holds and ``neighbors`` does
+    not (inf: none)."""
+    if not isinstance(neighbors, Neighbors):
+        return unlisted_min_distance(neighbors, sys.coords, sys.boundary,
+                                     cutoff), None
+    if new is None:
+        new = sys.neighbor_finder.find(sys.coords, sys.boundary,
+                                       sys.exclusions)
+    return missing_min_distance(neighbors, new, sys.coords, sys.boundary,
+                                cutoff), new.overflow
+
+
+def raise_if_overflow(overflow, step_n):
+    """Raises the JAX package's RuntimeError if a neighbor table
+    overflowed (``overflow`` a device scalar, read here)."""
+    over = int(overflow)
+    if over > 0:
+        raise RuntimeError(
+            f"neighbor finder overflow at step {step_n}: neighbor list "
+            f"overflow by {over}; increase max_neighbors / cell_capacity on "
+            "the finder")
 
 
 def raise_if_stale(closest, cutoff):
@@ -58,9 +114,11 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
     callable step_n -> the step's standard-normal draws that replace the
     generator's: an (N, 3) tensor for Langevin, a sequence of one per
     innermost substep for MTSLangevinIntegrator; ``draws`` one step_n ->
-    per-coupler draws (coupling.py) for the couplers'. Returns (sys, neighbors, aux, closest
-    distance of an unlisted atom pair at the checked evaluations, in
-    nm)."""
+    per-coupler draws (coupling.py) for the couplers'. Returns (sys,
+    neighbors, aux, closest distance in nm at the checked evaluations: of
+    an unlisted atom pair on a cluster-pair list, of a pair missing
+    inside the cutoff (inf: none) on a neighbor table). Raises
+    StaleNeighborList, or RuntimeError on a table's overflow."""
     finder = sys.neighbor_finder
     r = finder.n_steps if finder is not None and neighbors is not None else 1
     cutoff = list_cutoff(sys)
@@ -68,6 +126,8 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
                          device=sys.device)
 
     couplers = getattr(simulator, "coupling", ())
+    table = isinstance(neighbors, Neighbors)
+    overflow = neighbors.overflow if table else None
 
     def steps(sys, aux, first, k):
         for step_n in range(first, first + k):
@@ -81,15 +141,20 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
                 needs_virial=virial_due(couplers, step_n), **injected)
         return sys, aux
 
-    def check(sys):
-        nonlocal closest
-        closest = torch.minimum(closest, unlisted_min_distance(
-            neighbors, sys.coords, sys.boundary, cutoff))
+    def check(sys, new=None):
+        """The check of the last evaluation on ``neighbors``; ``new`` the
+        table built at its coordinates, if there is one."""
+        nonlocal closest, overflow
+        near, over = list_check(sys, neighbors, cutoff, new)
+        closest = torch.minimum(closest, near)
+        if over is not None:
+            overflow = torch.maximum(overflow, over)
 
     def rebuild(sys, step_n):
-        check(sys)
-        return find_neighbors(finder, sys.coords, sys.boundary,
-                              sys.exclusions, step_n)
+        new = find_neighbors(finder, sys.coords, sys.boundary,
+                             sys.exclusions, step_n)
+        check(sys, new)
+        return new
 
     if r <= 1:
         for step_n in range(step0, step0 + n):
@@ -110,6 +175,8 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
         if tail:
             sys, aux = steps(sys, aux, step0 + pre + n_periods * r, tail)
             check(sys)
+    if table:
+        raise_if_overflow(overflow, step0 + n)
     return sys, neighbors, aux, raise_if_stale(closest, cutoff)
 
 
@@ -123,6 +190,7 @@ def npt_resetup(simulator, sys, neighbors, step_n):
     if (finder is None or neighbors is None
             or not any(getattr(c, "is_barostat", False)
                        for c in getattr(simulator, "coupling", ()))
+            or not hasattr(finder, "box_drift_exceeded")
             or not finder.box_drift_exceeded(sys.boundary)):
         return sys, neighbors
     finder = finder.resetup(sys.boundary, sys.n_atoms, sys.atoms)

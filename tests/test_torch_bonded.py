@@ -23,6 +23,9 @@ from mollytpu.ops import bonded as jb
 import mollytpu_torch as pt
 from mollytpu_torch.ops import bonded as pb
 from torch_parity import CPU, np64
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL_E, TOL_F, TOL_V = 1e-10, 1e-8, 1e-8
 L = 2.0

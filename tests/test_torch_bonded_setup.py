@@ -23,6 +23,9 @@ from mollytpu.ops.bonded import specific_energy as jax_specific_energy
 
 import mollytpu_torch as pt
 from torch_parity import CPU, box_path, np64
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MOL_XML = """<ForceField>
  <AtomTypes>

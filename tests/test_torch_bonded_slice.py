@@ -14,6 +14,7 @@ from functools import partial
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import mollytpu as mt
@@ -25,6 +26,9 @@ from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_forces_virial,
                           jax_neighbors, jax_noise_sequence,
                           jax_potential_energy, jax_system, max_rel, np64,
                           port_neighbors, port_system, seeded_velocities)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DT, TEMP, FRICTION = 0.002, 300.0, 1.0
 N_STEPS = 2 * CADENCE

@@ -23,6 +23,9 @@ import mollytpu_torch as pt
 from mollytpu_torch.boundary import mic_displacement
 from mollytpu_torch.models.pdb import read_pdb
 from torch_parity import CPU, LIST_RADIUS, box_path, np64
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-12
 

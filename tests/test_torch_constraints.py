@@ -16,6 +16,9 @@ from mollytpu.ops.constraints import SHAKERattle as JaxSHAKE
 import mollytpu_torch as pt
 from mollytpu_torch.ops.constraints import SHAKERattle
 from torch_parity import CPU, jax_system, np64, port_system
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-12
 DT = 0.002

@@ -32,6 +32,9 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_coupler_draws,
                           jax_dense_rf_system, jax_step_draws, max_rel, np64,
                           port_neighbors)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL, ENERGY = 1e-12, 1e-9
 DT, TEMP = 0.002, 300.0

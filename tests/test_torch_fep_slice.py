@@ -37,6 +37,9 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_neighbors,
                           jax_system, max_rel, np64, port_neighbors,
                           port_system)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DT, TEMP, FRICTION = 0.002, 300.0, 1.0
 LAMS = (0.0, 0.25, 0.5, 0.75, 1.0)

@@ -29,6 +29,9 @@ from mollytpu.free_energy import stats as jax_stats
 import mollytpu_torch as pt
 from mollytpu_torch.free_energy import alchemy, mbar, stats
 from torch_parity import CPU, np64
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SCHEDULERS = ("DefaultLambdaScheduler", "NAMDLambdaScheduler",
               "QuartersLambdaScheduler", "EleScaledLambdaScheduler")

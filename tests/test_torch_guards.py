@@ -15,6 +15,9 @@ import torch
 import mollytpu_torch as pt
 from mollytpu_torch.ops import pair_kernel
 from torch_parity import CPU
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mollytpu_torch")

@@ -36,6 +36,9 @@ import mollytpu_torch as pt
 from mollytpu_torch.ops import pair_kernel
 from torch_parity import (CPU, jax_neighbors, jax_system, np64,
                           port_neighbors, port_system)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 from test_torch_pair_kernel import (LIST, _exclusions64, _jax_inters,
                                     _port_inters)
 

@@ -42,6 +42,9 @@ from mollytpu_torch.ops import pair_kernel
 from mollytpu_torch.ops.blockpairs import (CLUSTER, BlockPairFinder,
                                            unlisted_min_distance)
 from torch_parity import CPU, LIST_RADIUS, box_path, max_rel, np64
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TERMS, EXACT, POLY = 1e-12, 1e-9, 2e-6
 LIST = 1.0

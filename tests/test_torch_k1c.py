@@ -48,6 +48,9 @@ from mollytpu_torch.ops import pair_kernel
 from mollytpu_torch.ops.blockpairs import BlockPairFinder
 from mollytpu_torch.ops.ewald import PME
 from torch_parity import CPU, max_rel, np64
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TERMS, EXACT, POLY = 1e-12, 1e-9, 2e-6
 RC, LIST, N = 0.9, 0.9, 96

@@ -28,6 +28,9 @@ from mollytpu_torch.sim import integrators
 from torch_parity import (CPU, LIST_RADIUS, jax_neighbors,
                           jax_noise_sequence, jax_system, np64,
                           port_neighbors, seeded_velocities)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OUTER_DT, TEMP, FRICTION = 0.004, 300.0, 1.0
 REBUILD, N_OUTER = 3, 6

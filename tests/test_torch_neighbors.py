@@ -1,0 +1,222 @@
+"""The neighbor tables of the general pair path (ops/neighbors.py) against
+the JAX package's, float64 on the CPU: DistanceNeighborFinder and
+CellListNeighborFinder give the same idx and special tables element for
+element (exclusions and 1-4 pairs, orthorhombic and triclinic boxes, a
+grid of 2 cells on an axis), ``setup`` sizes the finder as JAX does with
+and without coordinates, overflow is reported as JAX reports it and
+raised by the simulation loop, and the loop's exact stale-list check
+raises on a table made stale on purpose.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mollytpu as mt
+from mollytpu.ops.neighbors import find_neighbors as jax_find_neighbors
+
+import mollytpu_torch as pt
+from mollytpu_torch.sim.simulate import missing_min_distance
+from torch_parity import CPU, np64, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+RADIUS = 0.6
+
+#: boxes (name -> lengths in nm, angles in degrees): a grid of 4 x 3 x 2
+#: cells at RADIUS, and a 92/97/86 degree cell of 4 x 4 x 4
+BOXES = {"ortho": ((2.5, 2.0, 1.3), (90.0, 90.0, 90.0)),
+         "triclinic": ((2.5, 2.5, 2.5), (92.0, 97.0, 86.0))}
+
+
+def _boxes(name):
+    lengths, angles = BOXES[name]
+    if angles == (90.0, 90.0, 90.0):
+        return (mt.rectangular(lengths, dtype=jnp.float64),
+                pt.rectangular(lengths, dtype=torch.float64, device=CPU))
+    jb = mt.triclinic_from_lengths_angles(lengths, np.radians(angles),
+                                          dtype=jnp.float64)
+    return jb, pt.Triclinic(torch.as_tensor(np64(jb.basis)))
+
+
+@functools.lru_cache(maxsize=None)
+def fluid(name, n=300, seed=4):
+    """n atoms uniform in the box (some closer than a bond), with chains
+    of exclusions (i, i+1), (i, i+2) and 1-4 pairs (i, i+3), some of them
+    far apart in index."""
+    rng = np.random.default_rng(seed)
+    jb, _ = _boxes(name)
+    f = rng.uniform(0.0, 1.0, (n, 3))
+    coords = np.asarray(jax.device_get(jb.from_fractional(jnp.asarray(f))))
+    excl = ([(i, i + 1) for i in range(0, 120)]
+            + [(i, i + 2) for i in range(0, 120)] + [(3, 250), (7, 299)])
+    spec = [(i, i + 3) for i in range(0, 120)] + [(11, 280)]
+    return coords, excl, spec
+
+
+def inputs(name):
+    coords, excl, spec = fluid(name)
+    n = coords.shape[0]
+    jb, tb = _boxes(name)
+    return ((jnp.asarray(coords), jb, mt.Exclusions.build(n, excl, spec)),
+            (torch.as_tensor(coords), tb,
+             pt.Exclusions.build(n, excl, spec, device=CPU)))
+
+
+def assert_same_table(jn, tn):
+    np.testing.assert_array_equal(np.asarray(jn.idx), tn.idx.numpy())
+    np.testing.assert_array_equal(np.asarray(jn.special), tn.special.numpy())
+    assert int(jn.overflow) == int(tn.overflow)
+
+
+@pytest.mark.parametrize("name", BOXES)
+def test_distance_finder_table_matches_jax(name):
+    (jc, jb, jx), (tc, tb, tx) = inputs(name)
+    jn = jax_find_neighbors(mt.DistanceNeighborFinder(RADIUS, 10, 40), jc,
+                            jb, jx, 7)
+    tn = pt.find_neighbors(pt.DistanceNeighborFinder(RADIUS, 10, 40), tc, tb,
+                           tx, 7)
+    assert tn.step_built == 7 and int(tn.overflow) == 0
+    assert bool(tn.special.any())
+    assert_same_table(jn, tn)
+
+
+@pytest.mark.parametrize("name", BOXES)
+@pytest.mark.parametrize("with_coords", (False, True))
+def test_cell_finder_setup_and_table_match_jax(name, with_coords):
+    """setup sizes the grid, the capacity and the row width as JAX does
+    (from the mean density, or from the configuration with trial builds),
+    and find gives JAX's table."""
+    (jc, jb, jx), (tc, tb, tx) = inputs(name)
+    n = tc.shape[0]
+    kw = dict(n_steps=5)
+    jf = mt.CellListNeighborFinder.setup(
+        jb, RADIUS, n, coords=jc if with_coords else None, **kw)
+    tf = pt.CellListNeighborFinder.setup(
+        tb, RADIUS, n, coords=tc if with_coords else None, **kw)
+    for field in ("grid_dims", "n_steps", "max_neighbors", "cell_capacity"):
+        assert getattr(tf, field) == getattr(jf, field), field
+    if name == "ortho":
+        assert 2 in tf.grid_dims
+    jn = jax_find_neighbors(jf, jc, jb, jx, 0)
+    tn = pt.find_neighbors(tf, tc, tb, tx, 0)
+    assert int(tn.overflow) == 0
+    assert_same_table(jn, tn)
+
+
+def test_cell_and_distance_tables_hold_the_same_pairs():
+    """Both finders list the same pairs in the same rows (the balanced
+    ownership); the cell finder's rows follow the stencil's order."""
+    (_, _, _), (tc, tb, tx) = inputs("ortho")
+    n = tc.shape[0]
+    a = pt.find_neighbors(pt.DistanceNeighborFinder(RADIUS, 1, 40), tc, tb,
+                          tx)
+    b = pt.find_neighbors(pt.CellListNeighborFinder.setup(tb, RADIUS, n), tc,
+                          tb, tx)
+    for row in range(n):
+        sa = sorted(x for x in a.idx[row].tolist() if x < n)
+        sb = sorted(x for x in b.idx[row].tolist() if x < n)
+        assert sa == sb
+
+
+def test_overflow_reported_as_jax():
+    """A row width and a cell capacity too small: the same overflow count
+    as JAX."""
+    (jc, jb, jx), (tc, tb, tx) = inputs("ortho")
+    for kw in (dict(max_neighbors=6), dict(cell_capacity=4),
+               dict(max_neighbors=5, cell_capacity=5)):
+        jf = mt.CellListNeighborFinder.setup(jb, RADIUS, 300, **kw)
+        tf = pt.CellListNeighborFinder.setup(tb, RADIUS, 300, **kw)
+        jn = jax_find_neighbors(jf, jc, jb, jx, 0)
+        tn = pt.find_neighbors(tf, tc, tb, tx, 0)
+        assert int(tn.overflow) > 0
+        assert int(tn.overflow) == int(jn.overflow)
+    jn = jax_find_neighbors(mt.DistanceNeighborFinder(RADIUS, 1, 6), jc, jb,
+                            jx)
+    tn = pt.find_neighbors(pt.DistanceNeighborFinder(RADIUS, 1, 6), tc, tb,
+                           tx)
+    assert_same_table(jn, tn)
+
+
+def _lj_system(finder, name="ortho"):
+    (_, _, _), (tc, tb, tx) = inputs(name)
+    atoms = pt.make_atoms(n=tc.shape[0], mass=40.0, sigma=0.12,
+                          epsilon=0.1, dtype=torch.float64, device=CPU)
+    return pt.System(atoms=atoms, coords=tc, boundary=tb, exclusions=tx,
+                     pairwise_inters=(pt.LennardJones(
+                         cutoff=pt.DistanceCutoff(0.5), use_neighbors=True),),
+                     neighbor_finder=finder)
+
+
+def test_simulate_raises_on_overflow():
+    """The loop raises the JAX package's RuntimeError at the end of the
+    chunk when a table overflowed."""
+    sys = _lj_system(pt.DistanceNeighborFinder(RADIUS, 5, 6))
+    with pytest.raises(RuntimeError, match="neighbor finder overflow at "
+                                           "step 5: neighbor list overflow"):
+        pt.simulate(sys, pt.VelocityVerlet(dt=0.0001), 5)
+
+
+class _Drift:
+    """Moves every atom dx nm in a seeded random direction per step."""
+
+    coupling = ()
+
+    def __init__(self, dx):
+        self.dx = dx
+
+    def step(self, sys, neighbors, aux, step_n, generator=None,
+             needs_virial=False):
+        gen = torch.Generator().manual_seed(step_n)
+        u = torch.randn(sys.coords.shape, generator=gen, dtype=torch.float64)
+        u = u / torch.linalg.vector_norm(u, dim=1, keepdim=True)
+        return sys.update(coords=sys.boundary.wrap(sys.coords + self.dx * u)
+                          ), aux
+
+
+def test_stale_table_fails_loudly():
+    """A skin of 0.1 nm (radius 0.6, cutoff 0.5): 5 steps of 0.005 nm
+    between rebuilds stay inside it; steps of 0.05 nm leave pairs inside
+    the cutoff out of the old table, and the check at the rebuild raises.
+    The check itself: a table built at the same coordinates misses
+    nothing; a table of half the radius misses the closest left-out
+    pair."""
+    sys = _lj_system(pt.CellListNeighborFinder.setup(
+        pt.rectangular((2.5, 2.0, 1.3), dtype=torch.float64, device=CPU),
+        RADIUS, 300, n_steps=5))
+    nb = pt.find_neighbors(sys.neighbor_finder, sys.coords, sys.boundary,
+                           sys.exclusions)
+    *_, closest = pt.run_chunk(_Drift(0.005), sys, nb, {}, 0, 10)
+    assert closest == float("inf")
+    with pytest.raises(pt.StaleNeighborList, match="rebuild more often"):
+        pt.run_chunk(_Drift(0.05), sys, nb, {}, 0, 10)
+    short = pt.find_neighbors(pt.DistanceNeighborFinder(0.25, 1, 40),
+                              sys.coords, sys.boundary, sys.exclusions)
+    assert float(missing_min_distance(nb, nb, sys.coords, sys.boundary,
+                                      0.5)) == float("inf")
+    d = float(missing_min_distance(short, nb, sys.coords, sys.boundary, 0.5))
+    dr = sys.boundary.displacement(sys.coords[:, None, :],
+                                   sys.coords[None, :, :])
+    r = torch.linalg.vector_norm(dr, dim=-1)
+    n = sys.n_atoms
+    listed = torch.zeros((n, n), dtype=torch.bool)
+    listed[torch.eye(n, dtype=torch.bool)] = True
+    for i, j in zip(*map(lambda t: t.tolist(), (sys.exclusions.excl_i,
+                                                 sys.exclusions.excl_j))):
+        listed[i, j] = listed[j, i] = True
+    expect = r[~listed & (r >= 0.25) & (r < 0.5)].min()
+    assert d == pytest.approx(float(expect), rel=1e-12)
+
+
+def test_maybe_rebuild_on_cadence():
+    (_, _, _), (tc, tb, tx) = inputs("ortho")
+    f = pt.DistanceNeighborFinder(RADIUS, 4, 40)
+    nb = pt.find_neighbors(f, tc, tb, tx, 0)
+    assert pt.maybe_rebuild(f, nb, tc, tb, tx, 3) is nb
+    assert pt.maybe_rebuild(f, nb, tc, tb, tx, 8).step_built == 8
+    assert pt.maybe_rebuild(pt.NoNeighborFinder(), nb, tc, tb, tx, 8) is nb
+    assert pt.find_neighbors(pt.NoNeighborFinder(), tc, tb, tx) is None

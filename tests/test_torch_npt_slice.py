@@ -48,6 +48,9 @@ from test_torch_k1b import CASES, EXACT, LIST, POLY, _box, _inters, _system
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_dense_rf_system,
                           jax_find_neighbors, jax_step_draws, max_rel, np64,
                           port_neighbors, port_system)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-12
 DT, TEMP, FRICTION = 0.002, 300.0, 1.0

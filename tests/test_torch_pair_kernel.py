@@ -32,6 +32,9 @@ from mollytpu_torch.ops.cutoffs import DistanceCutoff
 from mollytpu_torch.ops.pairwise import CoulombEwald, LennardJones
 from torch_parity import (CPU, box_path, jax_neighbors, jax_system, max_rel,
                           np64, port_neighbors, port_system)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RC, LIST, ALPHA = 0.9, 1.0, 3.0
 EXACT, POLY, POLY_SUM = 1e-10, 2e-6, 2e-5

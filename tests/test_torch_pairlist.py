@@ -16,6 +16,9 @@ from mollytpu_torch.ops.cutoffs import DistanceCutoff
 from mollytpu_torch.ops.pairwise import CoulombEwald, LennardJones
 from mollytpu_torch.sim.simulate import run_chunk
 from torch_parity import CPU, LIST_RADIUS
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _random_system(n, side, seed):

@@ -21,6 +21,9 @@ import mollytpu_torch as pt
 from mollytpu_torch.ops.ewald import EwaldExclusionCorrection, PME
 from mollytpu_torch.models.setup import make_dispersion_correction
 from torch_parity import CPU, max_rel
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-10
 SIDES = [2.6, 2.9, 3.1]

@@ -27,6 +27,9 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_forces_virial,
                           jax_neighbors, jax_potential_energy, jax_system,
                           max_rel, np64, port_neighbors, port_system)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DT, TEMP, FRICTION = 0.002, 300.0, 1.0
 N_STEPS = 2 * CADENCE

@@ -10,6 +10,9 @@ import mollytpu_torch as pt
 from mollytpu_torch.bridge import pairs_from_bitmap
 from torch_parity import (CPU, PME_BOXES, box_path, jax_system, np64,
                           port_system)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-12
 
@@ -163,7 +166,6 @@ def test_triclinic_pme_raises():
 
 
 @pytest.mark.parametrize("kwargs, what", [
-    (dict(nonbonded_method="none"), "dense all-pairs"),
     (dict(constraints="allbonds"), "constraints="),
     (dict(implicit_solvent="obc2"), "implicit solvent"),
     (dict(constraints="hangles"), "constraints="),

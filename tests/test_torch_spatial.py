@@ -11,6 +11,9 @@ import mollytpu as mt
 import mollytpu_torch as pt
 from mollytpu_torch.units import KB
 from torch_parity import CPU
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-12
 N = 97

@@ -11,6 +11,7 @@ import tempfile
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import mollytpu as mt
@@ -196,3 +197,29 @@ def max_rel(a, b):
     """max |a - b| over max(1, max |a|): the force and virial metric."""
     a, b = np64(a), np64(b)
     return float(np.max(np.abs(a - b)) / max(1.0, np.max(np.abs(a))))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the test: under pytest-xdist every worker's
+    thread pool would otherwise take every core, and the small tensors of
+    the eager pair engines stall on the oversubscription."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_xi_fn(seed):
+    return jax.jit(lambda i, j, step_n: mt.DPDInteraction(seed=seed)._xi(
+        i, j, step_n))
+
+
+def jax_xi(seed, i, j, step_n):
+    """The JAX package's DPD pair noise (mollytpu/ops/pairwise.py:899) for
+    the port's (i, j) index tensors, as a torch tensor: the port's
+    DPDInteraction._xi made JAX's, to hold the rest of the DPD path to
+    JAX on the same noise."""
+    return torch.as_tensor(np.array(_jax_xi_fn(int(seed))(
+        jnp.asarray(i.numpy()), jnp.asarray(j.numpy()), step_n)))
