@@ -16,11 +16,13 @@ Phases, each printing one line or more before the next starts:
    path (K1c: soft-core LJ x soft-core / scaled Coulomb, 4 INSERT and 4
    DELETE atoms, five lambdas, each scheduler) and the scaled-charge
    family on K1a/K1b;
-4. three main paths, each at 5,318 TIP3P waters (15,954 atoms, liquid
+4. four main paths, each at 5,318 TIP3P waters (15,954 atoms, liquid
    density) built from the in-repo force field with rigid water and H-bond
    constraints, Langevin at 2 fs and 300 K, rebuild every 10 steps:
    PME in the cube (K1a), the reaction field (nonbonded_method="cutoff") in
-   the cube and in the rhombic dodecahedron (K1b). For each: the kernel
+   the cube and in the rhombic dodecahedron (K1b), and PME in the rhombic
+   dodecahedron (K1b's Ewald instance with the triclinic minimum image,
+   coul3-triclinic). For each: the kernel
    against its twin on the built system; the kernel's device time (CUDA
    events around 25 back-to-back launches of the C entry point, with
    torch.profiler's kernel time beside it), its time through the wrapper
@@ -36,8 +38,8 @@ Phases, each printing one line or more before the next starts:
    coordinates finite, constraints held, temperature sane, no stale list
    (no atom pair the list left out came inside the cutoff by any rebuild),
    and the f32 forces against a float64 evaluation through the plain twins;
-   on the built cube and dodecahedron, K1b's other modes timed against
-   their twins, each with its bound;
+   on the built cube, K1b's other modes timed against their twins, each
+   with its bound;
 5. after the PME main path, the NPT phase on its box: the steepest-
    descent minimizer on the lattice start (100 iterations on one list;
    energy and max|F| before and after; gates: the energy fell, the state,
@@ -112,10 +114,30 @@ Phases, each printing one line or more before the next starts:
    card bit for bit the CPU's, and 20 DPDVelocityVerlet steps in float64
    on the card against the CPU (1e-9 nm).
 
-The second-to-last line is a JSON object {"kernels": [...]}: the four
+9. after the PME-dodecahedron main path: 10 steps on one list under
+   set_sync_debug_mode("error"); PME per evaluation with the box's cached
+   influence function and with it recomputed (also on the PME cube); the
+   step's components; the production phase through simulate from the
+   path's end state: 200 steps with Temperature, KineticEnergy,
+   PotentialEnergy and TotalEnergy loggers every 10 steps, ScalarPressure,
+   Volume, Coordinates and an XTC TrajectoryWriter every 50 (gates: each
+   log's record count, finite records, the first PE record against a
+   direct potential_energy call, the XTC read back by the port's reader
+   within 1e-3 nm of the logged coordinates, exact launch counts, the
+   state), ms/step beside the bare path's and ms per XTC frame; a
+   checkpoint, the generator's state identical after the load, and 10
+   resumed steps within 1e-4 nm of 10 uninterrupted ones; the integrators
+   phase: Verlet, StormerVerlet, NoseHoover and LangevinSplitting
+   ("BAOAB", "BAOOAB"), 100 steps each with the state gates and one launch
+   per step, ms/step each; OverdampedLangevin on Muller-Brown in float64,
+   the card against the CPU on the same noise (1e-9 nm).
+
+The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
-and MTS-PME paths together), K1a's energy and virial instance on the NPT
-path, then each kernel probe instance (wrong
+and MTS-PME paths together; coul3-triclinic's those of PME-dodecahedron,
+its production and resumed steps and the integrators phase), K1a's energy
+and virial instance on the NPT path, coul3-triclinic's on the production
+phase, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
 probe phase; LJ-bench launches no kernel and has no entry); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -153,7 +175,26 @@ DODECAHEDRON = (60.0, 60.0, 90.0)   # mollytpu_torch.models.waterbox
 MAIN_PATHS = (("PME", "pme", CUBE, 2, "coul3-ortho"),
               ("RF-ortho", "cutoff", CUBE, 2, "coul2-ortho"),
               ("RF-dodecahedron", "cutoff", DODECAHEDRON, 2,
-               "coul2-triclinic"))
+               "coul2-triclinic"),
+              ("PME-dodecahedron", "pme", DODECAHEDRON, 2,
+               "coul3-triclinic"))
+
+#: the production phase on the PME-dodecahedron path's end state, through
+#: simulate: loggers of T, KE, PE and E every PROD_LOG steps, of the
+#: pressure, the volume and the coordinates and an XTC writer every
+#: PROD_SLOW; then a checkpoint and RESUME_STEPS resumed steps against as
+#: many uninterrupted ones
+PROD_STEPS, PROD_LOG, PROD_SLOW, RESUME_STEPS = 200, 10, 50, 10
+#: the XTC frames read back against the logged coordinates (the writer's
+#: precision is 1e-3 nm); the resumed coordinates against the
+#: uninterrupted run's; the logged PE against a direct call (PME's f32
+#: index_add_ adds in no fixed order)
+TOL_XTC, TOL_RESUME, TOL_PE_LOG = 1e-3, 1e-4, 1e-6
+#: the integrators phase on the dodecahedron frame: steps per integrator,
+#: Nose-Hoover's damping (ps); OverdampedLangevin on the Muller-Brown
+#: surface, card against CPU in float64 with the same noise
+INTEGRATOR_STEPS, NH_DAMPING = 100, 0.1
+MB_N, MB_STEPS, TOL_MB = 8, 50, 1e-9
 
 #: the alchemical main path: lambda windows, steps per window (warm-up,
 #: sampled), steps between samples, the window that is timed and checked
@@ -176,6 +217,8 @@ FAMILIES = {
                    "orthorhombic)",
     "coul2-ortho": "pair_nonbonded K1b (LJ + reaction field, orthorhombic)",
     "coul2-triclinic": "pair_nonbonded K1b (LJ + reaction field, "
+                       "triclinic)",
+    "coul3-triclinic": "pair_nonbonded K1b (LJ + Ewald real space, "
                        "triclinic)",
     FEP_FAMILY: "pair_nonbonded K1c (soft-core LJ + soft-core Ewald real "
                 "space at per-pair lambda, orthorhombic)",
@@ -281,11 +324,10 @@ SMALL_MODES = ((1, 0, 0.9, 0.0), (2, 0, 0.9, 0.0), (3, 0, 0.9, 0.0),
                (1, 1, 0.8, 0.9), (2, 1, 0.9, 0.75), (3, 1, 0.8, 0.9),
                (1, 2, 0.9, 0.9), (2, 2, 0.8, 0.9), (3, 2, 0.9, 0.8),
                (4, 1, 0.0, 0.9), (4, 2, 0.0, 0.9), (1, 3, 0.9, 0.9))
-#: K1b's other modes, timed on the water box at 1.0 nm radii: (lj_mode,
-#: coul_mode) in the cube, and Ewald in the dodecahedron
+#: K1b's other modes, timed on the water box in the cube at 1.0 nm radii:
+#: (lj_mode, coul_mode); Ewald in the dodecahedron has its own main path
 OTHER_MODES = ((1, 0), (2, 0), (3, 0), (1, 1), (2, 1), (3, 1), (4, 1),
                (2, 2), (3, 2), (4, 2))
-OTHER_MODES_TRICLINIC = ((1, 3),)
 
 #: K1c on the small system: the soft-core LJ kinds against every Coulomb
 #: form of the lambda path, plus the mixed cases, at these lambdas
@@ -576,6 +618,9 @@ def compare(label, system, timing=False):
                   f"{nb.n_clusters} clusters)", flush=True)
             if not energy:
                 out["ms"], out["plain_ms"] = t_d, t_p
+            else:
+                out["energy"] = dict(max_abs_err=r["df_energy"], ms=t_d,
+                                     plain_ms=t_p)
         prof_ms, work = profiled(lambda: pk._pair_nonbonded_cuda(
             spec, nbk, system.boundary, n, False, lam_role), 25)
         line = (f"{label}: profiler kernel device time {prof_ms:.4f} ms per "
@@ -587,6 +632,9 @@ def compare(label, system, timing=False):
             raise RuntimeError(line + ": more than the fill, the box row's "
                                "copy and the launch")
         out.update(bound(label, spec, nbk, system.boundary, n, lam_role))
+        b = bound(f"{label} energy instance", spec, nbk, system.boundary, n,
+                  lam_role, energy=True)
+        out["energy"].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
     return out
 
 
@@ -2415,6 +2463,259 @@ def dpd_card_phase(dev):
         raise RuntimeError("DPD: the card's trajectory differs from the CPU's")
 
 
+def pme_evaluation_times(label, system):
+    """CUDA-event times (median of 20) of one PME evaluation on the frame:
+    forces, and forces with the virial, with the box's cached influence
+    function, and with it recomputed (a new box object per call: every
+    evaluation did so before the cache)."""
+    import torch
+    import mollytpu_torch as pt
+    (pme,) = [g for g in system.general_inters if isinstance(g, pt.PME)]
+    x, box, atoms = system.coords, system.boundary, system.atoms
+    out = {}
+    for virial in (False, True):
+        cached = _time(lambda: pme.force_virial(x, box, atoms, virial), 2, 20)
+        fresh = _time(lambda: pme.force_virial(
+            x, dataclasses.replace(box), atoms, virial), 2, 20)
+        influence = _time(lambda: pme._make_influence(box, torch.float32),
+                          2, 20)
+        out[virial] = cached
+        print(f"{label} PME (mesh {pme.mesh_dims}) force_virial"
+              f"{' with the virial' if virial else ''}: {cached:.4f} ms "
+              f"with the box's cached influence function, {fresh:.4f} ms "
+              f"recomputing it ({influence:.4f} ms for the influence "
+              "function alone)", flush=True)
+    return out
+
+
+def production_phase(run, workdir):
+    """The production run on the PME-dodecahedron path's end state through
+    simulate with loggers and an XTC writer (module constants PROD_*), then
+    a checkpoint: the generator's state after the load, and RESUME_STEPS
+    resumed steps against as many uninterrupted ones. Gates: each log's
+    record count, finite records, the first PE record against a direct
+    potential_energy call, the XTC read back against the logged
+    coordinates, the state, exact pair-kernel launch counts, the resumed
+    coordinates. Returns the timing and the launch counts."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "PME-dodecahedron production"
+    sim, system, nb, aux, gen, step = (run[k] for k in (
+        "sim", "system", "nb", "aux", "gen", "step"))
+    xtc = os.path.join(workdir, "production.xtc")
+    loggers = {
+        "T": pt.TemperatureLogger(PROD_LOG),
+        "KE": pt.KineticEnergyLogger(PROD_LOG),
+        "PE": pt.PotentialEnergyLogger(PROD_LOG),
+        "E": pt.TotalEnergyLogger(PROD_LOG),
+        "P": pt.ScalarPressureLogger(PROD_SLOW),
+        "V": pt.VolumeLogger(PROD_SLOW),
+        "x": pt.CoordinatesLogger(PROD_SLOW),
+        "xtc": pt.TrajectoryWriter(PROD_SLOW, xtc)}
+    pe0 = float(pt.potential_energy(system, nb, step))
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system, nb, aux, logs = pt.simulate(
+        system, sim, PROD_STEPS, generator=gen, neighbors=nb, aux=aux,
+        init_step=step, loggers=loggers)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PROD_STEPS
+    # per step one force evaluation, on the steps before a pressure record
+    # with the virial; per PE and E record one energy evaluation; a
+    # pressure record at the first step refreshes the continued run's
+    # virial
+    steps = range(step, step + PROD_STEPS + 1)
+    n_fast = sum(1 for k in steps if k % PROD_LOG == 0)
+    n_slow = sum(1 for k in steps if k % PROD_SLOW == 0)
+    n_virial = sum(1 for k in steps[:-1] if (k + 1) % PROD_SLOW == 0)
+    refresh = int(step % PROD_SLOW == 0)
+    want = PROD_STEPS + 2 * n_fast + refresh
+    want_energy = n_virial + 2 * n_fast + refresh
+    family = "coul3-triclinic"
+    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[family]
+    energy = pk.ENERGY_LAUNCHES[family]
+    if launches != want or own != want or energy != want_energy:
+        raise RuntimeError(
+            f"{label}: {launches} pair-kernel launches ({own} of {family}, "
+            f"{energy} with energy) for {PROD_STEPS} steps and the records "
+            f"(want {want}, {want_energy} with energy)")
+    counts = {"T": n_fast, "KE": n_fast, "PE": n_fast, "E": n_fast,
+              "P": n_slow, "V": n_slow, "x": n_slow, "xtc": n_slow}
+    for name, n in counts.items():
+        rec = logs[name]
+        if rec.shape[0] != n or not bool(torch.isfinite(
+                rec.double()).all()):
+            raise RuntimeError(f"{label}: log {name} holds {rec.shape[0]} "
+                               f"records (want {n}) or a non-finite one")
+    de = abs(float(logs["PE"][0]) - pe0) / abs(pe0)
+    if de > TOL_PE_LOG:
+        raise RuntimeError(f"{label}: the first PE record "
+                           f"{float(logs['PE'][0])} against a direct call "
+                           f"{pe0} (rel {de:.3e})")
+    temp, viol = check_state(label, system)
+    t0 = time.perf_counter()
+    frames = pt.read_xtc_coords(xtc)
+    read_s = time.perf_counter() - t0
+    dx = float(np.abs(frames - logs["x"].numpy()).max()) \
+        if frames.shape == tuple(logs["x"].shape) else math.inf
+    if dx > TOL_XTC:
+        raise RuntimeError(f"{label}: the XTC read back ({frames.shape}) "
+                           f"differs from the logged coordinates by {dx} nm")
+    loggers["xtc"] = pt.TrajectoryWriter(PROD_SLOW,
+                                         os.path.join(workdir, "t.xtc"))
+    record_ms = {name: statistics.median(
+        _host_ms(lambda: lg.observe(system, nb, aux, 0)) for _ in range(3))
+        for name, lg in loggers.items()}
+    xtc_ms = record_ms["xtc"]
+    per_step = {name: ms_ / loggers[name].interval
+                for name, ms_ in record_ms.items()}
+    print(f"{label}: ms per record (median of 3, host clock): " + ", ".join(
+        f"{name} {ms_:.3f}" for name, ms_ in record_ms.items())
+        + f"; per step at these intervals: loggers "
+        f"{sum(v for k, v in per_step.items() if k != 'xtc'):.3f} ms, XTC "
+        f"writer {per_step['xtc']:.3f} ms", flush=True)
+    print(f"{label}: {PROD_STEPS} steps from step {step}, {ms:.4f} ms/step "
+          f"with the loggers (T, KE, PE, E every {PROD_LOG} steps; P, V, "
+          f"coordinates and the XTC writer every {PROD_SLOW}) against "
+          f"{run['ms']:.4f} ms/step bare; {xtc_ms:.2f} ms per XTC frame "
+          f"({system.n_atoms} atoms, host clock), the file read back in "
+          f"{read_s:.2f} s, {frames.shape[0]} frames within {dx:.2e} nm of "
+          f"the logged coordinates; {launches} pair-kernel launches "
+          f"({energy} with energy: PE and E records, the pressure's virial "
+          f"steps); first PE record {float(logs['PE'][0]):.6e} against a "
+          f"direct call {pe0:.6e} (rel {de:.2e}); mean T "
+          f"{float(logs['T'].mean()):.2f} K, mean P "
+          f"{float(logs['P'].mean()) / pt.units.BAR:.1f} bar; final T "
+          f"{temp:.2f} K, constraint violation {viol:.3e} nm", flush=True)
+    step += PROD_STEPS
+    resumed = resume_check(label, sim, system, nb, aux, gen, step, workdir)
+    return dict(ms=ms, xtc_ms=xtc_ms, launches=own - energy + resumed,
+                energy_launches=energy)
+
+
+def _host_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def resume_check(label, sim, system, nb, aux, gen, step, workdir):
+    """save_checkpoint at ``step``, load_checkpoint into the system, and
+    RESUME_STEPS resumed steps against as many uninterrupted ones: the
+    generator's state after the load identical to the saved one, the
+    coordinates within TOL_RESUME. Returns the pair-kernel launches."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    path = os.path.join(workdir, "production.npz")
+    pt.save_checkpoint(path, system, step, gen, aux=aux)
+    state = gen.get_state()
+    pk.reset_launch_counts()
+    loaded, step_n, gen2, extra = pt.load_checkpoint(path, system)
+    if step_n != step or not torch.equal(gen2.get_state(), state):
+        raise RuntimeError(f"{label}: the checkpoint's step or generator "
+                           "state differs from the saved one")
+    full, _, _ = pt.simulate(system, sim, RESUME_STEPS, generator=gen,
+                             neighbors=nb, aux=aux, init_step=step)
+    back, _, _ = pt.simulate(loaded, sim, RESUME_STEPS, generator=gen2,
+                             aux=extra["aux"], init_step=step_n)
+    dx = float((back.coords - full.coords).abs().max())
+    if pk.LAUNCHES != 2 * RESUME_STEPS or not dx <= TOL_RESUME:
+        raise RuntimeError(f"{label}: resumed coordinates {dx} nm from the "
+                           f"uninterrupted run's, {pk.LAUNCHES} launches")
+    print(f"{label}: checkpoint at step {step}, generator state identical "
+          f"after the load ({state.numel()} bytes); {RESUME_STEPS} resumed "
+          f"steps within {dx:.3e} nm of {RESUME_STEPS} uninterrupted ones",
+          flush=True)
+    return pk.LAUNCHES
+
+
+def integrators_phase(run):
+    """Each new integrator for INTEGRATOR_STEPS steps through simulate from
+    the PME-dodecahedron path's end state: the state gates, no stale list,
+    exactly one pair-kernel launch per step and one for the first forces;
+    ms/step on the host clock. Returns the launches."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    system, gen, step = run["system"], run["gen"], run["step"]
+    sims = {
+        "Verlet": pt.Verlet(dt=DT),
+        "StormerVerlet": pt.StormerVerlet(dt=DT),
+        "NoseHoover": pt.NoseHoover(dt=DT, temperature=TEMP,
+                                    damping=NH_DAMPING),
+        "LangevinSplitting BAOAB": pt.LangevinSplitting(
+            dt=DT, temperature=TEMP, friction=FRICTION, splitting="BAOAB"),
+        "LangevinSplitting BAOOAB": pt.LangevinSplitting(
+            dt=DT, temperature=TEMP, friction=FRICTION, splitting="BAOOAB"),
+    }
+    total = 0
+    for name, sim in sims.items():
+        pk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, aux = pt.simulate(system, sim, INTEGRATOR_STEPS,
+                                  generator=gen, init_step=step)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / INTEGRATOR_STEPS
+        want = 1 + INTEGRATOR_STEPS
+        own = pk.INSTANCE_LAUNCHES["coul3-triclinic"]
+        if pk.LAUNCHES != want or own != want:
+            raise RuntimeError(f"integrators phase, {name}: {pk.LAUNCHES} "
+                               f"pair-kernel launches for {want} force "
+                               "evaluations")
+        temp, viol = check_state(f"integrators phase, {name}", out)
+        extra = (f", zeta {float(aux['nh_zeta']):.4f} 1/ps"
+                 if "nh_zeta" in aux else "")
+        print(f"integrators phase, {name}: {INTEGRATOR_STEPS} steps, "
+              f"{ms:.4f} ms/step (setup of the list and first forces "
+              f"included), {pk.LAUNCHES} launches; T {temp:.2f} K, "
+              f"constraint violation {viol:.3e} nm{extra}", flush=True)
+        total += own
+    return total
+
+
+def muller_brown_phase(dev):
+    """OverdampedLangevin on the Muller-Brown surface, MB_N particles in
+    float64, MB_STEPS steps on the card and on the CPU from the same start
+    with the same injected noise: coordinates within TOL_MB."""
+    import torch
+    import mollytpu_torch as pt
+    gen = torch.Generator().manual_seed(SEED)
+    x0 = torch.rand((MB_N, 3), generator=gen, dtype=torch.float64)
+    x0 = x0 * torch.tensor([2.0, 2.0, 0.0], dtype=torch.float64) \
+        + torch.tensor([-1.2, -0.2, 0.0], dtype=torch.float64)
+    noise = [torch.randn((MB_N, 3), generator=gen, dtype=torch.float64)
+             for _ in range(MB_STEPS)]
+    sim = pt.OverdampedLangevin(dt=1e-4, temperature=100.0, friction=10.0,
+                                remove_cm=False)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        system = pt.System(
+            atoms=pt.make_atoms(n=MB_N, mass=1.0, dtype=torch.float64,
+                                device=device),
+            coords=x0.to(device), boundary=pt.rectangular(
+                [math.inf] * 3, dtype=torch.float64, device=device),
+            general_inters=(pt.MullerBrown(),))
+        out, _, _ = pt.simulate(system, sim, MB_STEPS,
+                                noise=lambda k: noise[k].to(device))
+        outs.append(out.coords.cpu())
+    dx = float((outs[0] - outs[1]).abs().max())
+    moved = float((outs[1] - x0).abs().max())
+    print(f"OverdampedLangevin on Muller-Brown ({MB_N} particles, float64, "
+          f"{MB_STEPS} steps, the same noise): card against CPU {dx:.3e} nm "
+          f"(the particles moved up to {moved:.3e} nm)", flush=True)
+    if not dx <= TOL_MB:
+        raise RuntimeError("Muller-Brown: the card's trajectory differs from "
+                           "the CPU's")
+
+
 def main():
     line = require_cuda()
     import torch
@@ -2423,7 +2724,7 @@ def main():
     dev = torch.device(DEVICE)
     small_modes(dev)
     small_alch_modes(dev)
-    stats, runs, probes = {}, {}, []
+    stats, runs, probes, pme_eval, more = {}, {}, [], {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         for label, method, angles, n_chunks, family in MAIN_PATHS:
             t0 = time.perf_counter()
@@ -2440,21 +2741,36 @@ def main():
                 probes += probe_phase(label, system, stats[family])
             if label == "RF-ortho":
                 other_modes(label, system, OTHER_MODES)
-            elif label == "RF-dodecahedron":
-                other_modes(label, system, OTHER_MODES_TRICLINIC)
             runs[label] = main_path(label, system, n_chunks, family)
             if label == "PME":
+                pme_eval["cube"] = pme_evaluation_times(
+                    label, runs[label]["system"])
                 npt, npt_energy = npt_phase(system, runs[label], line)
                 bonded = bonded_phase(runs[label]["system"])
                 runs["MTS-PME"] = mts_path(runs[label], line)
             if label == "RF-ortho":
                 components(label, runs[label])
+            if label == "PME-dodecahedron":
+                run = runs[label]
+                steps_without_sync(label, run, run["step"], CADENCE)
+                print(f"{label} sync check, steps {run['step']}-"
+                      f"{run['step'] + CADENCE - 1} on one list under "
+                      "set_sync_debug_mode(\"error\"): no host sync (a "
+                      "known one made first was caught)", flush=True)
+                pme_eval["dodecahedron"] = pme_evaluation_times(
+                    label, run["system"])
+                components(label, run)
+                production = production_phase(run, workdir)
+                more[label] = production["launches"] + integrators_phase(run)
+                muller_brown_phase(dev)
             runs[label] = {k: runs[label][k]
                            for k in ("launches", "ms", "ns_day")}
             if label == "PME":
                 pme_system = system
             del system
         runs["Bonded-PME"] = bonded_pme_path(dev, workdir, line)
+        more["PME"] = (runs["Bonded-PME"]["launches"]
+                       + runs["MTS-PME"]["launches"])
 
         t0 = time.perf_counter()
         fep, mask = fep_system(pme_system)
@@ -2497,14 +2813,16 @@ def main():
         f"{runs['MTS-PME']['launches']}; LJ-bench (in.lj, 32,000 atoms, "
         f"the general pair path) {lj['ms']:.4f} ms/step at a rebuild every "
         f"{lj['cadence']} steps, {lj['tau_day']:.1f} tau/day, no pair-kernel "
-        "launch", flush=True)
+        "launch; PME-dodecahedron production with loggers and the XTC "
+        f"writer {production['ms']:.4f} ms/step, {production['xtc_ms']:.2f} "
+        "ms per XTC frame; PME per force evaluation: cube "
+        f"{pme_eval['cube'][False]:.4f} ms, dodecahedron "
+        f"{pme_eval['dodecahedron'][False]:.4f} ms", flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
         "replaces": "mollytpu/ops/pallas_pairwise.py:636",
-        "launches": runs[label]["launches"] + (
-            runs["Bonded-PME"]["launches"] + runs["MTS-PME"]["launches"]
-            if label == "PME" else 0),
+        "launches": runs[label]["launches"] + more.get(label, 0),
         "max_abs_err": stats[family]["max_abs_err"],
         "ms": stats[family]["ms"], "plain_ms": stats[family]["plain_ms"],
         "bound_ms": stats[family]["bound_ms"],
@@ -2518,6 +2836,16 @@ def main():
         "replaces": "mollytpu/ops/pallas_pairwise.py:636",
         **{k: npt_energy[k] for k in ("launches", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None})
+    kernels.append({
+        "name": "pair_nonbonded K1b with energy and virial (LJ + Ewald real "
+                "space, triclinic; the production path's PE, E and pressure "
+                "records)", "route": "cuda",
+        "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
+        "replaces": "mollytpu/ops/pallas_pairwise.py:636",
+        "launches": production["energy_launches"],
+        **{k: stats["coul3-triclinic"]["energy"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None})
     kernels += [{
         "name": f"{FAMILIES[e['family']]}, roofline probe {e['probe']} "

@@ -27,8 +27,10 @@ from .ops.bonded import (
 from .ops.cutoffs import (CubicSplineCutoff, DistanceCutoff, NoCutoff,
                           PolynomialCutoff, ShiftedForceCutoff,
                           ShiftedPotentialCutoff, cutoff_distance)
-from .ops.ewald import PME, EwaldExclusionCorrection
-from .ops.general import LJDispersionCorrection
+from .ops.ewald import (PME, Ewald, EwaldExclusionCorrection,
+                        ewald_exclusion_list)
+from .ops.general import (GeneralInteraction, LJDispersionCorrection,
+                          MullerBrown)
 from .ops.mixing import (ExceptionTable, FenderHalseyMixing,
                          GeometricMixing, InverseMixing, LorentzMixing,
                          MinimumMixing, MixingException,
@@ -54,8 +56,11 @@ from .sim.coupling import (AndersenThermostat, BerendsenBarostat,
                            ImmediateThermostat, MonteCarloBarostat,
                            VelocityRescaleThermostat, apply_couplers,
                            couplers_invalidate_forces, needs_virial_interval)
-from .sim.integrators import (DPDVelocityVerlet, Langevin, MTSIntegrator,
-                              MTSLangevinIntegrator, VelocityVerlet)
+from .sim.integrators import (DPDVelocityVerlet, Langevin,
+                              LangevinSplitting, MTSIntegrator,
+                              MTSLangevinIntegrator, NoseHoover,
+                              OverdampedLangevin, StormerVerlet, Verlet,
+                              VelocityVerlet)
 from .sim.minimize import SteepestDescentMinimizer
 from .sim.simulate import (StaleNeighborList, npt_resetup, run_chunk,
                            simulate)
@@ -71,6 +76,22 @@ from .free_energy.stats import (effective_sample_size,
                                 statistical_inefficiency, subsample_indices)
 from .free_energy.thermo import (AlchemicalPartition, LambdaHamiltonian,
                                  ThermoState, set_lambda)
+from .utils import analysis, loggers
+from .utils.analysis import (dipole_moment, displacements, distances,
+                             hydrodynamic_radius, msd, radius_gyration, rdf,
+                             rmsd)
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.loggers import (
+    AverageObservableLogger, BoxLogger, CoordinatesLogger, DensityLogger,
+    DisplacementsLogger, ForcesLogger, GeneralObservableLogger,
+    KineticEnergyLogger, MonteCarloLogger, PotentialEnergyLogger,
+    PressureLogger, ReplicaExchangeLogger, ScalarPressureLogger,
+    ScalarVirialLogger, TemperatureLogger, TimeCorrelationLogger,
+    TotalEnergyLogger, VelocitiesLogger, VirialLogger, VolumeLogger,
+    autocorrelation)
+from .utils.trajectory import (EnsembleSystem, TrajectoryWriter,
+                               read_xtc_coords)
+from .utils.visualize import render_frame, visualize
 from .free_energy.alchemy import (DefaultLambdaScheduler,
                                   EleScaledLambdaScheduler,
                                   NAMDLambdaScheduler,

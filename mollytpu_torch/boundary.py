@@ -6,7 +6,8 @@ the JAX package. A Triclinic box is a lower-triangular basis whose rows are
 the box vectors a = (h11, 0, 0), b = (h21, h22, 0), c = (h31, h32, h33).
 
 Two minimum images live here. ``displacement`` is the JAX package's own
-(per-axis rounding, fractional rounding for a Triclinic box); ``mic`` is
+(per-axis rounding; for a Triclinic box fractional rounding, or with
+``approx_images=False`` the search of the 27 neighbouring images); ``mic`` is
 the pair kernel's back-substitution form over the box's 9-float row
 (``mic_row_tensor``: round out the c image, then b, then a). Both give the
 shortest image for every pair closer than half the smallest perpendicular
@@ -68,6 +69,14 @@ class Orthorhombic:
     def from_fractional(self, f):
         return f * self.side_lengths
 
+    def reciprocal(self, dtype=None):
+        """The inverse of the box matrix, diag(1 / L), as a (3, 3) tensor
+        in ``dtype`` (the box's by default), built once per box on its
+        device."""
+        dtype = dtype or self.side_lengths.dtype
+        return _cached(self, ("inv", dtype), lambda: torch.diag(
+            1.0 / self.side_lengths.to(dtype)))
+
     def mic_parts(self, diffs):
         """The JAX package's per-component minimum image
         (mollytpu/boundary.py:86-98) of the raw differences (dx, dy, dz),
@@ -125,14 +134,19 @@ class Orthorhombic:
 class Triclinic:
     """Triclinic box: ``basis`` is a (3, 3) lower-triangular tensor whose rows
     are the box vectors (a along x, b in the xy plane), as in the JAX
-    package. ``displacement`` rounds fractional coordinates (the JAX
-    package's ``approx_images=True``). ``inv`` is the basis's inverse:
+    package. ``displacement`` rounds fractional coordinates, exact for
+    pairs closer than half the smallest width of a reduced box; with
+    ``approx_images=False`` it searches the 27 neighbouring images for the
+    shortest vector (mollytpu/boundary.py:140-160). The flag reaches only
+    ``displacement``: ``mic_parts`` and the pair kernel's ``mic`` keep the
+    rounding form, as in the JAX package. ``inv`` is the basis's inverse:
     given by ``scale`` and ``where``, which derive it on the device, or
     computed once at construction."""
 
     basis: torch.Tensor
     inv: torch.Tensor = dataclasses.field(default=None, repr=False,
                                           compare=False)
+    approx_images: bool = True
 
     def __post_init__(self):
         _init_rows(self)
@@ -166,9 +180,23 @@ class Triclinic:
     def from_fractional(self, f):
         return f @ self.basis
 
+    def reciprocal(self, dtype=None):
+        """The inverse of the basis (``inv``) as a (3, 3) tensor in
+        ``dtype``: fractional coordinates are x @ reciprocal()."""
+        return self.inv if dtype is None else self.inv.to(dtype)
+
     def displacement(self, xi, xj):
         f = self.fractional(xj - xi)
-        return self.from_fractional(f - torch.round(f))
+        dr0 = self.from_fractional(f - torch.round(f))
+        if self.approx_images:
+            return dr0
+        shifts = _cached(self, ("images", dr0.dtype), lambda: (
+            _IMAGE_SHIFTS.to(self.basis.device, dr0.dtype)
+            @ self.basis.to(dr0.dtype)))
+        cands = dr0[..., None, :] + shifts                   # (..., 27, 3)
+        idx = torch.argmin((cands * cands).sum(dim=-1), dim=-1)
+        return torch.take_along_dim(cands, idx[..., None, None],
+                                    dim=-2).squeeze(-2)
 
     def mic_parts(self, diffs):
         """The JAX package's per-component fractional-rounding minimum
@@ -213,23 +241,35 @@ class Triclinic:
         the device: inv / mu, diag(1/mu) inv, or inv(mu.T) @ inv."""
         mu = torch.as_tensor(mu, dtype=self.basis.dtype,
                              device=self.basis.device)
+        exact = self.approx_images
         if mu.dim() == 0:
-            return Triclinic(self.basis * mu, inv=self.inv / mu)
+            return Triclinic(self.basis * mu, inv=self.inv / mu,
+                             approx_images=exact)
         if mu.dim() == 1:
             return Triclinic(self.basis * mu[None, :],
-                             inv=self.inv / mu[:, None])
+                             inv=self.inv / mu[:, None], approx_images=exact)
         inv_mu_t, _ = torch.linalg.inv_ex(mu.T)
-        return Triclinic(self.basis @ mu.T, inv=inv_mu_t @ self.inv)
+        return Triclinic(self.basis @ mu.T, inv=inv_mu_t @ self.inv,
+                         approx_images=exact)
 
     def where(self, cond, other):
         """This box where the 0-d bool tensor ``cond`` holds, else
         ``other``, selected on the device."""
         return Triclinic(torch.where(cond, self.basis, other.basis),
-                         inv=torch.where(cond, self.inv, other.inv))
+                         inv=torch.where(cond, self.inv, other.inv),
+                         approx_images=self.approx_images)
 
     def to(self, device=None, dtype=None):
         return Triclinic(self.basis.to(device=device, dtype=dtype),
-                         inv=self.inv.to(device=device, dtype=dtype))
+                         inv=self.inv.to(device=device, dtype=dtype),
+                         approx_images=self.approx_images)
+
+
+#: the 27 image shifts (-1, 0, 1)^3 in fractional units, in the JAX
+#: package's order (mollytpu/boundary.py:154-156)
+_IMAGE_SHIFTS = torch.tensor([[a, b, c] for c in (-1, 0, 1)
+                              for a in (-1, 0, 1) for b in (-1, 0, 1)],
+                             dtype=torch.float64)
 
 
 def _init_rows(box):
@@ -285,11 +325,12 @@ def rectangular(sides, dtype=torch.float32, device=None):
                                         device=resolve_device(device)))
 
 
-def triclinic(basis, dtype=torch.float32, device=None):
+def triclinic(basis, dtype=torch.float32, device=None, approx_images=True):
     """A Triclinic box from a (3, 3) lower-triangular basis (rows = box
     vectors, nm)."""
     return Triclinic(torch.as_tensor(basis, dtype=dtype,
-                                     device=resolve_device(device)))
+                                     device=resolve_device(device)),
+                     approx_images=approx_images)
 
 
 def triclinic_from_lengths_angles(lengths, angles, dtype=torch.float32,

@@ -24,8 +24,8 @@ from .ops.bonded import TERM_FUNCS, SpecificList
 from .ops.neighbors import (CellListNeighborFinder, DistanceNeighborFinder,
                             NoNeighborFinder)
 from .ops.constraints import SHAKERattle
-from .ops.ewald import PME, EwaldExclusionCorrection
-from .ops.general import LJDispersionCorrection
+from .ops.ewald import PME, Ewald, EwaldExclusionCorrection
+from .ops.general import LJDispersionCorrection, MullerBrown
 from .system import EXCL_WINDOW, Exclusions, System
 
 
@@ -156,8 +156,6 @@ def _finder(f, boundary, n, atoms, dist_neighbors, n_steps):
 def _general(gi, dtype, device):
     name = type(gi).__name__
     if name == "PME":
-        if np.asarray(gi.excl_i).size:
-            raise NotImplementedError("PME with in-mesh exclusions")
         return PME(dist_cutoff=float(gi.dist_cutoff),
                    error_tol=float(gi.error_tol), order=int(gi.order),
                    mesh_dims=tuple(int(k) for k in gi.mesh_dims),
@@ -166,7 +164,20 @@ def _general(gi, dtype, device):
                    moduli_x=_tensor(gi.moduli_x, dtype, device),
                    moduli_y=_tensor(gi.moduli_y, dtype, device),
                    moduli_z=_tensor(gi.moduli_z, dtype, device),
-                   scheduler=_scheduler(gi.scheduler))
+                   scheduler=_scheduler(gi.scheduler),
+                   excl_i=_tensor(gi.excl_i, torch.int64, device),
+                   excl_j=_tensor(gi.excl_j, torch.int64, device))
+    if name == "Ewald":
+        return Ewald(dist_cutoff=float(gi.dist_cutoff),
+                     error_tol=float(gi.error_tol), kmax=int(gi.kmax),
+                     coulomb_const=float(gi.coulomb_const),
+                     alpha=float(gi.alpha),
+                     excl_i=_tensor(gi.excl_i, torch.int64, device),
+                     excl_j=_tensor(gi.excl_j, torch.int64, device),
+                     scheduler=_scheduler(gi.scheduler))
+    if name == "MullerBrown":
+        return MullerBrown(**{k: _tensor(getattr(gi, k), dtype, device)
+                              for k in ("A", "a", "b", "c", "x0", "y0")})
     if name == "EwaldExclusionCorrection":
         return EwaldExclusionCorrection.setup(
             pairs_from_bitmap(gi.bits, gi.far), float(gi.alpha),
@@ -213,10 +224,8 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                   buck_A=column("buck_A"), buck_B=column("buck_B"),
                   buck_C=column("buck_C"))
     if type(tree.boundary).__name__ == "Triclinic":
-        if not tree.boundary.approx_images:
-            raise NotImplementedError("the 27-image triclinic minimum image "
-                                      "is not ported")
-        boundary = Triclinic(_tensor(tree.boundary.basis, dtype, device))
+        boundary = Triclinic(_tensor(tree.boundary.basis, dtype, device),
+                             approx_images=bool(tree.boundary.approx_images))
     else:
         boundary = Orthorhombic(_tensor(tree.boundary.side_lengths, dtype,
                                         device))

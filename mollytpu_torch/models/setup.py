@@ -1,16 +1,17 @@
 """System construction from a PDB file and an OpenMM-format force field
 (counterpart of mollytpu/models/setup.py:44-245, 291-764, 789-843).
 
-Ported: nonbonded_method "cutoff" (LJ truncation + reaction field, in an
-orthorhombic or triclinic box), "pme" (orthorhombic boxes) and "none"
+Ported: nonbonded_method "cutoff" (LJ truncation + reaction field) and
+"pme" (LJ truncation + Ewald real space + PME), each in an orthorhombic
+or triclinic box, and "none"
 (plain LJ + Coulomb over all pairs), open boundaries for a PDB without
 CRYST1, NBFix pair overrides, the bonded terms (harmonic bonds and
 angles, periodic and RB proper and improper torsions, Urey-Bradley),
 constraints "none" or "hbonds", rigid water, hydrogen mass
 repartitioning, the LJ dispersion correction, the neighbor finders, and
 position restraints on a built system. Everything else raises
-NotImplementedError naming what is missing: PME in a triclinic box,
-virtual sites, implicit solvent and CMAP.
+NotImplementedError naming what is missing: virtual sites, implicit
+solvent and CMAP.
 """
 
 from __future__ import annotations
@@ -405,10 +406,6 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
     if nonbonded_method == "pme" and open_box:
         raise NotImplementedError("PME needs a periodic box: the PDB has "
                                   "no CRYST1 record")
-    if nonbonded_method == "pme" and struct.box.ndim != 1:
-        raise NotImplementedError(
-            "PME needs an orthorhombic periodic box: the port's PME mesh "
-            "(ops/ewald.py) reads side lengths, triclinic PME is not ported")
 
     # residue graphs from geometric bond detection feed template matching
     geo_bonds = sorted(set(detect_bonds(struct.coords, struct.elements))

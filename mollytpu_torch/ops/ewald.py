@@ -1,11 +1,21 @@
-"""Smooth particle-mesh Ewald and the Ewald exclusion correction
-(counterpart of mollytpu/ops/ewald.py:45-193, 370-425, 538-717).
+"""Smooth particle-mesh Ewald in any periodic box, the Ewald exclusion
+correction and the reference Ewald sum (counterpart of
+mollytpu/ops/ewald.py:45-367, 370-425, 538-717).
 
 The port carries the JAX package's scatter form of PME: charges spread
 with ``index_add_``, ``torch.fft`` for the convolution and a stencil gather
 for the forces. The dense one-hot matmul form of the JAX package exists for
 the TPU's slow scatter and is not carried over. The exclusion correction is
 the sparse pair form over the excluded and 1-4 pairs.
+
+The box enters through its reciprocal matrix (``boundary.reciprocal()``,
+the inverse of the box matrix, held on the box): fractional coordinates
+are x @ inv, the mesh vectors m = sum_d m_d inv[:, d], and the forces
+follow by the chain rule through the fractional coordinates. A triclinic
+box and an orthorhombic one (a diagonal inverse) take the same path. The
+influence function depends on the box alone and is cached on the box
+object, as its minimum-image row is: a box moved by a barostat is a new
+object and gets its own.
 
 Sign conventions: energies in kJ/mol; virial W_ab = -dE/d(strain_ab),
 matching the pair kernel's -(dU/dr / r) dr (x) dr.
@@ -20,8 +30,11 @@ import math
 import numpy as np
 import torch
 
+from ..boundary import _cached
 from ..free_energy.alchemy import scaled_charge
 from ..units import COULOMB_CONST
+from .bonded import ewald_exclusions
+from .general import GeneralInteraction
 
 
 def ewald_error_alpha(dist_cutoff, error_tol=0.0005):
@@ -134,12 +147,81 @@ def _corrections(q, alpha, volume, ke):
     return e_self, e_charge
 
 
+def _exclusion_terms(q, coords, boundary, alpha, excl_i, excl_j):
+    """Per pair of (excl_i, excl_j): the displacement x_j - x_i, r^2, r,
+    q_i q_j and erf(alpha r)."""
+    dr = boundary.displacement(coords[excl_i], coords[excl_j])
+    r2 = (dr * dr).sum(dim=-1)
+    r = torch.sqrt(r2 + 1e-24)
+    return dr, r2, r, q[excl_i] * q[excl_j], torch.erf(alpha * r)
+
+
+def _exclusion_energy(q, coords, boundary, alpha, ke, excl_i, excl_j):
+    """-ke q_i q_j erf(alpha r) / r over pairs removed from the Ewald sum
+    (mollytpu/ops/ewald.py:163-170)."""
+    if excl_i.shape[0] == 0:
+        return torch.zeros((), dtype=coords.dtype, device=coords.device)
+    _, _, r, qq, erf_ar = _exclusion_terms(q, coords, boundary, alpha, excl_i,
+                                           excl_j)
+    return -ke * torch.sum(qq * erf_ar / r)
+
+
+def _exclusion_force_virial(q, coords, boundary, alpha, ke, excl_i, excl_j,
+                            needs_virial):
+    """Forces and virial of _exclusion_energy (mollytpu/ops/ewald.py:
+    173-193)."""
+    vir = torch.zeros((3, 3), dtype=coords.dtype, device=coords.device)
+    if excl_i.shape[0] == 0:
+        return torch.zeros_like(coords), vir
+    dr, r2, r, qq, erf_ar = _exclusion_terms(q, coords, boundary, alpha,
+                                             excl_i, excl_j)
+    dudr = -ke * qq * (2.0 * alpha / math.sqrt(math.pi)
+                       * torch.exp(-(alpha * r) ** 2) / r - erf_ar / r2)
+    coef = dudr / r
+    fi = coef[:, None] * dr                                   # force on i
+    forces = torch.zeros_like(coords)
+    forces.index_add_(0, excl_i, fi)
+    forces.index_add_(0, excl_j, -fi)
+    if needs_virial:
+        vir = -torch.einsum("k,ka,kb->ab", coef, dr, dr)
+    return forces, vir
+
+
+def _pairs(pairs, device):
+    """(i, j) index tensors of a (P, 2) pair array; empty for None."""
+    arr = np.asarray([] if pairs is None else pairs,
+                     dtype=np.int64).reshape(-1, 2)
+    return (torch.as_tensor(arr[:, 0], device=device),
+            torch.as_tensor(arr[:, 1], device=device))
+
+
+def _mesh_vectors(boundary, mesh_dims):
+    """The reciprocal mesh vectors m = sum_d m_d inv[:, d] over the wrapped
+    mesh indices m_d, (K1, K2, K3, 3) in float64 (mollytpu/ops/ewald.py:
+    572-582)."""
+    inv = boundary.reciprocal().to(torch.float64)
+    dev = inv.device
+
+    def wrapped(n):
+        m = torch.arange(n, device=dev)
+        return torch.where(m < (n + 1) // 2, m, m - n).to(torch.float64)
+
+    mx, my, mz = (wrapped(k) for k in mesh_dims)
+    return (mx[:, None, None, None] * inv[:, 0]
+            + my[None, :, None, None] * inv[:, 1]
+            + mz[None, None, :, None] * inv[:, 2])
+
+
 @dataclasses.dataclass(frozen=True)
 class PME:
     """Smooth PME reciprocal sum plus self and background corrections. Pair
     it with CoulombEwald (real space) and EwaldExclusionCorrection. With a
     ``scheduler`` the sums run over the alchemically scaled charges; the
-    exclusion correction keeps the unscaled ones, as in the JAX package."""
+    exclusion correction keeps the unscaled ones, as in the JAX package.
+
+    ``excl_i, excl_j`` (index tensors) are pairs whose reciprocal-space
+    interaction PME subtracts itself (mollytpu/ops/ewald.py:389-394); the
+    model builders leave them empty and add an EwaldExclusionCorrection."""
 
     dist_cutoff: float = 1.0
     error_tol: float = 0.0005
@@ -152,24 +234,36 @@ class PME:
     moduli_y: torch.Tensor = None
     moduli_z: torch.Tensor = None
     scheduler: object = None
+    excl_i: torch.Tensor = None
+    excl_j: torch.Tensor = None
+
+    def __post_init__(self):
+        if self.excl_i is None:
+            dev = None if self.moduli_x is None else self.moduli_x.device
+            ei, ej = _pairs(None, dev)
+            object.__setattr__(self, "excl_i", ei)
+            object.__setattr__(self, "excl_j", ej)
 
     @classmethod
     def setup(cls, boundary, dist_cutoff=1.0, error_tol=0.0005, order=5,
-              epsilon_r=1.0, dtype=torch.float32, scheduler=None,
-              mesh_dims=None, smooth_dims=True):
+              excl_pairs=None, epsilon_r=1.0, dtype=torch.float32,
+              scheduler=None, mesh_dims=None, smooth_dims=True):
+        """The mesh is sized from ``boundary.side_lengths``, the basis
+        diagonal of a triclinic box, as in the JAX package."""
         alpha = ewald_error_alpha(dist_cutoff, error_tol)
         sides = boundary.side_lengths.detach().cpu().numpy()
         if mesh_dims is None:
             mesh_dims = pme_mesh_dims(sides, alpha, error_tol,
                                       smooth=smooth_dims)
-        mods = [torch.as_tensor(m, dtype=dtype,
-                                device=boundary.side_lengths.device)
+        dev = boundary.side_lengths.device
+        mods = [torch.as_tensor(m, dtype=dtype, device=dev)
                 for m in bspline_moduli(order, mesh_dims)]
+        ei, ej = _pairs(excl_pairs, dev)
         return cls(dist_cutoff=float(dist_cutoff), error_tol=float(error_tol),
                    order=order, mesh_dims=tuple(int(x) for x in mesh_dims),
                    epsilon_r=float(epsilon_r), alpha=float(alpha),
                    moduli_x=mods[0], moduli_y=mods[1], moduli_z=mods[2],
-                   scheduler=scheduler)
+                   scheduler=scheduler, excl_i=ei, excl_j=ej)
 
     @property
     def _ke(self):
@@ -177,10 +271,13 @@ class PME:
 
     def _spread(self, coords, boundary, q):
         """Charge grid (K1, K2, K3) and the stencil cache (flat mesh index
-        (N, o, o, o), theta and dtheta (N, 3, o), 1/L (3,))."""
+        (N, o, o, o), theta and dtheta (N, 3, o), the box's inverse)."""
         K = self.mesh_dims
-        inv_l = 1.0 / boundary.side_lengths.to(coords.dtype)
-        t = coords * inv_l                                   # fractional
+        inv = boundary.reciprocal(coords.dtype)
+        # fractional coordinates x @ inv, as elementwise products: exact
+        # (no reduced-precision matmul) and, for a diagonal inverse, x / L
+        t = (coords[:, 0:1] * inv[0] + coords[:, 1:2] * inv[1]
+             + coords[:, 2:3] * inv[2])
         kk = _mesh_tensor(K, coords.dtype, coords.device)
         t = (t - torch.floor(t)) * kk
         ti = torch.floor(t)
@@ -195,26 +292,21 @@ class PME:
         grid = torch.zeros(K[0] * K[1] * K[2], dtype=coords.dtype,
                            device=coords.device)
         grid.index_add_(0, flat.reshape(-1), wxyz.reshape(-1))
-        return grid.view(K), (flat, theta, dtheta, inv_l)
+        return grid.view(K), (flat, theta, dtheta, inv)
 
     def _influence(self, boundary, dtype):
-        """k-space factor eterm(m) (without ke), m vectors, |m|^2 and the
-        Gaussian exponent factor; eterm is 0 at m = 0."""
-        K = self.mesh_dims
-        dev = boundary.side_lengths.device
-        inv_l = 1.0 / boundary.side_lengths.to(torch.float64)
+        """k-space factor eterm(m) (without ke), the m vectors and the
+        virial's coefficient 2 (1 + pi^2 |m|^2 / alpha^2) / |m|^2; eterm is
+        0 at m = 0. Computed once per box object and cached on it
+        (mollytpu/ops/ewald.py:565-591, 608-612)."""
+        key = ("pme-influence", self.mesh_dims, self.order, self.alpha,
+               self.moduli_x.dtype, dtype)
+        return _cached(boundary, key,
+                       lambda: self._make_influence(boundary, dtype))
+
+    def _make_influence(self, boundary, dtype):
         vol = boundary.volume().to(torch.float64)
-
-        def wrapped(n):
-            m = torch.arange(n, device=dev)
-            return torch.where(m < (n + 1) // 2, m, m - n).to(torch.float64)
-
-        mx = wrapped(K[0]) * inv_l[0]
-        my = wrapped(K[1]) * inv_l[1]
-        mz = wrapped(K[2]) * inv_l[2]
-        zeros = torch.zeros(K, dtype=torch.float64, device=dev)
-        mh = torch.stack([mx[:, None, None] + zeros, my[None, :, None] + zeros,
-                          mz[None, None, :] + zeros], dim=-1)
+        mh = _mesh_vectors(boundary, self.mesh_dims)
         m2 = (mh * mh).sum(dim=-1)
         bsm = (self.moduli_x.double()[:, None, None]
                * self.moduli_y.double()[None, :, None]
@@ -225,7 +317,8 @@ class PME:
         denom = m2s * bsm * (math.pi * vol)
         eterm = torch.where(nonzero, torch.exp(-factor * m2s) / denom,
                             torch.zeros_like(m2))
-        return eterm.to(dtype), mh.to(dtype), m2.to(dtype), factor
+        coeff = 2.0 * (1.0 + factor * m2) / m2s
+        return eterm.to(dtype), mh.to(dtype), coeff.to(dtype)
 
     def _recip(self, coords, boundary, q, needs_virial=False):
         """(E_recip, convolved potential grid, stencil cache, virial)."""
@@ -233,13 +326,11 @@ class PME:
         grid, cache = self._spread(coords, boundary, q)
         ke = self._ke
         cgrid = torch.fft.fftn(grid)
-        eterm, mh, m2, factor = self._influence(boundary, dtype)
+        eterm, mh, coeff = self._influence(boundary, dtype)
         ek = eterm * (cgrid.real ** 2 + cgrid.imag ** 2)
         e_recip = 0.5 * ke * torch.sum(ek)
         vir = torch.zeros((3, 3), dtype=dtype, device=coords.device)
         if needs_virial:
-            m2s = torch.where(m2 > 0, m2, torch.ones_like(m2))
-            coeff = 2.0 * (1.0 + factor * m2) / m2s
             mm = torch.einsum("xyz,xyza,xyzb->ab", 0.5 * ke * ek * coeff,
                               mh, mh)
             vir = e_recip * torch.eye(3, dtype=dtype,
@@ -253,11 +344,13 @@ class PME:
         e_recip, _, _, _ = self._recip(coords, boundary, q)
         e_self, e_charge = _corrections(q, self.alpha, boundary.volume(),
                                         self._ke)
-        return e_recip + e_self + e_charge
+        e_excl = _exclusion_energy(q, coords, boundary, self.alpha, self._ke,
+                                   self.excl_i, self.excl_j)
+        return e_recip + e_self + e_charge + e_excl
 
     def force_virial(self, coords, boundary, atoms, needs_virial=False):
         q = _effective_charges(atoms, self.scheduler, coords.dtype)
-        _, phi, (flat, theta, dtheta, inv_l), vir = self._recip(
+        _, phi, (flat, theta, dtheta, inv), vir = self._recip(
             coords, boundary, q, needs_virial)
         ph = phi.reshape(-1)[flat]                          # (N, o, o, o)
         tx, ty, tz = theta.unbind(dim=1)
@@ -267,14 +360,21 @@ class PME:
             torch.einsum("nxyz,nx,ny,nz->n", ph, dx, ty, tz) * K[0],
             torch.einsum("nxyz,nx,ny,nz->n", ph, tx, dy, tz) * K[1],
             torch.einsum("nxyz,nx,ny,nz->n", ph, tx, ty, dz) * K[2]], dim=-1)
-        # chain rule through fractional coordinates u = x / L
-        forces = -(du * q[:, None] * self._ke) * inv_l
+        # chain rule through the fractional coordinates u = x @ inv:
+        # dE/dx = dE/du @ inv.T, as elementwise products
+        du = du * q[:, None] * self._ke
+        forces = -(du[:, 0:1] * inv[:, 0] + du[:, 1:2] * inv[:, 1]
+                   + du[:, 2:3] * inv[:, 2])
+        f_ex, v_ex = _exclusion_force_virial(
+            q, coords, boundary, self.alpha, self._ke, self.excl_i,
+            self.excl_j, needs_virial)
+        forces = forces + f_ex
         if needs_virial:
             # background term E ~ 1/V gives W = E I
             _, e_charge = _corrections(q, self.alpha, boundary.volume(),
                                        self._ke)
-            vir = vir + e_charge * torch.eye(3, dtype=coords.dtype,
-                                             device=coords.device)
+            vir = vir + v_ex + e_charge * torch.eye(
+                3, dtype=coords.dtype, device=coords.device)
         return forces, vir
 
 
@@ -296,32 +396,77 @@ class EwaldExclusionCorrection:
                    pair_j=torch.as_tensor(arr[:, 1], device=device),
                    alpha=float(alpha), coulomb_const=float(ke))
 
-    def _geometry(self, coords, boundary, atoms):
-        dr = boundary.displacement(coords[self.pair_i],
-                                   coords[self.pair_j])      # x_j - x_i
-        r2 = (dr * dr).sum(dim=1)
-        r = torch.sqrt(r2 + 1e-24)
-        q = atoms.charge.to(coords.dtype)
-        return dr, r2, r, q[self.pair_i] * q[self.pair_j]
-
     def energy(self, coords, boundary, atoms):
-        _, _, r, qq = self._geometry(coords, boundary, atoms)
-        return -self.coulomb_const * torch.sum(
-            qq * torch.erf(self.alpha * r) / r)
+        return _exclusion_energy(atoms.charge.to(coords.dtype), coords,
+                                 boundary, self.alpha, self.coulomb_const,
+                                 self.pair_i, self.pair_j)
 
     def force_virial(self, coords, boundary, atoms, needs_virial=False):
-        dr, r2, r, qq = self._geometry(coords, boundary, atoms)
-        ke, a = self.coulomb_const, self.alpha
-        # dU/dr = -ke qq (2a/sqrt(pi) exp(-a^2 r^2)/r - erf(ar)/r^2)
-        dudr = -ke * qq * (2.0 * a / math.sqrt(math.pi)
-                           * torch.exp(-(a * r) ** 2) / r
-                           - torch.erf(a * r) / r2)
-        coef = dudr / r
-        fi = coef[:, None] * dr                               # force on i
-        forces = torch.zeros_like(coords)
-        forces.index_add_(0, self.pair_i, fi)
-        forces.index_add_(0, self.pair_j, -fi)
-        vir = (-torch.einsum("k,ka,kb->ab", coef, dr, dr) if needs_virial
-               else torch.zeros((3, 3), dtype=coords.dtype,
-                                device=coords.device))
-        return forces, vir
+        return _exclusion_force_virial(
+            atoms.charge.to(coords.dtype), coords, boundary, self.alpha,
+            self.coulomb_const, self.pair_i, self.pair_j, needs_virial)
+
+
+def ewald_exclusion_list(excl_pairs, charges, alpha, ke=COULOMB_CONST,
+                         dtype=torch.float32, device=None):
+    """A SpecificList of -ke q_i q_j erf(alpha r) / r terms over the pairs
+    removed from an Ewald or PME sum, with k q_i q_j taken from the
+    charges at setup (mollytpu/ops/ewald.py:296-310)."""
+    arr = np.asarray(excl_pairs, dtype=np.int64).reshape(-1, 2)
+    q = np.asarray(charges.detach().cpu() if isinstance(charges, torch.Tensor)
+                   else charges, dtype=np.float64)
+    kqq = ke * q[arr[:, 0]] * q[arr[:, 1]]
+    return ewald_exclusions(arr[:, 0], arr[:, 1], kqq,
+                            np.full(arr.shape[0], float(alpha)),
+                            dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ewald(GeneralInteraction):
+    """The reference Ewald reciprocal sum over the k-space cube |k_d| <=
+    kmax, with the self, background and exclusion corrections
+    (mollytpu/ops/ewald.py:313-366): the correctness oracle for PME in an
+    orthorhombic box. Forces and the virial come from autograd of the
+    energy (GeneralInteraction). Pair it with CoulombEwald."""
+
+    dist_cutoff: float = 1.0
+    error_tol: float = 0.0005
+    kmax: int = 12
+    coulomb_const: float = COULOMB_CONST
+    alpha: float = None
+    excl_i: torch.Tensor = None
+    excl_j: torch.Tensor = None
+    scheduler: object = None
+
+    def __post_init__(self):
+        if self.alpha is None:
+            object.__setattr__(self, "alpha", ewald_error_alpha(
+                self.dist_cutoff, self.error_tol))
+        if self.excl_i is None:
+            ei, ej = _pairs(None, None)
+            object.__setattr__(self, "excl_i", ei)
+            object.__setattr__(self, "excl_j", ej)
+
+    def energy(self, coords, boundary, atoms):
+        ke, alpha, km = self.coulomb_const, self.alpha, self.kmax
+        q = _effective_charges(atoms, self.scheduler, coords.dtype)
+        vol = boundary.volume()
+        ints = torch.arange(-km, km + 1, device=coords.device)
+        kvec = torch.stack(torch.meshgrid(ints, ints, ints, indexing="ij"),
+                           dim=-1).reshape(-1, 3).to(coords.dtype)
+        nonzero = torch.any(kvec != 0, dim=1)
+        kfac = 2.0 * math.pi * kvec / boundary.side_lengths[None, :]
+        k2 = (kfac * kfac).sum(dim=-1)
+        k2s = torch.where(nonzero, k2, torch.ones_like(k2))
+        phases = coords @ kfac.T                                  # (N, K)
+        s_re = torch.sum(q[:, None] * torch.cos(phases), dim=0)
+        s_im = torch.sum(q[:, None] * torch.sin(phases), dim=0)
+        terms = torch.where(
+            nonzero, torch.exp(-k2s / (4.0 * alpha ** 2)) / k2s
+            * (s_re ** 2 + s_im ** 2), torch.zeros_like(k2))
+        e_recip = ke * 2.0 * math.pi / vol * torch.sum(terms)
+        e_self, e_charge = _corrections(q, alpha, vol, ke)
+        e_excl = _exclusion_energy(q, coords, boundary, alpha, ke,
+                                   self.excl_i.to(coords.device),
+                                   self.excl_j.to(coords.device))
+        return e_recip + e_self + e_charge + e_excl

@@ -1,7 +1,9 @@
-"""Integrators: Langevin (BAOA middle scheme), velocity Verlet and the
-multiple-time-step MTSIntegrator (rRESPA) and MTSLangevinIntegrator
-(BAOAB-RESPA), with thermostat and barostat coupling (counterpart of
-mollytpu/sim/integrators.py:47-142, 205-242, 408-605).
+"""Integrators: velocity Verlet, leapfrog Verlet, Stormer-Verlet, Langevin
+(BAOA middle scheme), Langevin of any A/B/O splitting, overdamped
+Langevin, Nose-Hoover, DPD velocity Verlet and the multiple-time-step
+MTSIntegrator (rRESPA) and MTSLangevinIntegrator (BAOAB-RESPA), with
+thermostat and barostat coupling (counterpart of
+mollytpu/sim/integrators.py).
 
 Contract as in the JAX package:
 
@@ -10,9 +12,13 @@ Contract as in the JAX package:
     step(sys, neighbors, aux, step_n, generator, needs_virial, draws)
         -> (sys, aux)
 
-Every step ends in ``_finish_step``: centre-of-mass motion removal, then
-the couplers, then a recompute of the forces, and of the virial where it
-is due, if a coupler moved coordinates or the box. The host knows step_n,
+A stochastic step takes its standard-normal draws from ``generator``, or
+from ``noise`` where the caller injects them (the tests feed the JAX
+package's draws): an (N, 3) tensor for Langevin and OverdampedLangevin, a
+sequence of one per O for LangevinSplitting. Every step but
+Stormer-Verlet's ends in ``_finish_step``: centre-of-mass motion removal,
+then the couplers, then a recompute of the forces, and of the virial where
+it is due, if a coupler moved coordinates or the box. The host knows step_n,
 so the recompute runs only on the steps where such a coupler acted (the
 JAX package recomputes after every step when any coupler could move them;
 the forces are the same). ``needs_virial`` is the
@@ -29,7 +35,8 @@ import math
 import torch
 
 from ..forces import forces_virial
-from ..spatial import kinetic_energy_tensor, remove_cm_motion
+from ..spatial import (kinetic_energy, kinetic_energy_tensor,
+                       remove_cm_motion)
 from ..units import KB
 from .coupling import apply_couplers, forces_invalidated_at
 
@@ -60,14 +67,34 @@ def _recompute(sys, neighbors, step_n, needs_virial):
     return {"forces": f, "virial": v}
 
 
+def _normal(like, generator):
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+
+
+def _masked_noise(m, sigma, noise):
+    """sigma_i * noise_i on atoms of positive mass, 0 elsewhere."""
+    return torch.where((m > 0)[:, None], sigma[:, None] * noise,
+                       torch.zeros_like(noise))
+
+
+def _safe_masses(m):
+    return torch.where(m > 0, m, torch.ones_like(m))
+
+
 class _IntegratorBase:
 
     def init_aux(self, sys, neighbors, needs_virial=False):
         aux = _recompute(sys, neighbors, 0, needs_virial)
+        aux.update(self.extra_state(sys))
         for c in self.coupling:
             if hasattr(c, "init_state"):
                 aux["mc_baro"] = c.init_state(sys)
         return aux
+
+    def extra_state(self, sys):
+        """The integrator's own state in aux beyond forces and virial."""
+        return {}
 
     def _finish_step(self, sys, neighbors, aux, step_n, generator,
                      needs_virial, kinetic_tensor=None, draws=None):
@@ -117,6 +144,58 @@ class VelocityVerlet(_IntegratorBase):
                  else None)
         return self._finish_step(sys, neighbors, aux, step_n, generator,
                                  needs_virial, kin_t, draws)
+
+
+@dataclasses.dataclass(frozen=True)
+class Verlet(_IntegratorBase):
+    """Leapfrog Verlet: v(t + dt/2) from a(t), then the drift; velocities
+    are offset by half a step (mollytpu/sim/integrators.py:146-170)."""
+
+    dt: float
+    coupling: tuple = ()
+    remove_cm: bool = True
+
+    def step(self, sys, neighbors, aux, step_n, generator=None,
+             needs_virial=False, draws=None):
+        dt = self.dt
+        vels = sys.velocities + dt * _accels(sys.masses, aux["forces"])
+        vels = _apply_velocity_constraints(sys, sys.coords, vels)
+        coords_prev = sys.coords
+        coords, vels = _apply_position_constraints(
+            sys, coords_prev, sys.coords + dt * vels, vels, dt)
+        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
+        return self._finish_step(sys, neighbors, aux, step_n, generator,
+                                 needs_virial, draws=draws)
+
+
+@dataclasses.dataclass(frozen=True)
+class StormerVerlet(_IntegratorBase):
+    """Position Verlet x(t + dt) = 2 x(t) - x(t - dt) + a dt^2, with
+    x(t - dt) in aux["coords_prev"] and O(dt) velocities; no couplers and
+    no centre-of-mass removal (mollytpu/sim/integrators.py:173-202)."""
+
+    dt: float
+    coupling: tuple = ()
+    remove_cm: bool = False
+
+    def extra_state(self, sys):
+        return {"coords_prev": sys.coords - sys.velocities * self.dt}
+
+    def step(self, sys, neighbors, aux, step_n, generator=None,
+             needs_virial=False, draws=None):
+        dt = self.dt
+        a_t = _accels(sys.masses, aux["forces"])
+        disp_prev = sys.boundary.displacement(aux["coords_prev"], sys.coords)
+        vels = (disp_prev + a_t * dt * dt) / dt
+        coords_prev = sys.coords
+        coords, vels = _apply_position_constraints(
+            sys, coords_prev, sys.coords + disp_prev + a_t * dt * dt, vels,
+            dt)
+        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        aux = {**aux, "coords_prev": coords_prev,
+               **_recompute(sys, neighbors, step_n, needs_virial)}
+        return sys, aux
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,16 +251,11 @@ class Langevin(_IntegratorBase):
         coords = sys.coords + 0.5 * dt * vels
         # O: Ornstein-Uhlenbeck
         c1 = math.exp(-self.friction * dt)
-        positive = m > 0
-        safe_m = torch.where(positive, m, torch.ones_like(m))
-        sigma = torch.sqrt(KB * self.temperature / safe_m) * math.sqrt(
-            1.0 - c1 ** 2)
+        sigma = torch.sqrt(KB * self.temperature / _safe_masses(m)) * \
+            math.sqrt(1.0 - c1 ** 2)
         if noise is None:
-            noise = torch.randn(vels.shape, generator=generator,
-                                dtype=vels.dtype, device=vels.device)
-        vels = c1 * vels + torch.where(positive[:, None],
-                                       sigma[:, None] * noise,
-                                       torch.zeros_like(vels))
+            noise = _normal(vels, generator)
+        vels = c1 * vels + _masked_noise(m, sigma, noise)
         vels = _apply_velocity_constraints(sys, coords, vels)
         # A: half drift
         coords = coords + 0.5 * dt * vels
@@ -189,6 +263,130 @@ class Langevin(_IntegratorBase):
                                                    vels, dt)
         sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
         aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
+        return self._finish_step(sys, neighbors, aux, step_n, generator,
+                                 needs_virial, draws=draws)
+
+
+@dataclasses.dataclass(frozen=True)
+class LangevinSplitting(_IntegratorBase):
+    """Langevin of any A/B/O splitting, e.g. "BAOAB"; a letter that repeats
+    divides the step among its occurrences. The forces are recomputed, and
+    the position constraints applied from the step's start, at the last A
+    only; each O draws its own noise, in order
+    (mollytpu/sim/integrators.py:246-302)."""
+
+    dt: float
+    temperature: float
+    friction: float
+    splitting: str = "BAOAB"
+    coupling: tuple = ()
+    remove_cm: bool = True
+
+    def step(self, sys, neighbors, aux, step_n, generator=None, noise=None,
+             needs_virial=False, draws=None):
+        """``noise`` is an optional sequence of (N, 3) standard-normal
+        tensors, one per O in the order they run."""
+        s = self.splitting.upper()
+        n_a, n_b, n_o = (s.count(ch) or 1 for ch in "ABO")
+        dt, m = self.dt, sys.masses
+        c1 = math.exp(-self.friction * dt / n_o)
+        sigma = torch.sqrt(KB * self.temperature / _safe_masses(m)) * \
+            math.sqrt(1.0 - c1 ** 2)
+        draws_left = iter(noise) if noise is not None else None
+        coords, vels = sys.coords, sys.velocities
+        coords_prev = coords
+        a_cur = _accels(m, aux["forces"])
+        last_a = s.rfind("A")
+        for i, ch in enumerate(s):
+            if ch == "A":
+                coords = coords + (dt / n_a) * vels
+                if i == last_a:
+                    coords, vels = _apply_position_constraints(
+                        sys, coords_prev, coords, vels, dt)
+                    new = _recompute(
+                        sys.update(coords=sys.boundary.wrap(coords)),
+                        neighbors, step_n, needs_virial)
+                    aux = {**aux, **new}
+                    a_cur = _accels(m, new["forces"])
+            elif ch == "B":
+                vels = vels + (dt / n_b) * a_cur
+            elif ch == "O":
+                z = next(draws_left) if draws_left else _normal(vels,
+                                                                generator)
+                vels = c1 * vels + _masked_noise(m, sigma, z)
+        vels = _apply_velocity_constraints(sys, coords, vels)
+        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        return self._finish_step(sys, neighbors, aux, step_n, generator,
+                                 needs_virial, draws=draws)
+
+
+@dataclasses.dataclass(frozen=True)
+class OverdampedLangevin(_IntegratorBase):
+    """Euler-Maruyama Brownian dynamics, friction in 1/ps
+    (mollytpu/sim/integrators.py:305-335)."""
+
+    dt: float
+    temperature: float
+    friction: float
+    coupling: tuple = ()
+    remove_cm: bool = True
+
+    def step(self, sys, neighbors, aux, step_n, generator=None, noise=None,
+             needs_virial=False, draws=None):
+        """``noise`` is an optional (N, 3) standard-normal tensor."""
+        dt, m = self.dt, sys.masses
+        if noise is None:
+            noise = _normal(sys.coords, generator)
+        sigma = torch.sqrt(2.0 * KB * self.temperature * dt
+                           / (self.friction * _safe_masses(m)))
+        coords_prev = sys.coords
+        coords = (sys.coords + _accels(m, aux["forces"]) * dt / self.friction
+                  + _masked_noise(m, sigma, noise))
+        coords, vels = _apply_position_constraints(
+            sys, coords_prev, coords, sys.velocities, dt)
+        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
+        return self._finish_step(sys, neighbors, aux, step_n, generator,
+                                 needs_virial, draws=draws)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoseHoover(_IntegratorBase):
+    """Single-chain Nose-Hoover thermostat on velocity Verlet, damping
+    tau_T in ps; the friction zeta lives in aux["nh_zeta"]
+    (mollytpu/sim/integrators.py:338-378). The step evaluates the forces
+    once, at the new positions; the next step reuses them."""
+
+    dt: float
+    temperature: float
+    damping: float = 0.1
+    coupling: tuple = ()
+    remove_cm: bool = True
+
+    def extra_state(self, sys):
+        return {"nh_zeta": torch.zeros((), dtype=sys.coords.dtype,
+                                       device=sys.device)}
+
+    def step(self, sys, neighbors, aux, step_n, generator=None,
+             needs_virial=False, draws=None):
+        dt, m = self.dt, sys.masses
+        zeta = aux["nh_zeta"]
+        vels = sys.velocities + 0.5 * dt * (_accels(m, aux["forces"])
+                                            - zeta * sys.velocities)
+        vels = _apply_velocity_constraints(sys, sys.coords, vels)
+        coords_prev = sys.coords
+        coords, vels = _apply_position_constraints(
+            sys, coords_prev, sys.coords + dt * vels, vels, dt)
+        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        ke = kinetic_energy(m, vels)
+        ke_target = 0.5 * (sys.n_dof + 1) * KB * self.temperature
+        zeta = zeta + dt * (ke - ke_target) / (ke_target * self.damping ** 2)
+        aux = {**aux, "nh_zeta": zeta,
+               **_recompute(sys, neighbors, step_n, needs_virial)}
+        vels = (vels + 0.5 * dt * _accels(m, aux["forces"])) / (
+            1.0 + 0.5 * dt * zeta)
+        sys = sys.update(velocities=_apply_velocity_constraints(
+            sys, sys.coords, vels))
         return self._finish_step(sys, neighbors, aux, step_n, generator,
                                  needs_virial, draws=draws)
 
@@ -340,19 +538,14 @@ class MTSLangevinIntegrator(MTSIntegrator):
 
     def _coord_update(self, sys, coords, vels, dt_x, noise, generator):
         m = sys.masses
-        positive = m > 0
-        safe_m = torch.where(positive, m, torch.ones_like(m))
         coords_prev = coords
         coords = coords + 0.5 * dt_x * vels
         c1 = math.exp(-self.friction * dt_x)
-        sigma = torch.sqrt(KB * self.temperature / safe_m) * math.sqrt(
-            1.0 - c1 ** 2)
+        sigma = torch.sqrt(KB * self.temperature / _safe_masses(m)) * \
+            math.sqrt(1.0 - c1 ** 2)
         if noise is None:
-            noise = torch.randn(vels.shape, generator=generator,
-                                dtype=vels.dtype, device=vels.device)
-        vels = c1 * vels + torch.where(positive[:, None],
-                                       sigma[:, None] * noise,
-                                       torch.zeros_like(vels))
+            noise = _normal(vels, generator)
+        vels = c1 * vels + _masked_noise(m, sigma, noise)
         coords = coords + 0.5 * dt_x * vels
         coords, vels = _apply_position_constraints(sys, coords_prev, coords,
                                                    vels, dt_x)

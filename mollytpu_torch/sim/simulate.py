@@ -1,4 +1,4 @@
-"""The simulation loop (counterpart of mollytpu/sim/simulate.py:43-256).
+"""The simulation loop (counterpart of mollytpu/sim/simulate.py:27-266).
 
 A chunk of n steps runs as the JAX package schedules its scan: steps up to
 the next rebuild boundary, then periods of r = finder.n_steps steps each
@@ -19,17 +19,29 @@ rebuilds moves atoms by up to (mu - 1) L / 2, which the skin must absorb;
 the same check proves it did.
 
 The virial is computed on the steps whose pressure a coupler reads
-(coupling.virial_due). Under a barostat, ``npt_resetup`` sets the neighbor
-finder up again between chunks once the box has drifted beyond its band.
+(coupling.virial_due), and on those whose end a logger with a
+``needs_virial_interval`` records. Under a barostat, ``npt_resetup`` sets
+the neighbor finder up again between chunks once the box has drifted
+beyond its band.
+
+``simulate`` runs in chunks that end on every logger's interval
+(``_chunk_sizes``) and records the loggers between them, one host read
+per record.
 """
 
 from __future__ import annotations
 
+import math
+import sys as _sys
+import time
+
 import torch
 
+from ..forces import forces_virial
 from ..ops.blockpairs import unlisted_min_distance
 from ..ops.neighbors import Neighbors, find_neighbors
 from ..ops.pairwise import interaction_cutoff
+from ..spatial import remove_cm_motion
 from .coupling import virial_due
 
 
@@ -108,13 +120,16 @@ def raise_if_stale(closest, cutoff):
 
 
 def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
-              noise=None, draws=None):
+              noise=None, draws=None, virial_at=None):
     """Advance n steps from step number step0 (outer steps of an MTS
     integrator, which the rebuild cadence counts). ``noise`` is an optional
     callable step_n -> the step's standard-normal draws that replace the
-    generator's: an (N, 3) tensor for Langevin, a sequence of one per
-    innermost substep for MTSLangevinIntegrator; ``draws`` one step_n ->
-    per-coupler draws (coupling.py) for the couplers'. Returns (sys,
+    generator's: an (N, 3) tensor for Langevin and OverdampedLangevin, a
+    sequence of one per O for LangevinSplitting, one per innermost
+    substep for MTSLangevinIntegrator; ``draws`` one step_n ->
+    per-coupler draws (coupling.py) for the couplers'. ``virial_at`` is an
+    optional callable step_n -> whether the step computes the virial
+    (coupling.virial_due by default). Returns (sys,
     neighbors, aux, closest distance in nm at the checked evaluations: of
     an unlisted atom pair on a cluster-pair list, of a pair missing
     inside the cutoff (inf: none) on a neighbor table). Raises
@@ -126,6 +141,9 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
                          device=sys.device)
 
     couplers = getattr(simulator, "coupling", ())
+    if virial_at is None:
+        def virial_at(step_n):
+            return virial_due(couplers, step_n)
     table = isinstance(neighbors, Neighbors)
     overflow = neighbors.overflow if table else None
 
@@ -138,7 +156,7 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
                 injected["draws"] = draws(step_n)
             sys, aux = simulator.step(
                 sys, neighbors, aux, step_n, generator=generator,
-                needs_virial=virial_due(couplers, step_n), **injected)
+                needs_virial=virial_at(step_n), **injected)
         return sys, aux
 
     def check(sys, new=None):
@@ -199,20 +217,121 @@ def npt_resetup(simulator, sys, neighbors, step_n):
                                sys.exclusions, step_n)
 
 
+def _chunk_sizes(n_steps, intervals):
+    """Chunk lengths of the gcd of the logger intervals, so that every
+    interval's boundary ends a chunk (mollytpu/sim/simulate.py:27-41)."""
+    if not intervals:
+        return [n_steps] if n_steps else []
+    g = 0
+    for iv in intervals:
+        g = math.gcd(g, iv)
+    return [min(g, n_steps - done) for done in range(0, n_steps, g)]
+
+
+def _host(value):
+    """A logged value on the host: tensors moved to the CPU, tuples and
+    lists element by element."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    if isinstance(value, (tuple, list)):
+        return type(value)(_host(v) for v in value)
+    return value
+
+
+def _stack(values):
+    """One logger's records stacked along a new first axis (a tuple of
+    stacks for tuple records); left a list where they do not stack."""
+    if not values:
+        return values
+    if isinstance(values[0], tuple):
+        return tuple(_stack(list(v)) for v in zip(*values))
+    try:
+        return torch.stack([torch.as_tensor(v) for v in values])
+    except (TypeError, RuntimeError, ValueError):
+        return values
+
+
 def simulate(sys, simulator, n_steps, generator=None, neighbors=None,
-             aux=None, init_step=0, noise=None, draws=None):
-    """Run n_steps of MD as one chunk, then the barostat's re-setup
-    (npt_resetup). Returns (sys, neighbors, aux) so that a later call with
-    init_step advanced continues the same trajectory."""
+             aux=None, init_step=0, noise=None, draws=None, loggers=None,
+             run_loggers=True, check_nans=False, shortcut=None,
+             show_progress=False):
+    """Run n_steps of MD from step init_step (mollytpu/sim/simulate.py:
+    134-266). A fresh run (init_step 0) first removes the centre-of-mass
+    motion when the simulator's ``remove_cm`` is set. Without loggers the
+    steps run as one chunk, with loggers in chunks of the gcd of their
+    intervals, each followed by the barostat's re-setup (npt_resetup).
+
+    loggers: name -> logger (utils.loggers, utils.trajectory); each
+    records at init_step and at the end of every chunk whose step is a
+    multiple of its interval. run_loggers: True, False (record nothing)
+    or "skipstart" (no record at step 0). check_nans raises
+    FloatingPointError on NaN coordinates after a chunk; shortcut, a
+    callable (sys, neighbors, step_n) -> bool, ends the run at a chunk's
+    end when it returns True; show_progress prints the step and ns/day to
+    stderr after each chunk.
+
+    Returns (sys, neighbors, aux), so that a later call with init_step
+    advanced continues the same trajectory; with ``loggers`` given,
+    (sys, neighbors, aux, logs), logs mapping each name to its records
+    stacked along a new first axis (on the CPU)."""
+    if init_step == 0 and getattr(simulator, "remove_cm", False):
+        sys = sys.update(velocities=remove_cm_motion(sys.masses,
+                                                     sys.velocities))
+    named = dict(loggers or {})
+    couplers = getattr(simulator, "coupling", ())
+    virial_every = [int(lg.needs_virial_interval) for lg in named.values()
+                    if getattr(lg, "needs_virial_interval", 0)]
+
+    def virial_at(step_n):
+        # a logger records the state at the end of step step_n
+        return virial_due(couplers, step_n) or any(
+            (step_n + 1) % iv == 0 for iv in virial_every)
+
     if neighbors is None:
         neighbors = find_neighbors(sys.neighbor_finder, sys.coords,
                                    sys.boundary, sys.exclusions, init_step)
     if aux is None:
-        aux = simulator.init_aux(sys, neighbors)
-    sys, neighbors, aux, _ = run_chunk(simulator, sys, neighbors, aux,
-                                       init_step, n_steps,
-                                       generator=generator, noise=noise,
-                                       draws=draws)
-    sys, neighbors = npt_resetup(simulator, sys, neighbors,
-                                 init_step + n_steps)
-    return sys, neighbors, aux
+        aux = simulator.init_aux(sys, neighbors,
+                                 needs_virial=bool(virial_every))
+    elif run_loggers and any(init_step % iv == 0 for iv in virial_every):
+        # a continued run's aux holds the virial only where it was due
+        aux = {**aux, "virial": forces_virial(sys, neighbors, init_step,
+                                              needs_virial=True)[1]}
+    logs = {name: [] for name in named}
+
+    def record(step_n):
+        if not run_loggers or (step_n == 0 and run_loggers == "skipstart"):
+            return
+        for name, lg in named.items():
+            if step_n % max(int(lg.interval), 1) == 0:
+                logs[name].append(_host(lg.observe(sys, neighbors, aux,
+                                                   step_n)))
+
+    record(init_step)
+    step_n = init_step
+    t_prog = time.perf_counter()
+    for n in _chunk_sizes(n_steps, [max(int(lg.interval), 1)
+                                    for lg in named.values()]):
+        sys, neighbors, aux, _ = run_chunk(
+            simulator, sys, neighbors, aux, step_n, n, generator=generator,
+            noise=noise, draws=draws, virial_at=virial_at)
+        step_n += n
+        if check_nans and bool(torch.isnan(sys.coords).any()):
+            raise FloatingPointError(f"NaN coordinates at step {step_n}")
+        sys, neighbors = npt_resetup(simulator, sys, neighbors, step_n)
+        if show_progress:
+            now = time.perf_counter()
+            dt_ps = getattr(simulator, "dt", 0.0)
+            rate = n * dt_ps * 1e-3 * 86400.0 / max(now - t_prog, 1e-9)
+            t_prog = now
+            print(f"\rstep {step_n - init_step}/{n_steps}"
+                  + (f"  {rate:.1f} ns/day" if dt_ps else ""), end="",
+                  file=_sys.stderr, flush=True)
+        record(step_n)
+        if shortcut is not None and shortcut(sys, neighbors, step_n):
+            break
+    if show_progress:
+        print(file=_sys.stderr, flush=True)
+    if loggers is None:
+        return sys, neighbors, aux
+    return sys, neighbors, aux, {k: _stack(v) for k, v in logs.items()}

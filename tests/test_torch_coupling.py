@@ -32,6 +32,7 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_coupler_draws,
                           jax_dense_rf_system, jax_step_draws, max_rel, np64,
                           port_neighbors)
+from torch_parity import jax_fresh_start
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -185,7 +186,7 @@ def test_velocity_verlet_with_thermostat_matches_jax(start, name):
     key = jax.random.PRNGKey(11)
     chunk = _make_chunk_fn(sim_j, False, None)
     out_j = jax.jit(lambda s, k: chunk(s, None, sim_j.init_aux(s, None), k,
-                                       0, n=n_steps)[0])(js, key)
+                                       0, n=n_steps)[0])(jax_fresh_start(js, sim_j), key)
     _, draws = jax_step_draws(key, n_steps, js.n_atoms, js.n_dof,
                               sim_j.coupling)
     out_p, nb, _ = pt.simulate(ps, sim_p, n_steps,

@@ -37,6 +37,7 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_neighbors,
                           jax_system, max_rel, np64, port_neighbors,
                           port_system)
+from torch_parity import jax_fresh_start
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -253,7 +254,8 @@ def test_trajectory_at_lambda_075_matches_jax(fep):
     key = jax.random.PRNGKey(11)
     run = jax.jit(partial(_make_chunk_fn(sim_j, False, js.neighbor_finder,
                                          align=0), n=n_steps))
-    out_j, _, _, _ = run(js, nbs, sim_j.init_aux(js, nbs), key, 0)
+    out_j, _, _, _ = run(jax_fresh_start(js, sim_j), nbs,
+                         sim_j.init_aux(js, nbs), key, 0)
     noise = _noise_sequence(key, n_steps, (js.n_atoms, 3))
     sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
     out, nb, _ = pt.simulate(ps, sim, n_steps,

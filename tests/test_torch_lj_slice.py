@@ -38,8 +38,8 @@ from mollytpu.sim.simulate import _make_chunk_fn
 import mollytpu_torch as pt
 from mollytpu_torch.models import ljbench
 from torch_parity import (CPU, box_path, jax_forces_virial,  # noqa: F401
-                          jax_potential_energy, jax_xi, np64,
-                          one_torch_thread)
+                          jax_fresh_start, jax_potential_energy, jax_xi,
+                          np64, one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -185,7 +185,7 @@ def dpd_jax_run():
                              js.exclusions, 0)
     run = jax.jit(partial(_make_chunk_fn(sim, False, js.neighbor_finder,
                                          align=0), n=20))
-    out, _, _, _ = run(js, nbs, sim.init_aux(js, nbs),
+    out, _, _, _ = run(jax_fresh_start(js, sim), nbs, sim.init_aux(js, nbs),
                        jax.random.PRNGKey(0), 0)
     return np64(out.coords), np64(out.velocities)
 

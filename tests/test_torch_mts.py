@@ -28,6 +28,7 @@ from mollytpu_torch.sim import integrators
 from torch_parity import (CPU, LIST_RADIUS, jax_neighbors,
                           jax_noise_sequence, jax_system, np64,
                           port_neighbors, seeded_velocities)
+from torch_parity import jax_fresh_start
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -60,7 +61,8 @@ def test_mts_langevin_matches_jax(start):
     key = jax.random.PRNGKey(5)
     run = jax.jit(partial(_make_chunk_fn(sim_j, False, js.neighbor_finder,
                                          align=0), n=N_OUTER))
-    out_j, _, aux_j, _ = run(js, nbs, sim_j.init_aux(js, nbs), key, 0)
+    out_j, _, aux_j, _ = run(jax_fresh_start(js, sim_j), nbs,
+                             sim_j.init_aux(js, nbs), key, 0)
 
     noise = jax_noise_sequence(key, N_OUTER, (js.n_atoms, 3), n_sub=4)
     out_p, nb, aux_p = pt.simulate(ps, sim_p, N_OUTER,

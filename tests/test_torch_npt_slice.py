@@ -48,6 +48,7 @@ from test_torch_k1b import CASES, EXACT, LIST, POLY, _box, _inters, _system
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_dense_rf_system,
                           jax_find_neighbors, jax_step_draws, max_rel, np64,
                           port_neighbors, port_system)
+from torch_parity import jax_fresh_start
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -247,7 +248,8 @@ def test_coupled_langevin_trajectory_matches_jax(start, kind):
     key = jax.random.PRNGKey(7)
     chunk = _make_chunk_fn(sim_j, kind == "crescale", None)
     out_j, _, aux_j, _ = jax.jit(lambda s, k: chunk(
-        s, None, sim_j.init_aux(s, None), k, 0, n=N_STEPS))(js, key)
+        s, None, sim_j.init_aux(s, None), k, 0, n=N_STEPS))(
+        jax_fresh_start(js, sim_j), key)
     noise, draws = jax_step_draws(key, N_STEPS, js.n_atoms, js.n_dof,
                                   sim_j.coupling)
     out_p, nb, aux_p = pt.simulate(ps, sim_p, N_STEPS,

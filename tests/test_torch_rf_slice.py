@@ -27,6 +27,7 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_forces_virial,
                           jax_neighbors, jax_potential_energy, jax_system,
                           max_rel, np64, port_neighbors, port_system)
+from torch_parity import jax_fresh_start
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -80,7 +81,8 @@ def test_rf_chunked_steps_with_rebuilds_match(start):
     key = jax.random.PRNGKey(7)
     run = jax.jit(partial(_make_chunk_fn(sim_j, False, js.neighbor_finder,
                                          align=0), n=N_STEPS))
-    out_j, _, _, _ = run(js, nbs, sim_j.init_aux(js, nbs), key, 0)
+    out_j, _, _, _ = run(jax_fresh_start(js, sim_j), nbs,
+                         sim_j.init_aux(js, nbs), key, 0)
 
     noise = []
     for _ in range(N_STEPS):

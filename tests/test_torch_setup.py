@@ -5,9 +5,11 @@ numpy in both packages, so everything must match exactly (integers) or to
 
 import numpy as np
 import pytest
+import torch
 
 import mollytpu_torch as pt
 from mollytpu_torch.bridge import pairs_from_bitmap
+from mollytpu_torch.ops.ewald import pme_mesh_dims
 from torch_parity import (CPU, PME_BOXES, box_path, jax_system, np64,
                           port_system)
 from torch_parity import one_torch_thread  # noqa: F401
@@ -158,9 +160,23 @@ def test_rf_system_matches_jax(rf_systems):
     assert ps.n_dof == js.n_dof
 
 
-def test_triclinic_pme_raises():
-    with pytest.raises(NotImplementedError, match="PME mesh"):
-        pt.system_from_pdb(box_path("dodeca64"), pt.ForceField(pt.TIP3P_XML),
+def test_triclinic_pme_raises(tmp_path):
+    """PME in a triclinic box builds (its mesh sized from the basis
+    diagonal, as the JAX package sizes it); PME still raises where the PDB
+    gives no periodic box."""
+    ps = pt.system_from_pdb(box_path("dodeca64"), pt.ForceField(pt.TIP3P_XML),
+                            nonbonded_method="pme", device=CPU,
+                            constraints="hbonds", rigid_water=True)
+    pme = ps.general_inters[0]
+    assert isinstance(ps.boundary, pt.Triclinic) and isinstance(pme, pt.PME)
+    assert pme.mesh_dims == pme_mesh_dims(
+        torch.diagonal(ps.boundary.basis).numpy(), pme.alpha, pme.error_tol)
+    with open(box_path("dodeca64")) as f:
+        lines = [ln for ln in f if not ln.startswith("CRYST1")]
+    open_box = tmp_path / "open.pdb"
+    open_box.write_text("".join(lines))
+    with pytest.raises(NotImplementedError, match="PME needs a periodic"):
+        pt.system_from_pdb(str(open_box), pt.ForceField(pt.TIP3P_XML),
                            nonbonded_method="pme", device=CPU,
                            constraints="hbonds", rigid_water=True)
 

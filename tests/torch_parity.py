@@ -147,6 +147,17 @@ def seeded_velocities(js, seed=1, temp=300.0):
     return js.update(velocities=jnp.asarray(v))
 
 
+def jax_fresh_start(js, sim):
+    """The JAX system as JAX's simulate hands it to the chunk runner at the
+    start of a fresh run of ``sim`` (simulate.py:157-164): centre-of-mass
+    motion removed when the integrator removes it. The port's simulate
+    does the same; _make_chunk_fn alone does not."""
+    if getattr(sim, "remove_cm", False):
+        return js.update(velocities=mt.remove_cm_motion(js.masses,
+                                                        js.velocities))
+    return js
+
+
 def jax_noise_sequence(key, n_steps, shape, n_sub=None):
     """The noise the JAX chunk runner's steps draw from ``key``
     (simulate.py:71): per step, split, then normal(sub) for Langevin; for
