@@ -132,12 +132,40 @@ Phases, each printing one line or more before the next starts:
    per step, ms/step each; OverdampedLangevin on Muller-Brown in float64,
    the card against the CPU on the same noise (1e-9 nm).
 
+10. after Bonded-PME, the setup options: TIP4P-Ew-PME, the PME cube's
+   lattice with 5,318 TIP4P-Ew waters (21,272 particles, M a virtual site
+   of type average3; mollytpu_torch/data/tip4pew.xml), K1a against its
+   twin on the frame, timed with its bound, the main path (100 + 200
+   steps) with its gates (the float64 check moves the sites' forces onto
+   their parents), after every chunk each site on its position within
+   SITE_TOL nm and every site force row 0, n_dof 6 x 5,318 - 3, ms/step
+   beside the TIP3P PME path's, PME per evaluation with the charged
+   sites, the step's components (the sites' placement and force
+   distribution among them), a rebuild interval under
+   set_sync_debug_mode("error");
+   LINCS-PME, the Bonded-PME box built with constraint_algorithm="lincs"
+   (all 10,636 O-H constraints on LINCS, none on SHAKE), K1a against its
+   twin, the main path with LINCS's violation under LINCS_TOL nm after
+   every chunk, LINCS and SHAKE per call on the same frame and pairs, the
+   step's components, a rebuild interval without a host sync;
+   GROMACS-PME, the TIP3P cube
+   written as .gro / .top with [ settles ] and built by
+   system_from_gromacs (the neighbor-table engine over a cell list), its
+   forces term by term and its energy against system_from_pdb's on the
+   same coordinates (gated at TOL_GMX_FORCE and TOL_GMX_ENERGY), GMX_STEPS steps with the state
+   gates and no pair-kernel launch; then the setup-option checks, each
+   float32 on the card against float64 on the CPU: GB OBC2 and GBn2 on an
+   open cluster of 1,000 TIP3P waters, a CMAP list on random five-atom
+   chains and a random 24 x 24 grid, the global SHAKE sweeps on six-rings,
+   and the four virtual-site types.
+
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
 and MTS-PME paths together; coul3-triclinic's those of PME-dodecahedron,
-its production and resumed steps and the integrators phase), K1a's energy
-and virial instance on the NPT path, coul3-triclinic's on the production
-phase, then each kernel probe instance (wrong
+its production and resumed steps and the integrators phase), K1a on the
+TIP4P-Ew-PME and on the LINCS-PME frame with those paths' launches, K1a's
+energy and virial instance on the NPT path, coul3-triclinic's on the
+production phase, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
 probe phase; LJ-bench launches no kernel and has no entry); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -255,6 +283,42 @@ MTS_DT, MTS_REBUILD, MTS_WARMUP, MTS_STEPS = 0.004, 5, 50, 100
 #: the same lists on the CPU from the same coordinates (max|dF|/rms|F|;
 #: relative energy and virial)
 TOL_BONDED_FORCE, TOL_BONDED_REL = 1e-3, 1e-5
+
+#: the setup-option paths (each at N_WATERS waters, Langevin as the main
+#: paths): TIP4P-Ew-PME, the PME cube's lattice with four-site waters (M a
+#: virtual site; 21,272 particles); LINCS-PME, the Bonded-PME box with its
+#: O-H constraints on LINCS; GROMACS-PME, the TIP3P cube read from .gro /
+#: .top with [ settles ], GMX_STEPS steps on the neighbor-table engine
+TIP4P_FAMILY = LINCS_FAMILY = "coul3-ortho"
+#: GROMACS-PME against system_from_pdb on the same coordinates, two f32
+#: card paths that differ only in the neighbor engine's polynomial erfc
+#: against CUDA's erfcf and PME's scatter order: 2.8e-6 to 3.2e-6 of
+#: rms|F| and 6.8e-7 relative in the energy (three calls, PR 9). The
+#: gates leave 30x and 15x; an LJ epsilon read 0.1% off moves the forces
+#: by ~1e-3 of rms|F|. The list is system_from_gromacs's default (1.2 nm,
+#: a rebuild every 10 steps) and a stale list fails the run.
+GMX_STEPS, TOL_GMX_FORCE, TOL_GMX_ENERGY = 50, 1e-4, 1e-5
+#: the gates: a site within SITE_TOL nm of the position its parents give
+#: it after every chunk (the same float32 operations place it and check
+#: it); LINCS's violation under LINCS_TOL nm after every chunk (order 4, 2
+#: corrections in float32: tests/test_lincs.py's bound)
+SITE_TOL, LINCS_TOL = 1e-6, 2e-5
+#: the setup-option checks, float32 on the card against float64 on the
+#: CPU: GB (OBC2, GBn2) on an open cluster of GB_WATERS TIP3P waters, a
+#: CMAP list of CMAP_CHAINS chains, the global SHAKE sweeps on SHAKE_RINGS
+#: six-rings, VSITES virtual sites of the four types; forces as max|dF|
+#: over rms|F| (f32 sums over up to N = 3,000 partners, ~1e-5; CMAP's
+#: float32 dihedral gradients, ~2e-4 for bond angles of 60-120 degrees)
+#: and the energy relative
+GB_WATERS, CMAP_CHAINS, SHAKE_RINGS, VSITES = 1000, 5000, 1000, 4000
+TOL_OPTION_FORCE, TOL_OPTION_ENERGY = 1e-3, 1e-4
+#: the global sweeps on the card (f32) against the CPU (f64), repeated
+#: SHAKE_REPEATS times to show the spread of the card's unordered
+#: index_add_ atomics: rings up to 9.64 nm from the origin, where an f32
+#: ulp is 9.5e-7 nm, and 60 sweeps that each round every coordinate; the
+#: reading was 4.964e-6 nm in two calls of PR 9, so 2e-5 nm (21 ulps)
+#: leaves 4x; velocities 1.3e-4 nm/ps against 1e-3
+SHAKE_REPEATS, TOL_SHAKE_POS, TOL_SHAKE_VEL = 5, 2e-5, 1e-3
 
 #: the TPU kernel's probe sites the kernel probes replace
 PROBE_SITES = {
@@ -426,15 +490,21 @@ def build_kernels():
           flush=True)
 
 
-def water_system(device, dtype, workdir, method, angles, rigid=True):
+def water_system(device, dtype, workdir, method, angles, rigid=True,
+                 model="tip3p", algorithm="shake"):
+    """The N_WATERS water box (seed SEED) in a cube or the dodecahedron:
+    TIP3P, or TIP4P-Ew with its virtual site M; H-bond constraints (rigid
+    water) on SHAKE or LINCS."""
     import mollytpu_torch as pt
     tag = "cube" if angles == CUBE else "dodeca"
-    path = pt.water_box_pdb(os.path.join(workdir, f"water-{tag}.pdb"),
-                            N_WATERS, seed=SEED, angles=angles)
+    path = pt.water_box_pdb(os.path.join(workdir, f"water-{tag}-{model}.pdb"),
+                            N_WATERS, seed=SEED, angles=angles, model=model)
+    xml = pt.TIP4PEW_XML if model == "tip4pew" else pt.TIP3P_XML
     return pt.system_from_pdb(
-        path, pt.ForceField(pt.TIP3P_XML), nonbonded_method=method,
-        dtype=dtype, device=device, constraints="hbonds", rigid_water=rigid,
-        dist_neighbors=LIST_RADIUS, neighbor_n_steps=CADENCE)
+        path, pt.ForceField(xml), nonbonded_method=method, dtype=dtype,
+        device=device, constraints="hbonds", rigid_water=rigid,
+        constraint_algorithm=algorithm, dist_neighbors=LIST_RADIUS,
+        neighbor_n_steps=CADENCE)
 
 
 def small_inters(lj_mode, coul_mode, lj_rc, coul_rc):
@@ -1030,8 +1100,14 @@ def reference_forces(sys32, coords32):
         fg, _ = g.force_virial(system.coords, system.boundary, system.atoms)
         f = f + fg
         e = e + g.energy(system.coords, system.boundary, system.atoms)
-    return f, e, near_cutoff_atoms(spec, nbk, system.boundary,
-                                   system.n_atoms)
+    near = near_cutoff_atoms(spec, nbk, system.boundary, system.n_atoms)
+    vs = sys32.virtual_sites
+    if vs is not None:
+        vs = dataclasses.replace(vs, weights=vs.weights.double(), coef=None)
+        f = vs.distribute_forces(system.coords, system.boundary, f)
+        # a site near a cutoff makes its parents so
+        near[vs.parents[near[vs.site_idx]].reshape(-1)] = True
+    return f, e, near
 
 
 def describe(system):
@@ -1088,8 +1164,9 @@ def check_f64(label, system, f32, e32):
                            "reference")
 
 
-def main_path(label, system, n_chunks, family):
-    """Drive the main path from the built system; check its gates."""
+def main_path(label, system, n_chunks, family, after_chunk=None):
+    """Drive the main path from the built system; check its gates, and
+    ``after_chunk(system, aux)`` after the warm-up and each timed chunk."""
     import torch
     import mollytpu_torch as pt
     from mollytpu_torch.ops import pair_kernel as pk
@@ -1105,18 +1182,22 @@ def main_path(label, system, n_chunks, family):
     torch.cuda.synchronize()
     print(f"{label}: warm-up chunk of {CHUNK} steps: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    step, closest = CHUNK, math.inf
-    t0 = time.perf_counter()
+    if after_chunk is not None:
+        after_chunk(system, aux)
+    step, closest, elapsed = CHUNK, math.inf, 0.0
     for _ in range(n_chunks):
         # simulate()'s own loop, which also returns the stale-list check's
         # reading: the closest unlisted atom pair, or a lower bound on it
         # that is at least the cutoff
+        t0 = time.perf_counter()
         system, nb, aux, near = pt.run_chunk(sim, system, nb, aux, step,
                                              CHUNK, generator=gen)
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
         closest = min(closest, near)
         step += CHUNK
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+        if after_chunk is not None:
+            after_chunk(system, aux)
     launches = pk.LAUNCHES
     own = pk.INSTANCE_LAUNCHES[family]
     n_evals = 1 + step            # init_aux + one per step
@@ -1401,12 +1482,13 @@ def npt_crescale(run, line):
     return dict(ms=ms, launches=launches)
 
 
-def steps_without_sync(label, run, start, n):
+def steps_without_sync(label, run, start, n, unit="steps", note=""):
     """Step ``run``'s integrator n steps from ``start`` on its list under
     torch.cuda.set_sync_debug_mode("error"): a host sync anywhere in a step
     raises and fails the run. A known sync is made under the same mode
     first, to show that the mode catches one. The list is checked for stale
-    pairs after. Returns the run's state after the steps."""
+    pairs after, and the check's line printed, ``note`` after the steps.
+    Returns the run's state after the steps."""
     import torch
     from mollytpu_torch.sim.coupling import virial_due
     from mollytpu_torch.sim.simulate import (list_check, list_cutoff,
@@ -1439,6 +1521,9 @@ def steps_without_sync(label, run, start, n):
     if over is not None:
         raise_if_overflow(over, start + n)
     raise_if_stale(near, cutoff)
+    print(f"{label} sync check, {unit} {start}-{start + n - 1}{note} on one "
+          "list under set_sync_debug_mode(\"error\"): no host sync (a known "
+          "one made first was caught)", flush=True)
     return {**run, "system": system, "aux": aux, "step": start + n}
 
 
@@ -1458,10 +1543,8 @@ def sync_check(run):
     elif start < step:
         raise RuntimeError("sync check: the attempt's interval has begun")
     steps_without_sync("NPT-PME (MC)", {**run, "system": system, "nb": nb,
-                                        "aux": aux}, start, CADENCE)
-    print(f"sync check, steps {start}-{start + CADENCE - 1} (attempt at "
-          f"{attempt}) on one list under set_sync_debug_mode(\"error\"): no "
-          "host sync (a known one made first was caught)", flush=True)
+                                        "aux": aux}, start, CADENCE,
+                       note=f" (attempt at {attempt})")
 
 
 def npt_components(run):
@@ -1624,7 +1707,7 @@ def bonded_phase(system):
     return bonded_layer("Bonded phase", system, lists)
 
 
-def bonded_pme_path(dev, workdir, line):
+def bonded_pme_path(dev, workdir):
     """The Bonded-PME main path: the PME cube with flexible H-O-H angles,
     the kernel against its twin on the built frame, the main path's run
     and gates (its float64 check with the angles), the bonded layer's cost
@@ -1642,10 +1725,6 @@ def bonded_pme_path(dev, workdir, line):
     run = main_path(label, system, 2, BONDED_FAMILY)
     components(label, run)
     steps_without_sync(label, run, run["step"], CADENCE)
-    print(f"{label} sync check, steps {run['step']}-"
-          f"{run['step'] + CADENCE - 1} on one list under "
-          "set_sync_debug_mode(\"error\"): no host sync (a known one made "
-          f"first was caught); card {line}", flush=True)
     return {**{k: run[k] for k in ("launches", "ms", "ns_day")},
             "layer": layer}
 
@@ -1740,11 +1819,9 @@ def mts_path(run, line):
                   pt.potential_energy(system, nb))
     start = step + outer
     steps_without_sync(label, {"sim": sim, "system": system, "nb": nb,
-                               "aux": aux, "gen": gen}, start, MTS_REBUILD)
-    print(f"{label} sync check, outer steps {start}-"
-          f"{start + MTS_REBUILD - 1} ({2 * MTS_REBUILD} inner) on one list "
-          "under set_sync_debug_mode(\"error\"): no host sync (a known one "
-          "made first was caught)", flush=True)
+                               "aux": aux, "gen": gen}, start, MTS_REBUILD,
+                       unit="outer steps",
+                       note=f" ({2 * MTS_REBUILD} inner)")
     return dict(launches=launches, ms=ms, ns_day=ns_day, ref_ms=ref_ms)
 
 
@@ -1772,6 +1849,8 @@ def components(label, run, hamiltonian=None, lams=()):
     nbk, lam_role, _ = pk.kernel_inputs(spec, system.coords, system.atoms,
                                         nb)
     c = system.constraints[0]
+    solver = ("LINCS", "LINCS") if type(c).__name__ == "LINCS" else (
+        "SHAKE", "RATTLE")
     x, v, m, box = system.coords, system.velocities, system.masses, \
         system.boundary
     parts = {
@@ -1782,9 +1861,9 @@ def components(label, run, hamiltonian=None, lams=()):
             spec, x, box, system.atoms, system.exclusions, nb),
         "pair kernel alone": lambda: pk.pair_nonbonded(
             spec, nbk, box, system.n_atoms, False, lam_role),
-        "SHAKE (positions)": lambda: c.apply_position_constraints(
+        f"{solver[0]} (positions)": lambda: c.apply_position_constraints(
             x, x + DT * v, v, m, box, DT),
-        "RATTLE (velocities)": lambda: c.apply_velocity_constraints(
+        f"{solver[1]} (velocities)": lambda: c.apply_velocity_constraints(
             x, v, m, box),
         "rebuild (find)": lambda: system.neighbor_finder.find(
             x, box, system.exclusions),
@@ -1795,6 +1874,11 @@ def components(label, run, hamiltonian=None, lams=()):
         if isinstance(g, pt.PME):
             parts["PME force_virial"] = lambda pme=g: pme.force_virial(
                 x, box, system.atoms)
+    vs = system.virtual_sites
+    if vs is not None:
+        parts["virtual sites: place"] = lambda: vs.place(x, box)
+        parts["virtual sites: distribute forces"] = \
+            lambda: vs.distribute_forces(x, box, aux["forces"])
     if any(sl.n_terms for sl in system.specific_lists):
         parts["bonded lists (all_specific_forces)"] = \
             lambda: pt.all_specific_forces(system.specific_lists, x, box)
@@ -2254,10 +2338,8 @@ def lj_bench_path(dev, line):
     if start > LJ_RUN:
         run["system"], run["nb"], run["aux"], _ = pt.run_chunk(
             run["sim"], out32, nb32, aux32, LJ_RUN, start - LJ_RUN)
-    steps_without_sync(label, run, start, cadence - 1)
-    print(f"{label}: steps {start}-{start + cadence - 2} between two "
-          "rebuilds stepped under set_sync_debug_mode(\"error\"): no host "
-          "sync (a known one made first was caught)", flush=True)
+    steps_without_sync(label, run, start, cadence - 1,
+                       note=" (between two rebuilds)")
 
     # the timed run, from the in.lj end state
     sim = ljbench.lj_bench_integrator()
@@ -2716,6 +2798,393 @@ def muller_brown_phase(dev):
                            "the CPU's")
 
 
+def site_check(label, system, aux):
+    """TIP4P-Ew-PME's gate after a chunk: every site on the position its
+    parents give it within SITE_TOL nm, and its force row exactly 0 (moved
+    onto its parents). Returns the largest site offset (nm)."""
+    vs = system.virtual_sites
+    off = float((vs.positions(system.coords, system.boundary)
+                 - system.coords[vs.site_idx]).abs().max())
+    f_site = float(aux["forces"][vs.site_idx].abs().max())
+    if not off <= SITE_TOL or f_site != 0.0:
+        raise RuntimeError(f"{label}: a site {off:.3e} nm off its average3 "
+                           f"position, site force {f_site:.3e}")
+    return off
+
+
+def tip4p_path(dev, workdir, line, pme):
+    """TIP4P-Ew-PME: the PME cube's lattice with four-site waters (M a
+    virtual site), the main path with its gates, the site gate after every
+    chunk, PME per evaluation with the charged sites, and a rebuild
+    interval without a host sync. ``pme`` is the TIP3P PME path's run."""
+    import torch
+    label = "TIP4P-Ew-PME"
+    t0 = time.perf_counter()
+    system = water_system(dev, torch.float32, workdir, "pme", CUBE,
+                          model="tip4pew")
+    torch.cuda.synchronize()
+    vs = system.virtual_sites
+    print(f"{label}: {describe(system)}; {vs.n_sites} virtual sites, "
+          f"n_dof {system.n_dof}; setup {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if (system.n_atoms, vs.n_sites, system.n_dof) != (
+            4 * N_WATERS, N_WATERS, 6 * N_WATERS - 3):
+        raise RuntimeError(f"{label}: {system.n_atoms} particles, "
+                           f"{vs.n_sites} sites, n_dof {system.n_dof}")
+    stats = compare(f"{label} water{system.n_atoms}", system, timing=True)
+    if stats["family"] != TIP4P_FAMILY:
+        raise RuntimeError(f"{label} runs instance {stats['family']}")
+    offsets = []
+    run = main_path(label, system, 2, TIP4P_FAMILY, after_chunk=lambda s, a:
+                    offsets.append(site_check(label, s, a)))
+    print(f"{label}: after each of {len(offsets)} chunks every site within "
+          f"{max(offsets):.3e} nm of its average3 position and every site "
+          f"force row 0; {run['ms']:.4f} ms/step, {run['ns_day']:.4f} ns/day "
+          f"against TIP3P PME's {pme['ms']:.4f} ms/step, "
+          f"{pme['ns_day']:.4f} ns/day in this call ({system.n_atoms} "
+          f"against {3 * N_WATERS} particles); card {line}", flush=True)
+    pme_eval = pme_evaluation_times(label, run["system"])
+    components(label, run)
+    steps_without_sync(label, run, run["step"], CADENCE)
+    return {**{k: run[k] for k in ("launches", "ms", "ns_day")},
+            "stats": stats, "pme_ms": pme_eval[False]}
+
+
+def lincs_check(label, system):
+    """LINCS-PME's gate after a chunk: the largest constraint violation
+    under LINCS_TOL nm. Returns it."""
+    viol = float(system.constraints[0].max_violation(system.coords,
+                                                     system.boundary))
+    if not viol < LINCS_TOL:
+        raise RuntimeError(f"{label}: LINCS violation {viol:.3e} nm")
+    return viol
+
+
+def lincs_times(label, system):
+    """CUDA-event times (median of 20) of LINCS on the frame, positions and
+    velocities, and of cluster SHAKE / RATTLE on the same O-H pairs."""
+    import torch
+    import mollytpu_torch as pt
+    (lincs,) = system.constraints
+    shake = pt.SHAKERattle.build(
+        torch.stack([lincs.idx_i, lincs.idx_j], 1).cpu().numpy(),
+        lincs.dists.cpu().numpy(), dtype=torch.float32, device=system.device)
+    x, v, m, box = (system.coords, system.velocities, system.masses,
+                    system.boundary)
+    moved = x + DT * v
+    out, ms = {}, {}
+    for name, c in (("LINCS", lincs), ("SHAKE", shake)):
+        ms[name] = (_time(lambda: c.apply_position_constraints(
+            x, moved, v, m, box, DT), 2, 20), _time(
+            lambda: c.apply_velocity_constraints(x, v, m, box), 2, 20))
+        out[name] = c.apply_position_constraints(x, moved, v, m, box, DT)[0]
+    diff = float((out["LINCS"] - out["SHAKE"]).abs().max())
+    print(f"{label}: per call on the same frame and {lincs.n_constraints} "
+          f"O-H pairs, LINCS positions {ms['LINCS'][0]:.4f} ms, velocities "
+          f"{ms['LINCS'][1]:.4f} ms; SHAKE positions {ms['SHAKE'][0]:.4f} "
+          f"ms, RATTLE velocities {ms['SHAKE'][1]:.4f} ms; the two projected "
+          f"positions {diff:.3e} nm apart", flush=True)
+    return ms
+
+
+def lincs_pme_path(dev, workdir, line):
+    """LINCS-PME: the Bonded-PME box (flexible angles) with its 10,636 O-H
+    constraints on LINCS, the main path with the LINCS gate after every
+    chunk, LINCS against SHAKE per call, and a rebuild interval without a
+    host sync."""
+    import torch
+    label = "LINCS-PME"
+    t0 = time.perf_counter()
+    system = water_system(dev, torch.float32, workdir, "pme", CUBE,
+                          rigid=False, algorithm="lincs")
+    torch.cuda.synchronize()
+    kinds = [(type(c).__name__, c.n_constraints) for c in system.constraints]
+    print(f"{label}: {describe(system)}; solvers {kinds}; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if kinds != [("LINCS", 2 * N_WATERS)]:
+        raise RuntimeError(f"{label}: constraints split as {kinds}")
+    stats = compare(f"{label} water{system.n_atoms}", system, timing=True)
+    if stats["family"] != LINCS_FAMILY:
+        raise RuntimeError(f"{label} runs instance {stats['family']}")
+    viol = []
+    run = main_path(label, system, 2, LINCS_FAMILY, after_chunk=lambda s, a:
+                    viol.append(lincs_check(label, s)))
+    print(f"{label}: LINCS violation after each of {len(viol)} chunks at "
+          f"most {max(viol):.3e} nm (gate {LINCS_TOL} nm); card {line}",
+          flush=True)
+    ms = lincs_times(label, run["system"])
+    components(label, run)
+    steps_without_sync(label, run, run["step"], CADENCE)
+    return {**{k: run[k] for k in ("launches", "ms", "ns_day")},
+            "stats": stats, "lincs_ms": ms}
+
+
+def gromacs_path(dev, workdir, line):
+    """GROMACS-PME: the TIP3P cube written as .gro / .top with [ settles ],
+    built by system_from_gromacs (the neighbor-table engine over a cell
+    list, no pair kernel); its forces term by term against
+    system_from_pdb's on the same coordinates; GMX_STEPS Langevin steps."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "GROMACS-PME"
+    t0 = time.perf_counter()
+    pdb = pt.water_box_pdb(os.path.join(workdir, "water-gmx.pdb"), N_WATERS,
+                           seed=SEED)
+    gro, top = pt.water_box_gromacs(pdb, os.path.join(workdir, "water.gro"),
+                                    os.path.join(workdir, "water.top"))
+
+
+    system = pt.system_from_gromacs(gro, top, nonbonded_method="pme",
+                                    use_settles=True, dtype=torch.float32,
+                                    device=dev)
+    torch.cuda.synchronize()
+    print(f"{label}: {system.n_atoms} atoms, "
+          f"{system.constraints[0].n_constraints} settle constraints, "
+          f"n_dof {system.n_dof}, a cell list of grid "
+          f"{system.neighbor_finder.grid_dims}; setup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    own = water_system(dev, torch.float32, workdir, "pme", CUBE).update(
+        coords=system.coords)
+    x, box = system.coords, system.boundary
+    nb_g = system.neighbor_finder.find(x, box, system.exclusions)
+    nb_p = own.neighbor_finder.find(x, box, own.exclusions)
+    launches0 = pk.LAUNCHES
+    f_g = pt.forces_virial(system.update(general_inters=()), nb_g)[0]
+    with uncounted():
+        f_p = pt.forces_virial(own.update(general_inters=()), nb_p)[0]
+    parts = [("LJ + Ewald real space (the GROMACS system's neighbor "
+              "engine takes the polynomial erfc of approximate_pme=True, "
+              "the pair kernel CUDA's erfcf)", f_g, f_p)]
+    for gg, gp in zip(system.general_inters, own.general_inters):
+        parts.append((type(gg).__name__,
+                      gg.force_virial(x, box, system.atoms)[0],
+                      gp.force_virial(x, box, own.atoms)[0]))
+    total_g = sum(p[1] for p in parts)
+    total_p = sum(p[2] for p in parts)
+    rms = float(total_p.pow(2).sum(dim=1).mean().sqrt())
+    for name, fa, fb in parts:
+        print(f"{label} vs system_from_pdb on the same coordinates, "
+              f"{name}: max|dF| {float((fa - fb).abs().max()):.3e} "
+              f"kJ/mol/nm", flush=True)
+    df = float((total_g - total_p).abs().max()) / rms
+    with uncounted():
+        e_p = float(pt.potential_energy(own, nb_p))
+    e_g = float(pt.potential_energy(system, nb_g))
+    de = abs(e_g - e_p) / abs(e_p)
+    c_g, c_p = system.constraints[0], own.constraints[0]
+    dd = float((c_g.dists - c_p.dists).abs().max())
+    print(f"{label} vs system_from_pdb: all forces max|dF|/rms|F| {df:.3e}, "
+          f"rel dE {de:.3e} (E {e_p:.6e} kJ/mol); the settle lengths "
+          f"{dd:.3e} nm from the rigid-water triangles'", flush=True)
+    if df > TOL_GMX_FORCE or de > TOL_GMX_ENERGY or dd > 1e-6:
+        raise RuntimeError(f"{label}: the GROMACS system disagrees with "
+                           "system_from_pdb's")
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    start = system.update(velocities=pt.random_velocities(
+        system.masses, TEMP, gen))
+    t0 = time.perf_counter()
+    out, _, _ = pt.simulate(start, sim, GMX_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / GMX_STEPS
+    temp, viol = check_state(label, out)
+    if pk.LAUNCHES != launches0:
+        raise RuntimeError(f"{label}: the pair kernel was launched")
+    cadence = system.neighbor_finder.n_steps
+    print(f"{label}: {GMX_STEPS} steps (list radius "
+          f"{system.neighbor_finder.dist_cutoff} nm, rebuild every "
+          f"{cadence}, the list builds included) {ms:.4f} "
+          f"ms/step, T {temp:.2f} K, constraint violation {viol:.3e} nm, no "
+          f"pair-kernel launch; card {line}", flush=True)
+    return {"ms": ms, "cadence": cadence}
+
+
+def _option_diff(label, f32, f64, e32, e64):
+    """Card float32 against CPU float64: max|dF| over rms|F| and the
+    relative energy; gated at TOL_OPTION_FORCE and TOL_OPTION_ENERGY."""
+    f64 = f64.to(f32.device)
+    rms = float(f64.pow(2).sum(dim=1).mean().sqrt())
+    df = float((f32.double() - f64).abs().max()) / rms
+    de = abs(float(e32) - float(e64)) / max(1.0, abs(float(e64)))
+    if df > TOL_OPTION_FORCE or de > TOL_OPTION_ENERGY:
+        raise RuntimeError(f"{label}: card against float64 CPU: "
+                           f"max|dF|/rms|F| {df:.3e}, rel dE {de:.3e}")
+    return df, de
+
+
+def gb_check(dev, workdir):
+    """OBC2 and GBn2 on an open cluster of GB_WATERS TIP3P waters
+    (nonbonded_method="none"): the implicit-solvent term's energy and
+    forces in float32 on the card against float64 on the CPU."""
+    import torch
+    import mollytpu_torch as pt
+    path = pt.water_box_pdb(os.path.join(workdir, "gb.pdb"), GB_WATERS,
+                            seed=SEED)
+    with open(path) as f:
+        lines = [ln for ln in f if not ln.startswith("CRYST1")]
+    with open(path, "w") as f:
+        f.write("".join(lines))
+    for model in ("obc2", "gbn2"):
+        built = {}
+        for device, dtype in ((dev, torch.float32),
+                              (torch.device("cpu"), torch.float64)):
+            s = pt.system_from_pdb(path, pt.ForceField(pt.TIP3P_XML),
+                                   nonbonded_method="none", dtype=dtype,
+                                   device=device, implicit_solvent=model)
+            (gb,) = [g for g in s.general_inters
+                     if "ImplicitSolvent" in type(g).__name__]
+            f, _ = gb.force_virial(s.coords, s.boundary, s.atoms)
+            built[dtype] = (f, gb.energy(s.coords, s.boundary, s.atoms), gb,
+                            s)
+        f32, e32, gb, s = built[torch.float32]
+        f64, e64, _, _ = built[torch.float64]
+        df, de = _option_diff(f"GB {model}", f32, f64, e32, e64)
+        ms = _time(lambda: gb.force_virial(s.coords, s.boundary, s.atoms),
+                   1, 5)
+        print(f"Setup option GB {type(gb).__name__} ({model}, "
+              f"{s.n_atoms}-atom open cluster): card f32 against CPU f64 "
+              f"max|dF|/rms|F| {df:.3e}, rel dE {de:.3e} (E "
+              f"{float(e64):.6e} kJ/mol); {ms:.4f} ms per force evaluation",
+              flush=True)
+
+
+def cmap_check(dev):
+    """A CMAP list over random five-atom chains on a random 24 x 24 grid:
+    float32 on the card against float64 on the CPU."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    rng = np.random.default_rng(SEED)
+    table = pt.cmap_coefficients(rng.normal(size=(24, 24)))[None]
+    # bonds of 0.15 nm, each at 60-120 degrees to the one before (a
+    # near-straight angle makes a dihedral's gradient blow up in float32)
+    x = [rng.uniform(0.5, 5.5, (CMAP_CHAINS, 3))]
+    bond = None
+    for _ in range(4):
+        v = rng.normal(size=(CMAP_CHAINS, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        while bond is not None:
+            bad = np.abs((v * bond).sum(axis=1)) > 0.5
+            if not bad.any():
+                break
+            w = rng.normal(size=(int(bad.sum()), 3))
+            v[bad] = w / np.linalg.norm(w, axis=1, keepdims=True)
+        bond = v
+        x.append(x[-1] + 0.15 * v)
+    coords = np.stack(x, axis=1).reshape(-1, 3)
+    idx = np.arange(5 * CMAP_CHAINS).reshape(-1, 5).T
+    maps = np.zeros(CMAP_CHAINS, dtype=np.int64)
+    out = {}
+    for device, dtype in ((dev, torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        sl = pt.make_cmap_list(*idx, maps, table, 24, dtype=dtype,
+                               device=device)
+        box = pt.cubic(6.0, dtype=dtype, device=device)
+        xt = torch.as_tensor(coords, dtype=dtype, device=device)
+        out[dtype] = (pt.specific_forces(sl, xt, box)[0],
+                      pt.specific_energy(sl, xt, box), sl, xt, box)
+    f32, e32, sl, xt, box = out[torch.float32]
+    df, de = _option_diff("CMAP", f32, out[torch.float64][0], e32,
+                          out[torch.float64][1])
+    ms = _time(lambda: pt.specific_forces(sl, xt, box), 2, 20)
+    print(f"Setup option CMAP ({CMAP_CHAINS} chains, 24 x 24 grid): card "
+          f"f32 against CPU f64 max|dF|/rms|F| {df:.3e}, rel dE {de:.3e}; "
+          f"{ms:.4f} ms per force evaluation", flush=True)
+
+
+def global_shake_check(dev):
+    """The global SHAKE / RATTLE sweeps on SHAKE_RINGS six-rings (a graph
+    with no cluster shape): float32 on the card against float64 on the
+    CPU, positions and velocities."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    rng = np.random.default_rng(SEED)
+    ang = np.arange(6) * np.pi / 3
+    ring = 0.14 * np.stack([np.cos(ang), np.sin(ang), 0 * ang], 1)
+    centres = rng.uniform(0.5, 9.5, (SHAKE_RINGS, 3))
+    coords = (centres[:, None] + ring[None]).reshape(-1, 3)
+    pairs = np.array([(6 * r + i, 6 * r + (i + 1) % 6)
+                      for r in range(SHAKE_RINGS) for i in range(6)])
+    dists = np.full(len(pairs), 0.14)
+    masses = np.tile([12.0, 1.0], 3 * SHAKE_RINGS)
+    vels = rng.normal(scale=1.0, size=coords.shape)
+    out = {}
+    for device, dtype in ((dev, torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        c = pt.SHAKERattle.build(pairs, dists, dtype=dtype, device=device)
+        if c.clusters:
+            raise RuntimeError("the rings were split into clusters")
+        t = [torch.as_tensor(a, dtype=dtype, device=device)
+             for a in (coords, vels, masses)]
+        box = pt.cubic(10.0, dtype=dtype, device=device)
+        runs = []
+        for _ in range(SHAKE_REPEATS if dtype == torch.float32 else 1):
+            xn, _ = c.apply_position_constraints(
+                t[0], t[0] + DT * t[1], t[1], t[2], box, DT)
+            runs.append((xn, c.apply_velocity_constraints(xn, t[1], t[2],
+                                                          box)))
+        out[dtype] = (runs, c, t, box)
+    runs, c, t, box = out[torch.float32]
+    (x64, v64), = out[torch.float64][0]
+    dx = [float((xn.double().cpu() - x64).abs().max()) for xn, _ in runs]
+    dv = [float((vn.double().cpu() - v64).abs().max()) for _, vn in runs]
+    viol = max(float(c.max_violation(xn, box)) for xn, _ in runs)
+    ms = _time(lambda: c.apply_position_constraints(
+        t[0], t[0] + DT * t[1], t[1], t[2], box, DT), 1, 5)
+    print(f"Setup option global SHAKE ({SHAKE_RINGS} six-rings, "
+          f"{c.n_constraints} constraints, {c.n_iters} sweeps): card f32 "
+          f"against CPU f64 over {SHAKE_REPEATS} card calls, positions "
+          f"{min(dx):.3e}-{max(dx):.3e} nm (gate {TOL_SHAKE_POS}), "
+          f"velocities {min(dv):.3e}-{max(dv):.3e} nm/ps (gate "
+          f"{TOL_SHAKE_VEL}); violation {viol:.3e} nm; {ms:.4f} ms per "
+          "SHAKE call", flush=True)
+    if max(dx) > TOL_SHAKE_POS or max(dv) > TOL_SHAKE_VEL:
+        raise RuntimeError("global SHAKE: card against float64 CPU")
+
+
+def vsite_types_check(dev):
+    """The four virtual-site types, outOfPlane among them, placed and their
+    forces distributed: float32 on the card against float64 on the CPU."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    rng = np.random.default_rng(SEED)
+    n = 4 * VSITES
+    coords = rng.uniform(0.0, 4.0, (n, 3))
+    kinds = ("one", "average2", "average3", "outOfPlane")
+    specs = [(4 * g + 3, kinds[g % 4], (4 * g, 4 * g + 1, 4 * g + 2)[
+        :{"one": 1, "average2": 2}.get(kinds[g % 4], 3)],
+        tuple(rng.uniform(-0.5, 1.0, 3))) for g in range(VSITES)]
+    forces = rng.normal(size=(n, 3))
+    out = {}
+    for device, dtype in ((dev, torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        vs = pt.VirtualSites.build(specs, dtype=dtype, device=device)
+        box = pt.cubic(4.0, dtype=dtype, device=device)
+        x = vs.place(torch.as_tensor(coords, dtype=dtype, device=device), box)
+        f = vs.distribute_forces(x, box, torch.as_tensor(
+            forces, dtype=dtype, device=device))
+        out[dtype] = (x, f)
+    dx = float((out[torch.float32][0].double().cpu()
+                - out[torch.float64][0]).abs().max())
+    df = float((out[torch.float32][1].double().cpu()
+                - out[torch.float64][1]).abs().max())
+    print(f"Setup option virtual sites ({VSITES} sites of the four types): "
+          f"card f32 against CPU f64 placement {dx:.3e} nm, distributed "
+          f"forces {df:.3e} kJ/mol/nm", flush=True)
+    if dx > 1e-5 or df > 1e-4:
+        raise RuntimeError("virtual sites: card against float64 CPU")
+
+
+def setup_options_phase(dev, workdir):
+    gb_check(dev, workdir)
+    cmap_check(dev)
+    global_shake_check(dev)
+    vsite_types_check(dev)
+
+
 def main():
     line = require_cuda()
     import torch
@@ -2753,10 +3222,6 @@ def main():
             if label == "PME-dodecahedron":
                 run = runs[label]
                 steps_without_sync(label, run, run["step"], CADENCE)
-                print(f"{label} sync check, steps {run['step']}-"
-                      f"{run['step'] + CADENCE - 1} on one list under "
-                      "set_sync_debug_mode(\"error\"): no host sync (a "
-                      "known one made first was caught)", flush=True)
                 pme_eval["dodecahedron"] = pme_evaluation_times(
                     label, run["system"])
                 components(label, run)
@@ -2768,9 +3233,15 @@ def main():
             if label == "PME":
                 pme_system = system
             del system
-        runs["Bonded-PME"] = bonded_pme_path(dev, workdir, line)
+        runs["Bonded-PME"] = bonded_pme_path(dev, workdir)
         more["PME"] = (runs["Bonded-PME"]["launches"]
                        + runs["MTS-PME"]["launches"])
+        tip4p = tip4p_path(dev, workdir, line, runs["PME"])
+        lincs = lincs_pme_path(dev, workdir, line)
+        for label, r in (("TIP4P-Ew-PME", tip4p), ("LINCS-PME", lincs)):
+            runs[label] = {k: r[k] for k in ("launches", "ms", "ns_day")}
+        gmx = gromacs_path(dev, workdir, line)
+        setup_options_phase(dev, workdir)
 
         t0 = time.perf_counter()
         fep, mask = fep_system(pme_system)
@@ -2817,7 +3288,16 @@ def main():
         f"writer {production['ms']:.4f} ms/step, {production['xtc_ms']:.2f} "
         "ms per XTC frame; PME per force evaluation: cube "
         f"{pme_eval['cube'][False]:.4f} ms, dodecahedron "
-        f"{pme_eval['dodecahedron'][False]:.4f} ms", flush=True)
+        f"{pme_eval['dodecahedron'][False]:.4f} ms, TIP4P-Ew cube "
+        f"{tip4p['pme_ms']:.4f} ms; pair-kernel K1a launches: TIP4P-Ew-PME "
+        f"{tip4p['launches']}, LINCS-PME {lincs['launches']}; per call "
+        f"LINCS {lincs['lincs_ms']['LINCS'][0]:.4f} ms (positions) / "
+        f"{lincs['lincs_ms']['LINCS'][1]:.4f} ms (velocities) against SHAKE "
+        f"{lincs['lincs_ms']['SHAKE'][0]:.4f} / RATTLE "
+        f"{lincs['lincs_ms']['SHAKE'][1]:.4f} ms on the same O-H pairs; "
+        f"GROMACS-PME {gmx['ms']:.4f} ms/step (neighbor-table engine, a "
+        f"rebuild every {gmx['cadence']} steps, list builds included)",
+        flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
@@ -2828,6 +3308,19 @@ def main():
         "bound_ms": stats[family]["bound_ms"],
         "bound_by": stats[family]["bound_by"], "library_ms": None}
         for label, family in paths]
+    kernels += [{
+        "name": f"{FAMILIES[family]} on {label}", "route": "cuda",
+        "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
+        "replaces": "mollytpu/ops/pallas_pairwise.py:636",
+        "launches": r["launches"],
+        **{k: r["stats"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+        "library_ms": None}
+        for label, family, r in (
+            (f"TIP4P-Ew-PME ({4 * N_WATERS:,} particles, "
+             f"{N_WATERS:,} virtual sites)", TIP4P_FAMILY, tip4p),
+            (f"LINCS-PME ({2 * N_WATERS:,} O-H constraints on LINCS)",
+             LINCS_FAMILY, lincs))]
     kernels.append({
         "name": "pair_nonbonded K1a with energy and virial (LJ + Ewald "
                 "real space, orthorhombic; the NPT path's Monte Carlo trial "

@@ -18,7 +18,9 @@ from .forces import (accelerations, forces, forces_virial,
                      potential_energy, total_energy)
 from .models.forcefield import ForceField
 from .models.setup import add_position_restraints, system_from_pdb
-from .models.waterbox import DODECAHEDRON, TIP3P_XML, water_box_pdb
+from .models.gromacs import read_gro, system_from_gromacs
+from .models.waterbox import (DODECAHEDRON, TIP3P_XML, TIP4PEW_XML,
+                              water_box_gromacs, water_box_pdb)
 from .ops.bonded import (
     SpecificList, all_specific_forces, cosine_angles, ewald_exclusions,
     fene_bonds, harmonic_angles, harmonic_bonds, harmonic_torsions,
@@ -27,8 +29,13 @@ from .ops.bonded import (
 from .ops.cutoffs import (CubicSplineCutoff, DistanceCutoff, NoCutoff,
                           PolynomialCutoff, ShiftedForceCutoff,
                           ShiftedPotentialCutoff, cutoff_distance)
+from .ops.cmap import cmap_coefficients, make_cmap_list
+from .ops.constraints import SHAKERattle
 from .ops.ewald import (PME, Ewald, EwaldExclusionCorrection,
                         ewald_exclusion_list)
+from .ops.gbsa import (ImplicitSolventGBN2, ImplicitSolventOBC,
+                       make_implicit_solvent)
+from .ops.lincs import LINCS
 from .ops.general import (GeneralInteraction, LJDispersionCorrection,
                           MullerBrown)
 from .ops.mixing import (ExceptionTable, FenderHalseyMixing,
@@ -68,6 +75,7 @@ from .spatial import (kinetic_energy, kinetic_energy_tensor,
                       molecule_centers, n_dof, pressure_tensor,
                       random_velocities, remove_cm_motion, scalar_pressure,
                       scale_coords, scale_coords_molecular, temperature)
+from .ops.virtual_sites import VirtualSites
 from .system import Exclusions, System, molecule_ids_from_bonds
 from .free_energy.mbar import (MBARInput, assemble_mbar_inputs,
                                free_energy_differences, iterate_mbar,

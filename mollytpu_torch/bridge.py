@@ -1,10 +1,10 @@
 """Build the port's System from a JAX-package System whose arrays were
 fetched to the host (``jax.device_get(sys)``): the "weights" of a run
-(atom parameters, box, interactions, bonded lists, exclusions, PME moduli,
-constraints, molecule ids)
-carried over as numpy arrays. Duck-typed on attribute and class names, so
-the port never imports the JAX package; the parity tests use it to hand
-both packages the same system.
+(atom parameters, box, interactions, bonded lists with CMAP, exclusions,
+PME moduli, implicit solvent, constraints on SHAKE or LINCS, virtual sites,
+molecule ids) carried over as numpy arrays. Duck-typed on attribute and
+class names, so the port never imports the JAX package; the parity tests
+use it to hand both packages the same system.
 """
 
 from __future__ import annotations
@@ -21,11 +21,15 @@ from .free_energy import alchemy
 from .ops import cutoffs, mixing, pairwise
 from .ops.blockpairs import BlockPairFinder
 from .ops.bonded import TERM_FUNCS, SpecificList
+from .ops.cmap import register_cmap
+from .ops.gbsa import ImplicitSolventGBN2, ImplicitSolventOBC
+from .ops.lincs import LINCS
 from .ops.neighbors import (CellListNeighborFinder, DistanceNeighborFinder,
                             NoNeighborFinder)
 from .ops.constraints import SHAKERattle
 from .ops.ewald import PME, Ewald, EwaldExclusionCorrection
 from .ops.general import LJDispersionCorrection, MullerBrown
+from .ops.virtual_sites import VirtualSites
 from .system import EXCL_WINDOW, Exclusions, System
 
 
@@ -185,12 +189,33 @@ def _general(gi, dtype, device):
     if name == "LJDispersionCorrection":
         return LJDispersionCorrection(float(gi.factor_6), float(gi.factor_12),
                                       float(gi.dist_cutoff))
+    if name in ("ImplicitSolventOBC", "ImplicitSolventGBN2"):
+        cls = (ImplicitSolventOBC if name == "ImplicitSolventOBC"
+               else ImplicitSolventGBN2)
+        fields = {f.name: getattr(gi, f.name)
+                  for f in dataclasses.fields(cls)}
+        return cls(**{k: bool(v) if k == "use_ace" else
+                      _tensor(v, dtype, device) if isinstance(v, np.ndarray)
+                      else float(v) for k, v in fields.items()})
     raise NotImplementedError(f"general interaction {name} is not ported")
 
 
-def _specific(slist, dtype, device):
+def _specific(slist, dtype, device, cmap_tables):
     """The port's list of the same kind: indices and every parameter
-    column, weight included."""
+    column, weight included. A CMAP kind takes its coefficient table from
+    ``cmap_tables`` (the JAX package keeps it in its term function, out of
+    the list's reach)."""
+    if slist.kind.startswith("cmap_torsion_"):
+        if slist.kind not in cmap_tables:
+            raise ValueError(f"{slist.kind}: pass its coefficient table in "
+                             "cmap_tables")
+        register_cmap(cmap_tables[slist.kind],
+                      int(slist.kind.rsplit("_", 1)[1]))
+        return SpecificList(
+            slist.kind, _tensor(slist.atom_idx, torch.int64, device),
+            {"map_index": _tensor(slist.params["map_index"], torch.int64,
+                                  device),
+             "weight": _tensor(slist.params["weight"], dtype, device)})
     if slist.kind not in TERM_FUNCS:
         raise NotImplementedError(f"bonded kind {slist.kind} is not ported")
     return SpecificList(
@@ -198,14 +223,32 @@ def _specific(slist, dtype, device):
         {k: _tensor(v, dtype, device) for k, v in slist.params.items()})
 
 
+def _constraint(c, dtype, device):
+    """A JAX SHAKERattle (cluster solves where its graph allows them, as
+    JAX's setup builds it) or LINCS, its tables as they are (LINCS's in
+    float32, the JAX package's dtype)."""
+    if type(c).__name__ == "LINCS":
+        return LINCS(*(_tensor(getattr(c, f), torch.int64 if f in (
+            "idx_i", "idx_j", "nbr") else None, device) for f in (
+            "idx_i", "idx_j", "dists", "sdiag", "inv_m_i", "inv_m_j", "nbr",
+            "coef")), order=int(c.order), n_iters=int(c.n_iters))
+    pairs = np.stack([np.asarray(c.idx_i), np.asarray(c.idx_j)], axis=1)
+    return SHAKERattle.build(pairs, np.asarray(c.dists), dtype=dtype,
+                             device=device, n_iters=int(c.n_iters),
+                             vel_iters=int(c.vel_iters),
+                             omega=float(c.omega))
+
+
 def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
-                       n_steps=None):
+                       n_steps=None, cmap_tables=None):
     """The port's System for a host-side JAX System ``tree``, on ``device``
     (the CUDA card unless the caller names another). dtype defaults to the
     coordinates' dtype. The JAX System's NoNeighborFinder,
     DistanceNeighborFinder or CellListNeighborFinder is carried with its
     fields; a BlockPairFinder of list radius ``dist_neighbors`` replaces
-    it when dist_neighbors is given."""
+    it when dist_neighbors is given. ``cmap_tables`` maps each CMAP kind
+    of the system ("cmap_torsion_<n>") to its (n_maps, n, n, 4, 4)
+    coefficients."""
     device = resolve_device(device)
     coords = np.asarray(tree.coords)
     dtype = dtype or (torch.float64 if coords.dtype == np.float64
@@ -233,11 +276,11 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
     exclusions = Exclusions(*(_tensor(getattr(e, f), device=device) for f in (
         "excl_i", "excl_j", "spec_i", "spec_j", "excl_table", "spec_table",
         "excl_bits", "spec_bits", "far_excl", "far_spec")))
-    constraints = []
-    for c in tree.constraints:
-        pairs = np.stack([np.asarray(c.idx_i), np.asarray(c.idx_j)], axis=1)
-        constraints.append(SHAKERattle.build(pairs, np.asarray(c.dists),
-                                             dtype=dtype, device=device))
+    constraints = [_constraint(c, dtype, device) for c in tree.constraints]
+    vs = getattr(tree, "virtual_sites", None)
+    if vs is not None:
+        vs = VirtualSites.from_arrays(vs.site_idx, vs.site_type, vs.parents,
+                                      vs.weights, dtype=dtype, device=device)
     finder = _finder(tree.neighbor_finder, boundary, coords.shape[0], atoms,
                      dist_neighbors, n_steps)
     return System(atoms=atoms, coords=_tensor(coords, dtype, device),
@@ -245,11 +288,13 @@ def system_from_arrays(tree, dtype=None, device=None, dist_neighbors=None,
                   velocities=_tensor(tree.velocities, dtype, device),
                   pairwise_inters=tuple(_pairwise(i)
                                         for i in tree.pairwise_inters),
-                  specific_lists=tuple(_specific(s, dtype, device)
+                  specific_lists=tuple(_specific(s, dtype, device,
+                                                 cmap_tables or {})
                                        for s in tree.specific_lists),
                   general_inters=tuple(_general(g, dtype, device)
                                        for g in tree.general_inters),
-                  constraints=tuple(constraints), exclusions=exclusions,
+                  constraints=tuple(constraints), virtual_sites=vs,
+                  exclusions=exclusions,
                   neighbor_finder=finder, n_dof=int(tree.n_dof),
                   molecule_ids=_tensor(tree.molecule_ids, torch.int32,
                                        device),

@@ -7,7 +7,9 @@ the kernel's spec takes them all, else the neighbor-table engine
 (ops/nonbonded.py). A cluster-pair list with interactions the kernel
 refuses raises: that list feeds the kernel only. Then the bonded lists,
 then the general interactions (PME and the Ewald exclusion correction
-where the system has them, the dispersion correction).
+where the system has them, the dispersion correction, implicit solvent).
+Last, the forces on virtual sites move onto their parents; the virial
+stays as computed at the site positions, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -114,6 +116,8 @@ def forces_virial(sys, neighbors=None, step_n=0, needs_virial=False):
                                needs_virial=needs_virial)
         fs.add_(f)
         vir.add_(v)
+    if sys.virtual_sites is not None:
+        fs = sys.virtual_sites.distribute_forces(coords, boundary, fs)
     return fs, vir
 
 

@@ -6,12 +6,12 @@ Ported: nonbonded_method "cutoff" (LJ truncation + reaction field) and
 or triclinic box, and "none"
 (plain LJ + Coulomb over all pairs), open boundaries for a PDB without
 CRYST1, NBFix pair overrides, the bonded terms (harmonic bonds and
-angles, periodic and RB proper and improper torsions, Urey-Bradley),
-constraints "none" or "hbonds", rigid water, hydrogen mass
-repartitioning, the LJ dispersion correction, the neighbor finders, and
-position restraints on a built system. Everything else raises
-NotImplementedError naming what is missing: virtual sites, implicit
-solvent and CMAP.
+angles, periodic and RB proper and improper torsions, Urey-Bradley,
+CMAP), constraints "none", "hbonds", "allbonds" or "hangles" on SHAKE or
+LINCS, rigid water, virtual sites from the residue templates, implicit
+solvent (OBC1, OBC2, GBn2), hydrogen mass repartitioning, the LJ
+dispersion correction, the neighbor finders, and position restraints on
+a built system.
 """
 
 from __future__ import annotations
@@ -26,15 +26,18 @@ from ..atoms import make_atoms
 from ..config import resolve_device
 from ..ops import bonded
 from ..ops.blockpairs import BlockPairFinder
-from ..ops.constraints import SHAKERattle, setup_constraints
+from ..ops.cmap import cmap_coefficients, make_cmap_list
+from ..ops.constraints import build_constrainers, setup_constraints
 from ..ops.cutoffs import DistanceCutoff
 from ..ops.ewald import PME, EwaldExclusionCorrection, ewald_error_alpha
+from ..ops.gbsa import make_implicit_solvent
 from ..ops.general import LJDispersionCorrection
 from ..ops.mixing import (ExceptionTable, GeometricMixing, LorentzMixing,
                           MixingException)
 from ..ops.neighbors import CellListNeighborFinder, DistanceNeighborFinder
 from ..ops.pairwise import (CRF_SOLVENT_DIELECTRIC, Coulomb, CoulombEwald,
                             CoulombReactionField, LennardJones)
+from ..ops.virtual_sites import VirtualSites
 from ..system import Exclusions, System, molecule_ids_from_bonds
 from .forcefield import detect_bonds, find_template_by_graph
 from .pdb import read_pdb
@@ -125,6 +128,20 @@ def build_impropers(adj):
     return imps
 
 
+def build_cmaps(adj, torsions):
+    """Five-atom CMAP chains: each torsion extended by a neighbour of one
+    of its ends."""
+    cmaps = set()
+    for tor in torsions:
+        for a in adj[tor[0]]:
+            if a not in tor:
+                cmaps.add((a,) + tor)
+        for a in adj[tor[3]]:
+            if a not in tor:
+                cmaps.add(tor + (a,))
+    return sorted(cmaps)
+
+
 def _improper_ordering(ff, rule, perm, c, j, k, l, struct, type_of):
     """OpenMM's atom order of an improper term: (p1, p2, center, p4), the
     central atom third (mollytpu/models/setup.py:172-245). The matched
@@ -176,10 +193,11 @@ def _bonded_lists(ff, struct, adj, bonds, type_of, dtype, device):
     (mollytpu/models/setup.py:483-578): harmonic bonds, harmonic angles,
     proper torsions (one row per Fourier term), impropers (OpenMM's atom
     order), Urey-Bradley (kangle 0: the angle is already in the angle
-    list), RB propers, RB impropers; each only where it has rows. Returns
-    (lists, bond rows (i, j, r0), angle rows (i, j, k, theta0)) for the
-    constraint filter."""
+    list), RB propers, RB impropers, CMAP; each only where it has rows.
+    Returns (lists, bond rows (i, j, r0), angle rows (i, j, k, theta0))
+    for the constraint filter."""
     top_angles = build_angles(adj, bonds)
+    top_torsions = build_torsions(adj, top_angles)
     bond_rows, angle_rows, ub_rows = [], [], []
     for (i, j) in bonds:
         rule = ff.resolve_bond(type_of[i], type_of[j])
@@ -192,7 +210,7 @@ def _bonded_lists(ff, struct, adj, bonds, type_of, dtype, device):
             if rule.ub_k != 0.0:
                 ub_rows.append((i, j, k, rule.theta0, rule.ub_k, rule.ub_d))
     pt_rows, rb_rows, imp_rows, imp_rb_rows = [], [], [], []
-    for (i, j, k, l) in build_torsions(adj, top_angles):
+    for (i, j, k, l) in top_torsions:
         rule = ff.resolve_proper(type_of[i], type_of[j], type_of[k],
                                  type_of[l])
         if rule is None:
@@ -241,9 +259,61 @@ def _bonded_lists(ff, struct, adj, bonds, type_of, dtype, device):
             i, j, k, l, coeffs = cols(rows, 5)
             lists.append(bonded.rb_torsions(i, j, k, l, coeffs=coeffs,
                                             **kw))
+    if ff.cmap_rules:
+        cmap = _cmap_list(ff, adj, top_torsions, type_of, dtype, device)
+        if cmap is not None:
+            lists.append(cmap)
     return (tuple(lists),
             tuple([r[m] for r in bond_rows] for m in (0, 1, 3)),
             tuple([r[m] for r in angle_rows] for m in (0, 1, 2, 4)))
+
+
+def _cmap_list(ff, adj, torsions, type_of, dtype, device):
+    """The CMAP list of the topology's five-atom chains that a CMAP rule
+    of the force field matches, or None (mollytpu/models/setup.py:
+    579-600). Every map must be a square grid of one size."""
+    rows = []
+    for chain in build_cmaps(adj, torsions):
+        rule = ff.resolve_cmap(*(type_of[a] for a in chain))
+        if rule is not None:
+            rows.append(chain + (rule.map_index,))
+    if not rows:
+        return None
+    n_grid = max(math.isqrt(len(m)) for m in ff.cmap_maps)
+    if any(len(m) != n_grid * n_grid for m in ff.cmap_maps):
+        raise ValueError("CMAP maps must all be square grids of one size, "
+                         f"got {sorted({len(m) for m in ff.cmap_maps})} "
+                         "values")
+    table = np.stack([cmap_coefficients(np.asarray(m, dtype=np.float64)
+                                        .reshape(n_grid, n_grid))
+                      for m in ff.cmap_maps])
+    arr = np.array(rows, dtype=np.int64)
+    return make_cmap_list(*arr.T, table, n_grid, dtype=dtype, device=device)
+
+
+def _site_exclusions(vsite_specs, excl_pairs, spec_pairs):
+    """Exclusions and 1-4 pairs with the virtual sites': a site inherits
+    its first parent's exclusions and 1-4 partners and is excluded from
+    all its parents (mollytpu/models/setup.py:451-480); a pair both
+    excluded and 1-4 stays excluded only."""
+    excl_set, spec_set = set(excl_pairs), set(spec_pairs)
+    partner_excl, partner_spec = {}, {}
+    for (a, b) in excl_pairs:
+        partner_excl.setdefault(a, set()).add(b)
+        partner_excl.setdefault(b, set()).add(a)
+    for (a, b) in spec_pairs:
+        partner_spec.setdefault(a, set()).add(b)
+        partner_spec.setdefault(b, set()).add(a)
+    for (sidx, _, parents, _) in vsite_specs:
+        p0 = parents[0]
+        for q in partner_excl.get(p0, set()) | {p0} | set(parents):
+            if q != sidx:
+                excl_set.add((min(sidx, q), max(sidx, q)))
+        for q in partner_spec.get(p0, set()):
+            if q != sidx:
+                spec_set.add((min(sidx, q), max(sidx, q)))
+    return (sorted(excl_set),
+            sorted(s for s in spec_set if s not in excl_set))
 
 
 def _repartition(mass, bonds, elements, hydrogen_mass):
@@ -370,8 +440,9 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                     pme_error_tol=0.0005,
                     solvent_dielectric=CRF_SOLVENT_DIELECTRIC,
                     dtype=torch.float32, device=None, constraints="none",
-                    rigid_water=False, hydrogen_mass=None,
-                    implicit_solvent=None, neighbor_finder="block"):
+                    rigid_water=False, constraint_algorithm="shake",
+                    hydrogen_mass=None, implicit_solvent=None,
+                    implicit_solvent_kwargs=None, neighbor_finder="block"):
     """Build a System from a PDB file and a ForceField, on ``device`` (the
     CUDA card unless the caller names another, config.resolve_device).
 
@@ -388,17 +459,24 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
     and are rebuilt every ``neighbor_n_steps`` steps. NBFix overrides in
     the force field need "cell" or "distance": the pair kernel takes
     Lorentz-Berthelot mixing only. ``hydrogen_mass`` (u) repartitions the
-    masses of hydrogens and the heavy atoms they are bonded to."""
+    masses of hydrogens and the heavy atoms they are bonded to.
+
+    constraints: "none", "hbonds" (bonds to hydrogen), "allbonds" or
+    "hangles" (hydrogen bonds and angles with two hydrogen ends or a
+    central O), with ``rigid_water`` the water triangles; each on
+    ``constraint_algorithm`` "shake" (SHAKE / RATTLE) or "lincs" (LINCS,
+    but closed triangles stay on SHAKE). ``implicit_solvent`` "obc1",
+    "obc2" or "gbn2" adds generalized Born with the ACE term
+    (``implicit_solvent_kwargs``: dist_cutoff, kappa and the other fields
+    of ops.gbsa.ImplicitSolventOBC). Virtual sites of the residue
+    templates (TIP4P-Ew's M) get zero mass, their first parent's
+    exclusions and 1-4 pairs, and their positions from their parents."""
     if nonbonded_method not in ("cutoff", "pme", "none"):
         raise ValueError(f"unknown nonbonded_method {nonbonded_method}")
     if neighbor_finder not in NEIGHBOR_FINDERS:
         raise ValueError(f"neighbor_finder must be one of "
                          f"{NEIGHBOR_FINDERS}, got {neighbor_finder!r}")
     device = resolve_device(device)
-    if implicit_solvent is not None:
-        raise NotImplementedError("implicit solvent is not ported yet")
-    if ff.cmap_rules:
-        raise NotImplementedError("CMAP terms are not ported yet")
 
     struct = read_pdb(path)
     n = struct.n_atoms
@@ -441,8 +519,6 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                 ff, res.name, elems, internal[ri], ext)
             mapping = {ti: res.atom_indices[local_map[ti]]
                        for ti in range(len(tmpl.atoms))}
-        if tmpl.virtual_sites:
-            raise NotImplementedError("virtual sites are not ported yet")
         templates.append(tmpl)
         atom_map.append(mapping)
         for ti, ta in enumerate(tmpl.atoms):
@@ -459,17 +535,26 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
             raise ValueError(f"atom {g} ({struct.atom_names[g]}) has no type")
         sigma[g], epsilon[g], _ = ff.nonbonded_params(t)
         mass[g] = ff.atom_types[t].mass
+    vsite_specs = [(mapping[vs.index], vs.site_type,
+                    tuple(mapping[a] for a in vs.atoms), vs.weights)
+                   for tmpl, mapping in zip(templates, atom_map)
+                   for vs in tmpl.virtual_sites]
+    for (sidx, _, _, _) in vsite_specs:
+        mass[sidx] = 0.0
 
     bonds = _build_bonds(struct, templates, atom_map)
     adj = _adjacency(n, bonds)
     excl_pairs, spec_pairs = bfs_exclusions(adj, n)
+    if vsite_specs:
+        excl_pairs, spec_pairs = _site_exclusions(vsite_specs, excl_pairs,
+                                                  spec_pairs)
 
     lists, (b_i, b_j, b_r0), (a_i, a_j, a_k, a_t0) = _bonded_lists(
         ff, struct, adj, bonds, type_of, dtype, device)
     if hydrogen_mass is not None:
         _repartition(mass, bonds, struct.elements, hydrogen_mass)
 
-    pairs, dists, lists = setup_constraints(
+    pairs, dists, lists, triangle_rows = setup_constraints(
         struct, lists, b_i, b_j, b_r0, a_i, a_j, a_k, a_t0, constraints,
         rigid_water)
 
@@ -522,25 +607,33 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
                 device=device))
     if nonbonded_method != "none":
         general.append(make_dispersion_correction(sigma, epsilon, rc))
+    if implicit_solvent is not None:
+        general.append(make_implicit_solvent(
+            implicit_solvent, struct, bonds, charge_of, type_of=type_of,
+            dtype=dtype, device=device, **(implicit_solvent_kwargs or {})))
 
     exclusions = Exclusions.build(
         n, excl_pairs, spec_pairs,
         max_excl=_next8(_max_partners(excl_pairs, n)),
         max_special=_next8(_max_partners(spec_pairs, n)), device=device)
-    constrainers = ()
-    if pairs:
-        constrainers = (SHAKERattle.build(pairs, dists, dtype=dtype,
-                                          device=device),)
+    constrainers = build_constrainers(pairs, dists, triangle_rows,
+                                      atoms.mass, constraint_algorithm,
+                                      dtype=dtype, device=device)
     finder = None
     if nonbonded_method != "none":
         finder = _neighbor_finder(neighbor_finder, boundary, open_box,
                                   float(dist_neighbors), n, atoms, coords,
                                   neighbor_n_steps)
+    vsites = None
+    if vsite_specs:
+        vsites = VirtualSites.build(vsite_specs, dtype=dtype, device=device)
+        # the file's site positions are rounded: set them from the parents
+        coords = vsites.place(coords, boundary)
     mol_ids, n_mol = molecule_ids_from_bonds(n, bonds, device=device)
     return System(atoms=atoms, coords=coords, boundary=boundary,
                   pairwise_inters=pairwise, specific_lists=lists,
                   general_inters=tuple(general),
-                  constraints=constrainers,
+                  constraints=constrainers, virtual_sites=vsites,
                   exclusions=exclusions, neighbor_finder=finder,
                   molecule_ids=mol_ids, n_molecules=n_mol)
 

@@ -10,6 +10,12 @@ density gives liquid water (33.43 molecules/nm^3).
 the lattice then lives in fractional coordinates of the cell. ``angles=
 DODECAHEDRON`` is the rhombic dodecahedron with a square xy face, the
 usual solvent box of GROMACS, whose volume is d^3 / sqrt(2).
+
+``model="tip4pew"`` writes a fourth row per water, the massless site M of
+TIP4P-Ew at its average3 position from O, H1 and H2 (``TIP4PEW_XML``),
+with a blank element column: both packages' PDB readers then take the
+element from the atom name ("M"), which is neither O nor H, so the rigid
+water triangle and the hydrogen constraints leave the site alone.
 """
 
 from __future__ import annotations
@@ -25,9 +31,19 @@ WATER_DENSITY = 33.43
 #: CRYST1 angles (alpha, beta, gamma) of the xy-square rhombic dodecahedron
 DODECAHEDRON = (60.0, 60.0, 90.0)
 
-#: the force field the water boxes are written for
-TIP3P_XML = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "data", "tip3p_standard.xml")
+_DATA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
+
+#: the force fields the water boxes are written for: TIP3P, and the
+#: four-site TIP4P-Ew with its virtual site M
+TIP3P_XML = os.path.join(_DATA, "tip3p_standard.xml")
+TIP4PEW_XML = os.path.join(_DATA, "tip4pew.xml")
+
+#: TIP4P-Ew's average3 weights of H1 and H2 for the site M (d_OM 0.0125 nm)
+TIP4PEW_M_WEIGHT = 0.106676721
+
+#: the water models water_box_pdb writes
+WATER_MODELS = ("tip3p", "tip4pew")
 
 
 def _cell_basis(side, angles):
@@ -43,8 +59,9 @@ def _cell_basis(side, angles):
 
 
 def water_box_pdb(path, n_waters, density=WATER_DENSITY, seed=0,
-                  spacing=None, angles=(90.0, 90.0, 90.0)):
-    """Write a PDB of ``n_waters`` TIP3P waters to ``path`` and return it.
+                  spacing=None, angles=(90.0, 90.0, 90.0), model="tip3p"):
+    """Write a PDB of ``n_waters`` waters to ``path`` and return it: TIP3P's
+    three atoms each, or with ``model="tip4pew"`` also TIP4P-Ew's site M.
 
     The lattice has m = ceil(n_waters^(1/3)) sites along each cell edge;
     ``n_waters`` of the m^3 sites are picked with
@@ -53,6 +70,9 @@ def water_box_pdb(path, n_waters, density=WATER_DENSITY, seed=0,
     spacing); otherwise the cell holds ``n_waters`` at ``density``
     molecules/nm^3. ``angles`` (degrees) shape the cell; a triclinic cell
     places site (i, j, k) at fractional ((i, j, k) + 1/2) / m."""
+    if model not in WATER_MODELS:
+        raise ValueError(f"model must be one of {WATER_MODELS}, got "
+                         f"{model!r}")
     m = int(math.ceil(round(n_waters ** (1.0 / 3.0), 9)))
     ortho = tuple(float(x) for x in angles) == (90.0, 90.0, 90.0)
     if spacing is None:
@@ -78,16 +98,80 @@ def water_box_pdb(path, n_waters, density=WATER_DENSITY, seed=0,
                           half + spacing * k)
         else:
             ox, oy, oz = ((np.array([i, j, k]) + 0.5) / m) @ basis
-        for name, (x, y, z) in (("O", (ox, oy, oz)),
-                                ("H1", (ox + 0.9572, oy, oz)),
-                                ("H2", (ox - 0.2400, oy + 0.9266, oz))):
+        rows = [("O", (ox, oy, oz), "O"),
+                ("H1", (ox + 0.9572, oy, oz), "H"),
+                ("H2", (ox - 0.2400, oy + 0.9266, oz), "H")]
+        if model == "tip4pew":
+            w = TIP4PEW_M_WEIGHT
+            rows.append(("M", (ox + w * (0.9572 - 0.2400),
+                               oy + w * 0.9266, oz), ""))
+        for name, (x, y, z), element in rows:
             lines.append(
                 "HETATM%5d %4s %-4sA%4d    %8.3f%8.3f%8.3f"
                 "  1.00  0.00          %2s" % (
                     serial, (" " + name).ljust(4)[:4], "HOH",
-                    res, x, y, z, name[0]))
+                    res, x, y, z, element))
             serial += 1
     lines.append("END")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
+
+
+#: TIP3P in a GROMACS topology: the in-repo XML's parameters (nm, kJ/mol,
+#: e), LJ on O only, the fudge factors of its NonbondedForce
+_TIP3P_TOP = """; TIP3P water, the parameters of tip3p_standard.xml
+[ defaults ]
+; nbfunc  comb-rule  gen-pairs  fudgeLJ  fudgeQQ
+1         2          yes        0.5      0.833333
+
+[ atomtypes ]
+; name  at.num  mass      charge  ptype  sigma                epsilon
+OW      8       15.99943  0.0     A      0.31507524065751241  0.635968
+HW      1       1.007947  0.0     A      1.0                  0.0
+
+[ moleculetype ]
+; name  nrexcl
+SOL     2
+
+[ atoms ]
+;  nr  type  resnr  res  atom  cgnr  charge  mass
+   1   OW    1      SOL  OW    1     -0.834  15.99943
+   2   HW    1      SOL  HW1   1     0.417   1.007947
+   3   HW    1      SOL  HW2   1     0.417   1.007947
+
+[ settles ]
+; OW  funct  doh      dhh
+1     1      0.09572  {dhh!r}
+
+[ system ]
+TIP3P water box
+
+[ molecules ]
+SOL  {n}
+"""
+
+
+def water_box_gromacs(pdb_path, gro_path, top_path):
+    """Write a TIP3P water box PDB of water_box_pdb as GROMACS files: a .gro
+    of its coordinates (nm, the format's 3 decimals) and orthorhombic box,
+    and a .top of TIP3P's parameters with the water rigid by [ settles ]
+    (d_OH 0.09572 nm, d_HH from the XML's 104.52 degree angle). Returns
+    (gro_path, top_path)."""
+    from .pdb import read_pdb
+    struct = read_pdb(pdb_path)
+    if struct.box is None or struct.box.ndim != 1:
+        raise ValueError("water_box_gromacs writes orthorhombic boxes")
+    n = struct.n_atoms // 3
+    lines = ["TIP3P water box", f"{struct.n_atoms:5d}"]
+    for a, (x, y, z) in enumerate(struct.coords):
+        name = ("OW", "HW1", "HW2")[a % 3]
+        lines.append("%5d%-5s%5s%5d%8.3f%8.3f%8.3f" % (
+            (a // 3 + 1) % 100000, "SOL", name, (a + 1) % 100000, x, y, z))
+    lines.append("%10.5f%10.5f%10.5f" % tuple(struct.box))
+    with open(gro_path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    dhh = 2.0 * 0.09572 * math.sin(0.5 * 1.82421813418)
+    with open(top_path, "w") as fh:
+        fh.write(_TIP3P_TOP.format(dhh=dhh, n=n))
+    return gro_path, top_path

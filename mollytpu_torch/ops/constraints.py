@@ -1,12 +1,22 @@
-"""Holonomic distance constraints: cluster SHAKE / RATTLE
+"""Holonomic distance constraints: SHAKE / RATTLE
 (counterpart of mollytpu/ops/constraints.py:33-611, 622-769).
 
 Constraints are grouped into disjoint clusters of one shape (single bond,
 path of two, star of three, triangle), and each shape bucket is solved for
 all its clusters at once: Newton iterations with a closed-form <= 3 x 3
 linear solve for positions (SHAKE), one closed-form solve for velocities
-(RATTLE). Constraint graphs with other shapes (e.g. all-bond chains) need
-the JAX package's global sweeps, which are not ported yet.
+(RATTLE). A constraint graph with a component of any other shape (a chain
+of all bonds, a ring) is solved as a whole by the JAX package's global
+Jacobi sweeps: ``n_iters`` sweeps for positions and ``vel_iters`` for
+velocities, each moving every constraint's two atoms by its multiplier
+(damped by ``omega``) and summing the moves per atom with ``index_add_``
+(the JAX package gathers them from per-atom incidence tables, a TPU
+layout; the sums are the same).
+
+``setup_constraints`` makes the constraint pairs of a topology
+("hbonds", "allbonds", "hangles", rigid water) and ``build_constrainers``
+the solvers: all on SHAKE / RATTLE, or with ``algorithm="lincs"`` the
+closed triangles on SHAKE and the rest on LINCS (ops/lincs.py).
 """
 
 from __future__ import annotations
@@ -139,33 +149,36 @@ class SHAKERattle:
     idx_i: torch.Tensor   # (K,) int64
     idx_j: torch.Tensor   # (K,) int64
     dists: torch.Tensor   # (K,) target distances (nm)
-    clusters: tuple = ()  # (ClusterBucket, ...)
+    clusters: tuple = ()  # (ClusterBucket, ...); () for the global sweeps
     # Newton iterations of the cluster SHAKE solve: quadratic convergence
     # takes MD-step-sized violations to ~1e-14 in 3; 5 leaves margin
     newton_iters: int = 5
+    # the global Jacobi sweeps (mollytpu/ops/constraints.py:171-176)
+    n_iters: int = 60
+    vel_iters: int = 60
+    omega: float = 1.0
 
     @property
     def n_constraints(self) -> int:
         return int(self.idx_i.shape[0])
 
     @classmethod
-    def build(cls, pairs, dists, dtype=torch.float32, device=None):
+    def build(cls, pairs, dists, dtype=torch.float32, device=None,
+              n_iters=60, vel_iters=60, omega=1.0):
+        """The constraints of ``pairs`` at ``dists``: cluster solves where
+        every component of the graph has a cluster shape, else the global
+        sweeps for all of them."""
         pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
         dists = np.array(dists, dtype=np.float64)
-        buckets = _build_clusters(pairs, dists) if len(pairs) else []
-        if buckets is None:
-            raise NotImplementedError(
-                "constraint graph has a component that is not a single bond, "
-                "path of two, star of three or triangle; the global SHAKE "
-                "sweeps for such graphs are not ported yet")
-        clusters = tuple(ClusterBucket(
-            atoms=torch.as_tensor(at, device=device),
-            dists=torch.as_tensor(dd, dtype=dtype, device=device),
-            pattern=pat) for pat, at, dd in buckets)
+        buckets = _build_clusters(pairs, dists) if len(pairs) else None
         return cls(torch.as_tensor(pairs[:, 0], device=device),
                    torch.as_tensor(pairs[:, 1], device=device),
                    torch.as_tensor(dists, dtype=dtype, device=device),
-                   clusters=clusters)
+                   clusters=tuple(ClusterBucket(
+                       atoms=torch.as_tensor(at, device=device),
+                       dists=torch.as_tensor(dd, dtype=dtype, device=device),
+                       pattern=pat) for pat, at, dd in buckets or ()),
+                   n_iters=n_iters, vel_iters=vel_iters, omega=omega)
 
     @staticmethod
     def _inv_masses(masses):
@@ -182,6 +195,12 @@ class SHAKERattle:
         if self.n_constraints == 0:
             return coords_new, vels
         inv_m = self._inv_masses(masses)
+        if not self.clusters:
+            out = self._sweep_positions(coords_prev, coords_new, inv_m,
+                                        boundary)
+            if vels is not None:
+                vels = vels + (out - coords_new) / dt
+            return out, vels
         out = coords_new.clone()
         for b in self.clusters:
             pat, mc = b.pattern, len(b.pattern)
@@ -228,6 +247,8 @@ class SHAKERattle:
         if self.n_constraints == 0:
             return vels
         inv_m = self._inv_masses(masses)
+        if not self.clusters:
+            return self._sweep_velocities(coords, vels, inv_m, boundary)
         out = vels.clone()
         for b in self.clusters:
             pat, mc = b.pattern, len(b.pattern)
@@ -255,32 +276,95 @@ class SHAKERattle:
                            torch.stack(moves, dim=1).reshape(-1, 3))
         return out
 
+    def _scatter(self, out, per_constraint, im_i, im_j):
+        """out with each constraint's vector moved onto its atoms: -im_i v
+        onto i, +im_j v onto j."""
+        both = torch.cat([-im_i[:, None] * per_constraint,
+                          im_j[:, None] * per_constraint])
+        return out.index_add_(0, torch.cat([self.idx_i, self.idx_j]), both)
+
+    def _sweep_positions(self, coords_prev, coords_new, inv_m, boundary):
+        """The global Jacobi SHAKE (mollytpu/ops/constraints.py:528-556):
+        each sweep moves every constraint by its damped multiplier along
+        its pre-step direction."""
+        ii, jj = self.idx_i, self.idx_j
+        d0 = self.dists.to(coords_new.dtype)
+        im_i, im_j = inv_m[ii], inv_m[jj]
+        r_ref = boundary.displacement(coords_prev[jj], coords_prev[ii])
+        coords = coords_new.clone()
+        for _ in range(self.n_iters):
+            dr = boundary.displacement(coords[jj], coords[ii])
+            diff = (dr * dr).sum(dim=1) - d0 * d0
+            denom = 2.0 * (im_i + im_j) * (dr * r_ref).sum(dim=1)
+            denom = torch.where(denom.abs() > 1e-12, denom,
+                                torch.full_like(denom, 1e-12))
+            g = self.omega * diff / denom
+            self._scatter(coords, g[:, None] * r_ref, im_i, im_j)
+        return coords
+
+    def _sweep_velocities(self, coords, vels, inv_m, boundary):
+        """The global Jacobi RATTLE (mollytpu/ops/constraints.py:568-588)."""
+        ii, jj = self.idx_i, self.idx_j
+        im_i, im_j = inv_m[ii], inv_m[jj]
+        dr = boundary.displacement(coords[jj], coords[ii])
+        den = (im_i + im_j) * torch.clamp((dr * dr).sum(dim=1), min=1e-12)
+        vels = vels.clone()
+        for _ in range(self.vel_iters):
+            k = self.omega * ((vels[ii] - vels[jj]) * dr).sum(dim=1) / den
+            self._scatter(vels, k[:, None] * dr, im_i, im_j)
+        return vels
+
+    def constraint_virial(self, coords_prev, coords_new_unconstrained,
+                          coords_constrained, masses, boundary, dt):
+        """W_ab = sum_i x_i,a m_i dx_i,b / dt^2 with dx the SHAKE
+        correction: the virial of the constraint forces
+        (mollytpu/ops/constraints.py:590-596). No integrator reads it."""
+        return constraint_virial(coords_new_unconstrained,
+                                 coords_constrained, masses, dt)
+
     def max_violation(self, coords, boundary):
         dr = boundary.displacement(coords[self.idx_j], coords[self.idx_i])
         r = torch.linalg.vector_norm(dr, dim=1)
         return torch.max(torch.abs(r - self.dists.to(coords.dtype)))
 
 
+def constraint_virial(coords_new_unconstrained, coords_constrained, masses,
+                      dt):
+    """sum_i x_i (x) m_i (x_i - x_i^unconstrained) / dt^2, (3, 3)."""
+    f_eq = masses[:, None] * (coords_constrained
+                              - coords_new_unconstrained) / (dt * dt)
+    return coords_constrained.T @ f_eq
+
+
+#: the constraints= choices of setup_constraints and system_from_pdb
+CONSTRAINTS = ("none", "hbonds", "allbonds", "hangles")
+#: the constraint_algorithm= choices
+ALGORITHMS = ("shake", "lincs")
+
+
 def setup_constraints(struct, specific_lists, b_i, b_j, b_r0, a_i, a_j, a_k,
                       a_t0, constraints="none", rigid_water=False):
     """Constraint pairs and distances from the topology, and the bonded
     lists without the bond and angle rows the constraints replace:
-    (pairs, dists, lists). Rigid water is an O-H, O-H, H-H triangle;
-    "hbonds" adds every other bond to a hydrogen. A list that loses all
-    its rows stays, empty, in its place (mollytpu/ops/constraints.py:
-    732-745)."""
+    (pairs, dists, lists, triangle_rows), as the JAX package makes them
+    (mollytpu/ops/constraints.py:622-745). Rigid water is an O-H, O-H, H-H
+    triangle; "hbonds" adds every other bond to a hydrogen, "allbonds"
+    every other bond, "hangles" the hydrogen bonds, the water triangles
+    and each angle with two hydrogen ends or one hydrogen and a central O
+    (its end-to-end distance, closing a triangle). ``triangle_rows`` are
+    the rows of the pairs in closed triangles, which LINCS leaves to SHAKE.
+    A list that loses all its rows stays, empty, in its place."""
     from ..models.setup import is_water
 
-    if constraints not in ("none", "hbonds"):
-        raise NotImplementedError(
-            f"constraints={constraints!r}: only 'none' and 'hbonds' are "
-            "ported")
+    if constraints not in CONSTRAINTS:
+        raise ValueError(f"constraints={constraints!r} is not one of "
+                         f"{CONSTRAINTS}")
     elements = [e.upper() for e in struct.elements]
-    pairs, dists = [], []
+    pairs, dists, triangle_rows = [], [], set()
     drop_bond_rows, drop_angle_rows, water_atoms = set(), set(), set()
-    if rigid_water:
-        bond_len = {(min(i, j), max(i, j)): (row, r0)
-                    for row, (i, j, r0) in enumerate(zip(b_i, b_j, b_r0))}
+    bond_len = {(min(i, j), max(i, j)): (row, r0)
+                for row, (i, j, r0) in enumerate(zip(b_i, b_j, b_r0))}
+    if rigid_water or constraints == "hangles":
         angle_map = {(i, j, k): row
                      for row, (i, j, k) in enumerate(zip(a_i, a_j, a_k))}
         for res in struct.residues:
@@ -303,24 +387,85 @@ def setup_constraints(struct, specific_lists, b_i, b_j, b_r0, a_i, a_j, a_k,
             theta0 = float(a_t0[theta_row])
             d_hh = math.sqrt(r1 ** 2 + r2 ** 2
                              - 2 * r1 * r2 * math.cos(theta0))
+            triangle_rows.update(range(len(pairs), len(pairs) + 3))
             pairs += [(o, h1), (o, h2), (h1, h2)]
             dists += [r1, r2, d_hh]
             drop_bond_rows.update({row1, row2})
             drop_angle_rows.add(theta_row)
             water_atoms.update({o, h1, h2})
-    if constraints == "hbonds":
+    if constraints != "none":
         for row, (i, j, r0) in enumerate(zip(b_i, b_j, b_r0)):
             if row in drop_bond_rows or i in water_atoms or j in water_atoms:
                 continue
-            if elements[i] == "H" or elements[j] == "H":
+            if (constraints == "allbonds" or elements[i] == "H"
+                    or elements[j] == "H"):
                 pairs.append((i, j))
                 dists.append(float(r0))
                 drop_bond_rows.add(row)
+    if constraints == "hangles":
+        # the first row of each pair, as the JAX package's linear search
+        # finds it
+        row_of = {}
+        for r, p in enumerate(pairs):
+            row_of.setdefault(frozenset(p), r)
+        for row, (i, j, k) in enumerate(zip(a_i, a_j, a_k)):
+            if row in drop_angle_rows or i in water_atoms:
+                continue
+            n_h = (elements[i] == "H") + (elements[k] == "H")
+            if not (n_h == 2 or (n_h == 1 and elements[j] == "O")):
+                continue
+            d_ij = bond_len.get((min(i, j), max(i, j)))
+            d_jk = bond_len.get((min(j, k), max(j, k)))
+            if d_ij is None or d_jk is None:
+                continue
+            d_ij, d_jk = float(d_ij[1]), float(d_jk[1])
+            theta0 = float(a_t0[row])
+            d_ik = math.sqrt(d_ij ** 2 + d_jk ** 2
+                             - 2 * d_ij * d_jk * math.cos(theta0))
+            # (i, j) and (j, k) are constrained H bonds: (i, k) closes a
+            # triangle
+            triangle_rows.add(len(pairs))
+            for key in (frozenset((i, j)), frozenset((j, k))):
+                if key in row_of:
+                    triangle_rows.add(row_of[key])
+            row_of.setdefault(frozenset((i, k)), len(pairs))
+            pairs.append((i, k))
+            dists.append(d_ik)
+            drop_angle_rows.add(row)
     drops = {"harmonic_bond": drop_bond_rows,
              "harmonic_angle": drop_angle_rows}
     lists = tuple(_filter_rows(sl, drops[sl.kind]) if drops.get(sl.kind)
                   else sl for sl in specific_lists)
-    return pairs, dists, lists
+    return pairs, dists, lists, triangle_rows
+
+
+def build_constrainers(pairs, dists, triangle_rows, masses,
+                       algorithm="shake", dtype=torch.float32, device=None):
+    """The solvers of the constraints (mollytpu/ops/constraints.py:746-762):
+    one SHAKERattle, or with algorithm="lincs" the triangles on
+    SHAKERattle and the rest on LINCS (built from ``masses``, the
+    system's)."""
+    from .lincs import LINCS
+
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"constraint_algorithm={algorithm!r} is not one "
+                         f"of {ALGORITHMS}")
+    if not pairs:
+        return ()
+    if algorithm == "shake":
+        return (SHAKERattle.build(pairs, dists, dtype=dtype, device=device),)
+    tri = sorted(triangle_rows)
+    rest = [r for r in range(len(pairs)) if r not in triangle_rows]
+    out = []
+    if tri:
+        out.append(SHAKERattle.build([pairs[r] for r in tri],
+                                     [dists[r] for r in tri], dtype=dtype,
+                                     device=device))
+    if rest:
+        out.append(LINCS.build([pairs[r] for r in rest],
+                               [dists[r] for r in rest], masses, dtype=dtype,
+                               device=device))
+    return tuple(out)
 
 
 def _filter_rows(slist, drop):

@@ -25,6 +25,11 @@ the forces are the same). ``needs_virial`` is the
 step's own: the caller asks for it on the steps whose pressure a coupler
 reads (sim.coupling.virial_due); aux["virial"] holds the virial at the
 step's final coordinates and box.
+
+Virtual sites are placed from their parents after the constraints and the
+wrap, before the forces are recomputed, in every integrator but DPD's
+velocity Verlet; the MTS integrators place them once per outer step, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -60,6 +65,15 @@ def _apply_velocity_constraints(sys, coords, vels):
         vels = c.apply_velocity_constraints(coords, vels, sys.masses,
                                             sys.boundary)
     return vels
+
+
+def _placed(sys, coords):
+    """The coordinates wrapped into the box, with the virtual sites set
+    from their parents (mollytpu/sim/integrators.py:68-71)."""
+    coords = sys.boundary.wrap(coords)
+    if sys.virtual_sites is not None:
+        coords = sys.virtual_sites.place(coords, sys.boundary)
+    return coords
 
 
 def _recompute(sys, neighbors, step_n, needs_virial):
@@ -135,7 +149,7 @@ class VelocityVerlet(_IntegratorBase):
         coords = sys.coords + dt * vels
         coords, vels = _apply_position_constraints(sys, coords_prev, coords,
                                                    vels, dt)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
         vels = sys.velocities + 0.5 * dt * _accels(m, aux["forces"])
         sys = sys.update(velocities=_apply_velocity_constraints(
@@ -163,7 +177,7 @@ class Verlet(_IntegratorBase):
         coords_prev = sys.coords
         coords, vels = _apply_position_constraints(
             sys, coords_prev, sys.coords + dt * vels, vels, dt)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
         return self._finish_step(sys, neighbors, aux, step_n, generator,
                                  needs_virial, draws=draws)
@@ -192,7 +206,7 @@ class StormerVerlet(_IntegratorBase):
         coords, vels = _apply_position_constraints(
             sys, coords_prev, sys.coords + disp_prev + a_t * dt * dt, vels,
             dt)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         aux = {**aux, "coords_prev": coords_prev,
                **_recompute(sys, neighbors, step_n, needs_virial)}
         return sys, aux
@@ -261,7 +275,7 @@ class Langevin(_IntegratorBase):
         coords = coords + 0.5 * dt * vels
         coords, vels = _apply_position_constraints(sys, coords_prev, coords,
                                                    vels, dt)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
         return self._finish_step(sys, neighbors, aux, step_n, generator,
                                  needs_virial, draws=draws)
@@ -315,7 +329,7 @@ class LangevinSplitting(_IntegratorBase):
                                                                 generator)
                 vels = c1 * vels + _masked_noise(m, sigma, z)
         vels = _apply_velocity_constraints(sys, coords, vels)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         return self._finish_step(sys, neighbors, aux, step_n, generator,
                                  needs_virial, draws=draws)
 
@@ -344,7 +358,7 @@ class OverdampedLangevin(_IntegratorBase):
                   + _masked_noise(m, sigma, noise))
         coords, vels = _apply_position_constraints(
             sys, coords_prev, coords, sys.velocities, dt)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         aux = {**aux, **_recompute(sys, neighbors, step_n, needs_virial)}
         return self._finish_step(sys, neighbors, aux, step_n, generator,
                                  needs_virial, draws=draws)
@@ -377,7 +391,7 @@ class NoseHoover(_IntegratorBase):
         coords_prev = sys.coords
         coords, vels = _apply_position_constraints(
             sys, coords_prev, sys.coords + dt * vels, vels, dt)
-        sys = sys.update(coords=sys.boundary.wrap(coords), velocities=vels)
+        sys = sys.update(coords=_placed(sys, coords), velocities=vels)
         ke = kinetic_energy(m, vels)
         ke_target = 0.5 * (sys.n_dof + 1) * KB * self.temperature
         zeta = zeta + dt * (ke - ke_target) / (ke_target * self.damping ** 2)
@@ -513,6 +527,10 @@ class MTSIntegrator(_IntegratorBase):
 
         coords, vels = recurse(0, sys.coords, sys.velocities, 1)
         vels = _apply_velocity_constraints(sys, coords, vels)
+        if sys.virtual_sites is not None:
+            # once per outer step: the inner force evaluations see the
+            # sites where the last outer step left them, as in JAX
+            coords = sys.virtual_sites.place(coords, sys.boundary)
         sys = sys.update(coords=coords, velocities=vels)
         aux = {**aux, **{f"f_lvl{i}": f for i, f in enumerate(fl)},
                "forces": sum(fl)}

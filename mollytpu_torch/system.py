@@ -126,6 +126,7 @@ class System:
     specific_lists: Tuple = ()
     general_inters: Tuple = ()
     constraints: Tuple = ()
+    virtual_sites: object = None  # ops.virtual_sites.VirtualSites or None
     exclusions: Exclusions = None
     neighbor_finder: object = None
     n_dof: int = 0
@@ -145,8 +146,10 @@ class System:
                 self.n_atoms, dtype=torch.int32, device=self.coords.device))
         if self.n_dof == 0:
             n_constr = sum(c.n_constraints for c in self.constraints)
+            n_frozen = (self.virtual_sites.n_sites
+                        if self.virtual_sites is not None else 0)
             object.__setattr__(self, "n_dof", calc_n_dof(
-                self.n_atoms, n_constr, self.n_dims, True))
+                self.n_atoms, n_constr, self.n_dims, True, n_frozen))
 
     @property
     def n_atoms(self) -> int:

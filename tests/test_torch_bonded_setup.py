@@ -228,12 +228,17 @@ def test_position_restraints_match_jax(selector, k):
 
 
 def test_cmap_still_raises(tmp_path):
+    """CMAP is ported (tests/test_torch_cmap.py); a map that is not a
+    square grid still raises, naming CMAP (the JAX package fails to
+    reshape it)."""
     pdb, xml = write_molecule(tmp_path, "default")
     text = open(xml).read().replace("</ForceField>", """ <CMAPTorsionForce>
-  <Map>0 0 0 0</Map>
+  <Map>0 0 0 0 0</Map>
   <Torsion map="0" class1="HC" class2="CT" class3="N" class4="C" class5="CB"/>
  </CMAPTorsionForce>
 </ForceField>""")
     open(xml, "w").write(text)
-    with pytest.raises(NotImplementedError, match="CMAP"):
+    with pytest.raises(ValueError, match="CMAP"):
         pt.system_from_pdb(pdb, pt.ForceField(xml), device=CPU)
+    with pytest.raises(ValueError):
+        jax_system_from_pdb(pdb, JaxForceField(xml), build_cache=False)

@@ -114,6 +114,12 @@ def test_velocity_projection_matches_jax(case):
 
 
 def test_unsupported_constraint_graph_raises():
+    """A graph with a component of no cluster shape (a chain of five bonds)
+    no longer raises: it goes to the global sweeps, as in the JAX package
+    (tests/test_torch_constraints_global.py holds them against JAX)."""
     chain = [(i, i + 1) for i in range(5)]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SHAKERattle.build(chain, [0.1] * 5)
+    pc = SHAKERattle.build(chain, [0.1] * 5, device=CPU)
+    jc = JaxSHAKE.build(chain, jnp.asarray([0.1] * 5), n_atoms=6)
+    assert pc.clusters == () and jc.clusters == ()
+    assert (pc.n_iters, pc.vel_iters, pc.omega) == (
+        jc.n_iters, jc.vel_iters, jc.omega)

@@ -182,13 +182,16 @@ def test_triclinic_pme_raises(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs, what", [
-    (dict(constraints="allbonds"), "constraints="),
-    (dict(implicit_solvent="obc2"), "implicit solvent"),
-    (dict(constraints="hangles"), "constraints="),
+    (dict(constraints="allbond"), "constraints="),
+    (dict(implicit_solvent="obc3"), "implicit solvent"),
+    (dict(constraints="angles"), "constraints="),
 ])
 def test_unported_options_raise(kwargs, what):
+    """"allbonds", "hangles" and implicit solvent are ported
+    (tests/test_torch_constraints_global.py, tests/test_torch_gbsa.py);
+    names that are no option raise, naming the argument."""
     args = dict(rigid_water=True, constraints="hbonds")
     args.update(kwargs)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         pt.system_from_pdb(box_path("tiny64"), pt.ForceField(pt.TIP3P_XML),
                            device=CPU, **args)

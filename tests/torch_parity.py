@@ -31,13 +31,15 @@ CADENCE = 20
 CPU = torch.device("cpu")
 
 #: the water boxes of the parity tests: the bench tiny box (64 waters on a
-#: 6.5 A lattice, 26 A box), 512 waters at liquid density, and 64 waters in
+#: 6.5 A lattice, 26 A box), 512 waters at liquid density, 64 waters in
 #: a rhombic dodecahedron of edge 34 A (smallest perpendicular width
-#: 2.40 nm, above twice the list radius)
+#: 2.40 nm, above twice the list radius), and the tiny box's lattice with
+#: TIP4P-Ew waters (four sites each, M a virtual site)
 BOXES = {"tiny64": dict(n_waters=64, spacing=6.5),
          "liquid512": dict(n_waters=512),
          "dodeca64": dict(n_waters=64, spacing=8.5,
-                          angles=pt.DODECAHEDRON)}
+                          angles=pt.DODECAHEDRON),
+         "tip4p64": dict(n_waters=64, spacing=6.5, model="tip4pew")}
 #: the boxes PME runs in (orthorhombic)
 PME_BOXES = ("liquid512", "tiny64")
 
@@ -53,15 +55,22 @@ def box_path(name):
     return path
 
 
+def force_field_xml(name):
+    """The force field a box is written for: TIP4P-Ew or TIP3P."""
+    return (pt.TIP4PEW_XML if BOXES[name].get("model") == "tip4pew"
+            else pt.TIP3P_XML)
+
+
 @functools.lru_cache(maxsize=None)
-def jax_system(name, method="pme", rigid=True):
+def jax_system(name, method="pme", rigid=True, algorithm="shake"):
     """JAX-built f64 water box (PME or reaction field; rigid water, or
-    flexible H-O-H angles with constrained O-H bonds) with its block-pair
-    finder attached."""
+    flexible H-O-H angles with constrained O-H bonds, on SHAKE or LINCS)
+    with its block-pair finder attached."""
     sys = jax_system_from_pdb(
-        box_path(name), JaxForceField(pt.TIP3P_XML),
+        box_path(name), JaxForceField(force_field_xml(name)),
         nonbonded_method=method, dtype=jnp.float64, constraints="hbonds",
-        rigid_water=rigid, dist_neighbors=LIST_RADIUS, build_cache=False)
+        rigid_water=rigid, dist_neighbors=LIST_RADIUS, build_cache=False,
+        constraint_algorithm=algorithm)
     finder = JaxBlockPairFinder.setup(
         sys.boundary, LIST_RADIUS, sys.n_atoms, n_steps=CADENCE,
         coords=sys.coords, atoms=sys.atoms, block=32, lanes=128)
@@ -69,13 +78,35 @@ def jax_system(name, method="pme", rigid=True):
 
 
 @functools.lru_cache(maxsize=None)
-def port_system(name, method="pme", rigid=True):
+def port_system(name, method="pme", rigid=True, algorithm="shake"):
     """The same box built by mollytpu_torch, f64 on the CPU."""
     return pt.system_from_pdb(
-        box_path(name), pt.ForceField(pt.TIP3P_XML), nonbonded_method=method,
+        box_path(name), pt.ForceField(force_field_xml(name)),
+        nonbonded_method=method,
         dtype=torch.float64, device=CPU, constraints="hbonds",
         rigid_water=rigid, dist_neighbors=LIST_RADIUS,
-        neighbor_n_steps=CADENCE)
+        neighbor_n_steps=CADENCE, constraint_algorithm=algorithm)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_exact_system(name, method="pme", rigid=True, algorithm="shake"):
+    """The JAX-built f64 box on the JAX package's dense all-pairs engine
+    with the exact erfc (approximate_pme=False) and the PME of the default
+    build (its smoothed mesh, which the port's setup also takes): the
+    reference the port's force field meets to 1e-9, where JAX's pair
+    kernel's polynomial erfc is 1e-6 off."""
+    sys = jax_system_from_pdb(
+        box_path(name), JaxForceField(force_field_xml(name)),
+        nonbonded_method=method, dtype=jnp.float64, constraints="hbonds",
+        rigid_water=rigid, approximate_pme=False, build_cache=False,
+        neighbor_finder=None, constraint_algorithm=algorithm)
+    inters = tuple(dataclasses.replace(i, use_neighbors=False)
+                   for i in sys.pairwise_inters)
+    general = sys.general_inters
+    if method == "pme":
+        general = (jax_system(name, method, rigid).general_inters[0],) + \
+            general[1:]
+    return sys.update(pairwise_inters=inters, general_inters=general)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,7 +116,7 @@ def jax_dense_rf_system(name="tiny64", seed=1, temp=300.0):
     where the Pallas kernel in interpret mode takes tens), with seeded
     Maxwell-Boltzmann velocities."""
     sys = jax_system_from_pdb(
-        box_path(name), JaxForceField(pt.TIP3P_XML),
+        box_path(name), JaxForceField(force_field_xml(name)),
         nonbonded_method="cutoff", dtype=jnp.float64, constraints="hbonds",
         rigid_water=True, build_cache=False, neighbor_finder=None)
     inters = tuple(dataclasses.replace(i, use_neighbors=False)
@@ -139,11 +170,13 @@ def jax_step_draws(key, n_steps, n_atoms, n_dof, couplers=()):
 
 
 def seeded_velocities(js, seed=1, temp=300.0):
-    """The JAX system with Maxwell-Boltzmann velocities drawn by numpy."""
+    """The JAX system with Maxwell-Boltzmann velocities drawn by numpy;
+    massless sites get none."""
     rng = np.random.default_rng(seed)
     m = np64(js.atoms.mass)
     v = rng.normal(size=(js.n_atoms, 3)) * np.sqrt(
-        pt.units.KB * temp / m)[:, None]
+        pt.units.KB * temp / np.where(m > 0, m, 1.0))[:, None]
+    v[m == 0] = 0.0
     return js.update(velocities=jnp.asarray(v))
 
 
@@ -156,6 +189,20 @@ def jax_fresh_start(js, sim):
         return js.update(velocities=mt.remove_cm_motion(js.masses,
                                                         js.velocities))
     return js
+
+
+def jax_dense_steps(sim, js, key, n_steps):
+    """n_steps of the JAX package's ``sim`` from ``js`` on its dense engine
+    (no neighbor list), each step jitted once and called from a Python
+    loop with the keys the chunk runner splits (simulate.py:71): the chunk
+    runner's trajectory to rounding, without compiling its scan (seconds
+    instead of tens). Returns (system, aux)."""
+    step = jax.jit(lambda s, a, k, n: sim.step(s, None, a, n, k))
+    aux = sim.init_aux(js, None)
+    for n in range(n_steps):
+        key, sub = jax.random.split(key)
+        js, aux = step(js, aux, sub, n)
+    return js, aux
 
 
 def jax_noise_sequence(key, n_steps, shape, n_sub=None):
