@@ -159,11 +159,33 @@ Phases, each printing one line or more before the next starts:
    chains and a random 24 x 24 grid, the global SHAKE sweeps on six-rings,
    and the four virtual-site types.
 
+11. after FEP-water, the free-energy phases on the PME path's end state
+   (K1a) and FEP-water's end state at lambda 0.75 (K1c), the CV the O-O
+   distance from FEP-water's solute oxygen to the oxygen nearest it:
+   Umbrella-MBAR, eight SquareBias windows (2,000 kJ/mol/nm^2, 0.25-0.60
+   nm) each 50 + 150 steps from the previous window's end with the eight
+   window energies every 10 steps (one energy launch each), MBAR on the
+   card against the CPU, the PMF with error bars (mbar_pmf,
+   pmf_with_uncertainty) on 14 bins from 0.24 to 0.66 nm, each window's
+   mean CV within three sqrt(kT/k) of its centre; AWH-umbrella,
+   AWHSimulation over the same windows (40 iterations of 20 steps) with
+   its PMF backend; GridAWH, 20 updates of 20 steps on 16 bins from 0.24
+   to 0.64 nm; AWH-lambda, AWHSimulation over a 12-rung lambda ladder on
+   the inserted water (12 energy launches per sweep); TSS-lambda, two
+   replicas from the ladder's ends over its 4-rung windows, 15 cycles of
+   20 steps, the stitched free energies and, where every window has
+   samples in two retained epochs, the jackknife. Gates: exact launches
+   (one per force evaluation and one per lambda of each energy sweep), the
+   state, no stale list at any rebuild of any segment, finite estimates,
+   and the last frame of each phase against float64 through the plain
+   twins (each state's energy, U_k - U_0, each bias's energy and forces).
+
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
 and MTS-PME paths together; coul3-triclinic's those of PME-dodecahedron,
 its production and resumed steps and the integrators phase), K1a on the
-TIP4P-Ew-PME and on the LINCS-PME frame with those paths' launches, K1a's
+TIP4P-Ew-PME and on the LINCS-PME frame with those paths' launches, K1a
+and K1c on each free-energy phase with its launches, K1a's
 energy and virial instance on the NPT path, coul3-triclinic's on the
 production phase, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
@@ -348,6 +370,39 @@ TOL_F64, NEAR_CUT = 1e-3, 2e-6
 TOL_LAM1_FORCE, TOL_LAM1_ENERGY = 1e-5, 1e-5
 # MBAR on the card against the same float64 solve on the CPU, in kT
 TOL_MBAR = 1e-8
+
+#: the free-energy phases after FEP-water, on the PME path's and
+#: FEP-water's end states. The CV is the O-O distance from FEP-water's
+#: solute oxygen to the oxygen nearest it at the phase's start.
+#: Umbrella-MBAR: UMB_CENTERS windows of UMB_K kJ/mol/nm^2, each UMB_WARMUP
+#: + UMB_STEPS steps from the previous window's end, the K window energies
+#: every UMB_SAMPLE steps; the PMF on PMF_BINS (lo, hi, bins)
+UMB_K = 2000.0
+UMB_CENTERS = tuple(round(0.25 + 0.05 * k, 2) for k in range(8))
+UMB_WARMUP, UMB_STEPS, UMB_SAMPLE = 50, 150, 10
+PMF_BINS = (0.24, 0.66, 14)
+#: a window's mean CV within UMB_SIGMAS standard deviations sqrt(kT / k)
+#: of its centre
+UMB_SIGMAS = 3.0
+#: AWH over the umbrella windows (its PMF backend on AWH_GRID) and over
+#: the lambda ladder: steps per segment, iterations; GridAWH on the CV:
+#: (lo, hi, bins), updates of GRID_STEPS steps
+AWH_MD, AWH_ITERS, AWH_GRID = 20, 40, (0.24, 0.64, 16)
+GRID_AWH, GRID_UPDATES, GRID_STEPS = (0.24, 0.64, 16), 20, 20
+#: the lambda ladder on FEP-water's inserted water (AWH-lambda starts at
+#: rung LADDER_START); TSS: windows of TSS_WINDOW rungs, a replica from
+#: each end of the ladder, steps per segment, cycles
+N_LADDER, LADDER_START = 12, 8
+TSS_WINDOW, TSS_STARTS, TSS_MD, TSS_CYCLES = 4, (0, 11), 20, 15
+#: the last frame of each phase against float64 through the plain twins:
+#: each state's energy relative (TOL_F64, as the main paths) and its
+#: difference from state 0, U_k - U_0, in kJ/mol: the states share the f32
+#: coordinates and all but the solute's or the bias's terms, so their
+#: differences keep far less than the f32 total's rounding (~0.1 kJ/mol
+#: of PME's f32 mesh sums at most); TOL_STATE_DIFF is 0.2 kT. A bias's
+#: energy and forces relative to max(1, the float64 largest): the f32
+#: distance carries ~5e-7 nm of coordinate rounding into k (d - d0).
+TOL_STATE_DIFF, TOL_BIAS = 0.5, 1e-4
 
 # The kernel's bound: the largest of its bytes over the card's memory
 # rate, its FP32 operations over the card's FP32 rate and its special-
@@ -1059,13 +1114,11 @@ def near_cutoff_atoms(spec, nb, boundary, n):
     return flag[:n]
 
 
-def reference_forces(sys32, coords32):
-    """Forces and potential energy of the full force field (bonded lists
-    included) on coords32, evaluated in float64 through the plain twins on
-    the card, and the atoms near a cutoff (near_cutoff_atoms)."""
+def f64_system(sys32, coords32):
+    """sys32 in float64 on its device at coords32, with a float64
+    cluster-pair list built there."""
     import torch
     import mollytpu_torch as pt
-    from mollytpu_torch.ops import pair_kernel as pk
     system = pt.System(
         atoms=sys32.atoms.to(dtype=torch.float64),
         coords=coords32.double(), boundary=sys32.boundary.to(
@@ -1084,6 +1137,15 @@ def reference_forces(sys32, coords32):
             sys32.n_atoms, sys32.atoms.to(dtype=torch.float64)))
     nb = system.neighbor_finder.find(system.coords, system.boundary,
                                      system.exclusions)
+    return system, nb
+
+
+def f64_forces_energy(system, nb):
+    """Forces and potential energy of a f64_system through the plain
+    twins: the pair terms, their far-pair corrections, the bonded lists and
+    the general interactions; with the kernel's spec and rows."""
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
     spec = pk.build_fused_spec(system.pairwise_inters)
     nbk, lam_role, charge = pk.kernel_inputs(spec, system.coords,
                                              system.atoms, nb)
@@ -1100,6 +1162,15 @@ def reference_forces(sys32, coords32):
         fg, _ = g.force_virial(system.coords, system.boundary, system.atoms)
         f = f + fg
         e = e + g.energy(system.coords, system.boundary, system.atoms)
+    return f, e, spec, nbk
+
+
+def reference_forces(sys32, coords32):
+    """Forces and potential energy of the full force field (bonded lists
+    included) on coords32, evaluated in float64 through the plain twins on
+    the card, and the atoms near a cutoff (near_cutoff_atoms)."""
+    system, nb = f64_system(sys32, coords32)
+    f, e, spec, nbk = f64_forces_energy(system, nb)
     near = near_cutoff_atoms(spec, nbk, system.boundary, system.n_atoms)
     vs = sys32.virtual_sites
     if vs is not None:
@@ -2122,6 +2193,506 @@ def fep_mbar(e):
     print(f"FEP-water: dG(lambda 0 -> 1) of inserting one TIP3P water "
           f"{dg:.4f} kJ/mol (not converged: {len(FEP_LAMS)} x {FEP_STEPS} "
           "steps)", flush=True)
+
+
+@contextlib.contextmanager
+def timed_calls(bucket, *targets):
+    """Each (owner, attribute) callable timed into bucket[attribute]
+    (seconds, summed), the card synchronised before and after every call:
+    the split of an AWH or TSS iteration into its parts."""
+    import torch
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            bucket[name] = bucket.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield bucket
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def check_bias_f64(label, bias, sys32, sys64):
+    """A bias's f32 energy and autograd forces on the card against float64
+    on the same coordinates."""
+    e32 = float(bias.energy(sys32.coords, sys32.boundary, sys32.atoms))
+    e64 = float(bias.energy(sys64.coords, sys64.boundary, sys64.atoms))
+    f32, _ = bias.force_virial(sys32.coords, sys32.boundary, sys32.atoms)
+    f64, _ = bias.force_virial(sys64.coords, sys64.boundary, sys64.atoms)
+    scale = max(1.0, float(f64.abs().max()))
+    df = float((f32.double() - f64).abs().max()) / scale
+    de = abs(e32 - e64) / max(1.0, abs(e64))
+    if df > TOL_BIAS or de > TOL_BIAS:
+        raise RuntimeError(f"{label}: bias energy {e32:.6e} against float64 "
+                           f"{e64:.6e} (rel {de:.3e}), forces max|dF| / "
+                           f"max|F| {df:.3e} (tolerance {TOL_BIAS})")
+    return df, de
+
+
+def check_states_f64(label, space, system, nb):
+    """The phase's last frame: the K-state energies on the card (f32
+    through the kernel, the sweep of the phase) against a float64
+    evaluation through the plain twins at each state's lambda plus its
+    float64 bias; each state's bias against float64 (check_bias_f64)."""
+    import numpy as np
+    import mollytpu_torch as pt
+    e32 = space.state_energies(system, nb).cpu().numpy()
+    sys64, nb64 = f64_system(system, system.coords)
+    at_lam, e64, bias_err = {}, [], [0.0, 0.0]
+    for k, st in enumerate(space.states):
+        lam = float(st.lam)
+        if lam not in at_lam:
+            at_lam[lam] = float(f64_forces_energy(pt.set_lambda(
+                sys64, lam, space.atom_mask), nb64)[1])
+        e = at_lam[lam]
+        b = space.biases[k] if space.biases is not None else None
+        if b is not None:
+            e += float(b.energy(sys64.coords, sys64.boundary, sys64.atoms))
+            bias_err = [max(a, c) for a, c in zip(bias_err, check_bias_f64(
+                f"{label} state {k}", b, system, sys64))]
+        e64.append(e)
+    e64 = np.array(e64)
+    rel = float((np.abs(e32 - e64) / np.abs(e64)).max())
+    diff = float(np.abs((e32 - e32[0]) - (e64 - e64[0])).max())
+    line = (f"{label} last frame vs float64 twins: {space.n_states} state "
+            f"energies ({len(at_lam)} lambdas) max rel dE {rel:.3e} "
+            f"(tolerance {TOL_F64}), max |d(U_k - U_0)| {diff:.3e} kJ/mol "
+            f"(tolerance {TOL_STATE_DIFF}; U_k - U_0 spans "
+            f"{float(np.ptp(e64 - e64[0])):.4f} kJ/mol)")
+    if space.biases is not None:
+        line += (f"; biases: max|dF|/max|F| {bias_err[0]:.3e}, rel dE "
+                 f"{bias_err[1]:.3e} (tolerance {TOL_BIAS})")
+    print(line, flush=True)
+    if not (rel <= TOL_F64 and diff <= TOL_STATE_DIFF):
+        raise RuntimeError(line)
+
+
+def count_launches(label, family, n_force, n_energy):
+    """The phase's pair-kernel launches since the counts were set to 0:
+    exactly one per force evaluation and one per lambda of each energy
+    sweep, all of instance ``family``, the sweeps' with energy."""
+    from mollytpu_torch.ops import pair_kernel as pk
+    n = pk.LAUNCHES
+    if (n != n_force + n_energy or pk.INSTANCE_LAUNCHES[family] != n
+            or pk.ENERGY_LAUNCHES[family] != n_energy):
+        raise RuntimeError(
+            f"{label}: pair kernel launched {n} times ({dict(pk.INSTANCE_LAUNCHES)}, "
+            f"with energy {dict(pk.ENERGY_LAUNCHES)}) for {n_force} force "
+            f"evaluations and {n_energy} energy evaluations of instance "
+            f"{family}")
+    print(f"{label}: {n} pair-kernel launches (instance {family}) = "
+          f"{n_force} force evaluations + {n_energy} energy evaluations",
+          flush=True)
+    return n
+
+
+def umbrella_cv(system, o_c):
+    """CalcSingleDist from oxygen o_c to the oxygen nearest it in
+    ``system``, and their distance."""
+    import torch
+    import mollytpu_torch as pt
+    x = system.coords.double()
+    oxy = torch.nonzero(system.atoms.mass > 2.0).flatten()
+    d = system.boundary.displacement(x[o_c], x[oxy]).norm(dim=1)
+    d = torch.where(oxy == o_c, torch.inf, d)
+    k = int(torch.argmin(d))
+    return pt.CalcSingleDist(int(o_c), int(oxy[k])), float(d[k])
+
+
+def umbrella_phase(start, cv, space, pme_ms):
+    """Umbrella-MBAR: each window from the previous window's end (the
+    first from ``start``), UMB_WARMUP steps through simulate, then
+    UMB_STEPS in chunks of UMB_SAMPLE with the K window energies after
+    each; gates: launches, state, windows sampled, float64 at the last
+    frame; then MBAR and the PMF (umbrella_mbar)."""
+    import torch
+    import mollytpu_torch as pt
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
+    base = start.general_inters
+    from mollytpu_torch.ops import pair_kernel as pk
+    pk.reset_launch_counts()
+    n_force = n_sweep = 0
+    energies, cvs, closest, t_md, t_sweep = [], [], math.inf, 0.0, 0.0
+    sigma = math.sqrt(pt.units.KB * TEMP / UMB_K)
+    t_start = time.perf_counter()
+    state = start
+    for k, centre in enumerate(UMB_CENTERS):
+        gen = torch.Generator(device=start.device).manual_seed(SEED + 100 + k)
+        biased, nb, aux = pt.simulate(space.apply_state(state, k), sim,
+                                      UMB_WARMUP, generator=gen)
+        n_force += 1 + UMB_WARMUP
+        step, samples, xs = UMB_WARMUP, [], []
+        for _ in range(UMB_STEPS // UMB_SAMPLE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            biased, nb, aux, near = pt.run_chunk(sim, biased, nb, aux, step,
+                                                 UMB_SAMPLE, generator=gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            unbiased = biased.update(general_inters=base)
+            samples.append(space.state_energies(unbiased, nb))
+            xs.append(cv.value(unbiased.coords, unbiased.boundary).double())
+            torch.cuda.synchronize()
+            t_md += t1 - t0
+            t_sweep += time.perf_counter() - t1
+            closest = min(closest, near)
+            step += UMB_SAMPLE
+            n_force += UMB_SAMPLE
+            n_sweep += 1
+        state = biased.update(general_inters=base)
+        energies.append(torch.stack(samples, dim=1))             # (K, S)
+        x = torch.stack(xs)
+        cvs.append(x)
+        temp, viol = check_state(f"Umbrella-MBAR window {k}", state)
+        mean, sd = float(x.mean()), float(x.std())
+        line = (f"Umbrella-MBAR window {k} (centre {centre} nm): CV mean "
+                f"{mean:.4f} sd {sd:.4f} nm over {len(xs)} samples; T "
+                f"{temp:.2f} K, max constraint violation {viol:.3e} nm")
+        print(line, flush=True)
+        if not abs(mean - centre) <= UMB_SIGMAS * sigma:
+            raise RuntimeError(line + f": the mean is more than {UMB_SIGMAS}"
+                               f" x {sigma:.4f} nm from the centre")
+    wall = time.perf_counter() - t_start
+    launches = count_launches("Umbrella-MBAR", "coul3-ortho", n_force, n_sweep)
+    n_md = len(UMB_CENTERS) * UMB_STEPS
+    ms = 1e3 * t_md / n_md
+    bias = space.biases[-1]
+    t_bias = _time(lambda: bias.force_virial(state.coords, state.boundary,
+                                             state.atoms))
+    print(f"Umbrella-MBAR: {len(UMB_CENTERS)} windows x ({UMB_WARMUP} + "
+          f"{UMB_STEPS}) steps in {wall:.1f} s; biased MD {ms:.4f} ms/step "
+          f"(the unbiased PME path {pme_ms:.4f} ms/step in this run; the "
+          f"bias's autograd forces {t_bias:.4f} ms per call); "
+          f"{1e3 * t_sweep / n_sweep:.4f} ms per sample of the "
+          f"{len(UMB_CENTERS)} window energies (one energy launch, the "
+          "bias energies and the CV); unlisted atom pairs at the sampled "
+          f"chunks' rebuilds at least {closest:.4f} nm apart", flush=True)
+    check_states_f64("Umbrella-MBAR", space, state, nb)
+    umbrella_mbar(torch.stack(energies), torch.cat(cvs))
+    return dict(launches=launches, ms=ms, wall=wall)
+
+
+def umbrella_mbar(e, x):
+    """MBAR in float64 on the card from e[k, l, s] = U_l of sample s of
+    window k, against the same solve on the CPU; the PMF along the CV
+    reweighted to the unbiased state (u_kn[0] less window 0's bias), with
+    error bars. Gates: the card's f within TOL_MBAR of the CPU's, every f
+    finite, every value and error bar finite in each sampled bin."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    k = len(UMB_CENTERS)
+    inp = pt.assemble_mbar_inputs(e, temperature=[TEMP] * k)
+    t0 = time.perf_counter()
+    f_card = pt.iterate_mbar(inp)
+    torch.cuda.synchronize()
+    t_mbar = time.perf_counter() - t0
+    f_cpu = pt.iterate_mbar(pt.MBARInput(inp.u_kn.cpu(), inp.n_k.cpu()))
+    diff = float((f_card.cpu() - f_cpu).abs().max())
+    log_d = torch.logsumexp(torch.log(inp.n_k.double())[:, None]
+                            + f_card[:, None] - inp.u_kn, dim=0)
+    resid = (f_card[:, None] - inp.u_kn - log_d).exp().sum(dim=1) - 1.0
+    line = (f"Umbrella-MBAR MBAR (float64, u_kn {tuple(inp.u_kn.shape)}): "
+            f"f_k {[round(float(v), 4) for v in f_card.cpu()]} kT on the "
+            f"card in {t_mbar:.3f} s; max |card - CPU| {diff:.3e} kT "
+            f"(tolerance {TOL_MBAR}); MBAR equations' residual "
+            f"{float(resid.abs().max()):.3e}")
+    print(line, flush=True)
+    if not bool(torch.isfinite(f_card).all()) or not diff <= TOL_MBAR:
+        raise RuntimeError(line)
+    beta = 1.0 / (pt.units.KB * TEMP)
+    target = inp.u_kn[0] - beta * 0.5 * UMB_K * (x - UMB_CENTERS[0]) ** 2
+    lo, hi, n_bins = PMF_BINS
+    edges = np.linspace(lo, hi, n_bins + 1)
+    t0 = time.perf_counter()
+    pmf = pt.pmf_with_uncertainty(inp, x, edges, TEMP, target_state_u=target)
+    plain = pt.mbar_pmf(inp, x, edges, TEMP, target_state_u=target)
+    torch.cuda.synchronize()
+    t_pmf = time.perf_counter() - t0
+    counts = np.bincount(np.clip(np.searchsorted(
+        edges, x.cpu().numpy()) - 1, 0, n_bins - 1), minlength=n_bins)
+    vals, sig = pmf.values.cpu().numpy(), pmf.uncertainties.cpu().numpy()
+    sampled = counts > 0
+    print("Umbrella-MBAR PMF (kJ/mol, min 0; O-O distance: -kT ln g(r) - "
+          f"2kT ln r + const; {t_pmf:.3f} s on the card): " + "; ".join(
+              f"{c:.3f} nm {v:.3f} +- {u:.3f} ({n})" for c, v, u, n in zip(
+                  pmf.centers.cpu().numpy(), vals, sig, counts)), flush=True)
+    ok = (np.isfinite(vals[sampled]).all() and np.isfinite(sig[sampled]).all()
+          and np.isfinite(plain.values.cpu().numpy()[sampled]).all())
+    if not ok:
+        raise RuntimeError("Umbrella-MBAR: a PMF value or error bar in a "
+                           "sampled bin is not finite")
+
+
+def run_awh(label, awh, start, family, per_sweep, gen):
+    """One AWHSimulation run from ``start`` with its parts timed; gates:
+    launches (per iteration init_aux, the segment's steps and the sweep's
+    ``per_sweep`` energy launches), state, finite f. Returns the final
+    System."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.free_energy import awh as awh_mod
+    from mollytpu_torch.ops import pair_kernel as pk
+    pk.reset_launch_counts()
+    bucket = {}
+    t0 = time.perf_counter()
+    with timed_calls(bucket, (awh_mod, "run_chunk"),
+                     (pt.ExtendedStateSpace, "state_energies"),
+                     (pt.AWHSimulation, "_process_sample"),
+                     (pt.AWHSimulation, "_gibbs_sample_window"),
+                     (pt.AWHSimulation, "_update_bias"),
+                     (pt.AWHPMFBackend, "update")):
+        final = awh.simulate(start, AWH_MD * AWH_ITERS, seed=SEED,
+                             generator=gen)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = count_launches(label, family, AWH_ITERS * (1 + AWH_MD),
+                              AWH_ITERS * per_sweep)
+    temp, viol = check_state(label, final)
+    f = awh.free_energies()
+    st = awh.state
+    host = sum(bucket.get(k, 0.0) for k in (
+        "_process_sample", "_gibbs_sample_window", "_update_bias", "update"))
+    md, sweep = bucket["run_chunk"], bucket["state_energies"]
+    line = (f"{label}: {AWH_ITERS} iterations of {AWH_MD} steps in "
+            f"{wall:.2f} s, per iteration {1e3 * wall / AWH_ITERS:.2f} ms: "
+            f"MD {1e3 * md / AWH_ITERS:.2f} ms ({1e3 * md / (AWH_ITERS * AWH_MD):.4f}"
+            f" ms/step), energy sweep {1e3 * sweep / AWH_ITERS:.2f} ms, host "
+            f"estimator {1e3 * host / AWH_ITERS:.3f} ms, the rest (list "
+            "builds, init_aux, host reads) "
+            f"{1e3 * (wall - md - sweep - host) / AWH_ITERS:.2f} ms; T "
+            f"{temp:.2f} K, max constraint violation {viol:.3e} nm; windows "
+            f"visited {sorted(set(st.stats.active_state))}, stage "
+            f"{'initial' if st.covering_stage else 'linear'}, N "
+            f"{st.ref_size:g}; f {np.round(f, 4).tolist()} kT")
+    print(line, flush=True)
+    if not np.isfinite(f).all():
+        raise RuntimeError(line + ": f is not finite")
+    return final, dict(launches=launches, wall=wall,
+                       ms=1e3 * md / (AWH_ITERS * AWH_MD))
+
+
+def awh_umbrella_phase(start, cv, space):
+    """AWH-umbrella: AWHSimulation over the umbrella windows with its PMF
+    backend; the deconvolved PMF finite in every sampled bin; float64 at
+    the last frame."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    st = pt.AWHState.create(space, first_state=1)
+    backend = pt.AWHPMFBackend(st, grid=AWH_GRID, cv=cv)
+    awh = pt.AWHSimulation(
+        state=st, simulator=pt.Langevin(dt=DT, temperature=TEMP,
+                                        friction=FRICTION),
+        n_md_steps=AWH_MD, log_freq=1, pmf=backend)
+    gen = torch.Generator(device=start.device).manual_seed(SEED + 200)
+    final, out = run_awh("AWH-umbrella", awh, start, "coul3-ortho", 1, gen)
+    res = backend.pmf(zero="min", kBT=pt.units.KB * TEMP)
+    vals, counts = res.values(), backend.acc.counts
+    print("AWH-umbrella deconvolved PMF (kJ/mol, min 0): " + "; ".join(
+        f"{c:.3f} nm {v:.3f} ({n})" for c, v, n in zip(res.centers, vals,
+                                                         counts)), flush=True)
+    if not np.isfinite(vals[counts > 0]).all():
+        raise RuntimeError("AWH-umbrella: the PMF is not finite in a "
+                           "sampled bin")
+    check_states_f64("AWH-umbrella", space, final, final.neighbor_finder.find(
+        final.coords, final.boundary, final.exclusions))
+    return out
+
+
+def grid_awh_phase(start, cv):
+    """GridAWH on the CV (GridBias forces on the card); gates: launches
+    (per update init_aux and its steps), state, finite estimate, the last
+    GridBias against float64 on the last frame."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.free_energy import awh as awh_mod
+    lo, hi, n_bins = GRID_AWH
+    grid = pt.GridAWH(cv=cv, simulator=pt.Langevin(
+        dt=DT, temperature=TEMP, friction=FRICTION), temperature=TEMP,
+        lo=lo, hi=hi, n_bins=n_bins, n_steps_per_update=GRID_STEPS)
+    gen = torch.Generator(device=start.device).manual_seed(SEED + 250)
+    from mollytpu_torch.ops import pair_kernel as pk
+    pk.reset_launch_counts()
+    bucket = {}
+    t0 = time.perf_counter()
+    with timed_calls(bucket, (awh_mod, "simulate")):
+        final, st = grid.simulate(start, GRID_UPDATES, generator=gen)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = count_launches("GridAWH", "coul3-ortho",
+                              GRID_UPDATES * (1 + GRID_STEPS), 0)
+    temp, viol = check_state("GridAWH", final)
+    centers, f = grid.pmf(st)
+    md = bucket["simulate"]
+    line = (f"GridAWH: {GRID_UPDATES} updates of {GRID_STEPS} steps in "
+            f"{wall:.2f} s, per update {1e3 * wall / GRID_UPDATES:.2f} ms "
+            f"(simulate {1e3 * md / GRID_UPDATES:.2f} ms, "
+            f"{1e3 * md / (GRID_UPDATES * GRID_STEPS):.4f} ms/step with its "
+            f"list build and init_aux); T {temp:.2f} K, max constraint "
+            f"violation {viol:.3e} nm; visits {st.hist.astype(int).tolist()},"
+            f" update size {st.update_size:g} kJ/mol; estimate (kJ/mol) "
+            + "; ".join(f"{c:.3f} {v:.2f}" for c, v in zip(centers, f)))
+    print(line, flush=True)
+    if not np.isfinite(f).all():
+        raise RuntimeError(line + ": the estimate is not finite")
+    bias = pt.GridBias(cv=cv, centers=torch.as_tensor(
+        st.centers, dtype=final.coords.dtype, device=final.device),
+        values=torch.as_tensor(-st.f_est, dtype=final.coords.dtype,
+                               device=final.device))
+    sys64, _ = f64_system(final, final.coords)
+    df, de = check_bias_f64("GridAWH", bias, final, sys64)
+    print(f"GridAWH last frame: GridBias vs float64 max|dF|/max|F| "
+          f"{df:.3e}, rel dE {de:.3e} (tolerance {TOL_BIAS})", flush=True)
+    return dict(launches=launches, wall=wall,
+                ms=1e3 * md / (GRID_UPDATES * GRID_STEPS))
+
+
+def lambda_ladder(mask):
+    import numpy as np
+    import mollytpu_torch as pt
+    return pt.ExtendedStateSpace.lambda_grid(
+        np.linspace(0.0, 1.0, N_LADDER), temperature=TEMP, atom_mask=mask)
+
+
+def awh_lambda_phase(start, mask):
+    """AWH-lambda: AWHSimulation over the lambda ladder on the inserted
+    water (K1c; each sweep one energy launch per lambda); float64 at the
+    last frame."""
+    import torch
+    import mollytpu_torch as pt
+    space = lambda_ladder(mask)
+    awh = pt.AWHSimulation(
+        state=pt.AWHState.create(space, first_state=LADDER_START),
+        simulator=pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION),
+        n_md_steps=AWH_MD, log_freq=1)
+    gen = torch.Generator(device=start.device).manual_seed(SEED + 300)
+    final, out = run_awh("AWH-lambda", awh, start, FEP_FAMILY, N_LADDER, gen)
+    check_states_f64("AWH-lambda", space, final, final.neighbor_finder.find(
+        final.coords, final.boundary, final.exclusions))
+    return out
+
+
+def tss_lambda_phase(start, mask):
+    """TSS-lambda: TSSSimulation over the lambda ladder with TSS_WINDOW-
+    rung windows and two replicas; gates: launches (per replica and cycle
+    init_aux, the segment's steps and one energy launch per evaluation
+    state of its window), each replica's state, finite f and jackknife;
+    float64 at replica 0's last frame."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.free_energy import tss as tss_mod
+    space = lambda_ladder(mask)
+    state = pt.TSSState(space, graph=pt.tss_grid_graph(
+        (N_LADDER,), window_size=TSS_WINDOW),
+        history_forgetting=pt.TSSHistoryForgetting())
+    sim = pt.TSSSimulation(
+        state, start, pt.Langevin(dt=DT, temperature=TEMP,
+                                  friction=FRICTION),
+        n_md_steps=TSS_MD, n_cycles=TSS_CYCLES, log_freq=1,
+        n_replicas=len(TSS_STARTS), first_states=list(TSS_STARTS))
+    gens = [torch.Generator(device=start.device).manual_seed(SEED + 400 + i)
+            for i in range(len(TSS_STARTS))]
+    from mollytpu_torch.ops import pair_kernel as pk
+    pk.reset_launch_counts()
+    bucket = {}
+    t0 = time.perf_counter()
+    with timed_calls(bucket, (tss_mod, "run_chunk"),
+                     (pt.ExtendedStateSpace, "state_energies"),
+                     (pt.TSSState, "apply_observations")):
+        sim.run(seed=SEED, generators=gens)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    windows = [w for ws in state.stats["replica_update_windows"] for w in ws]
+    n_eval = sum(len(state.windows[w].evaluation_state_indices)
+                 for w in windows)
+    launches = count_launches("TSS-lambda", FEP_FAMILY,
+                              len(windows) * (1 + TSS_MD), n_eval)
+    for i, r in enumerate(sim.replicas):
+        temp, viol = check_state(f"TSS-lambda replica {i}", r.sys)
+        print(f"TSS-lambda replica {i}: rung {r.state_index}, window "
+              f"{r.window}; T {temp:.2f} K, max constraint violation "
+              f"{viol:.3e} nm", flush=True)
+    f = pt.tss_free_energies(state)
+    # the delete-one-epoch jackknife is defined once every window has
+    # samples in two retained epochs (tss_free_energy_uncertainties raises
+    # otherwise): two walkers over seven windows may not get there in
+    # TSS_CYCLES cycles
+    histories = [est.history for est in state.estimators]
+    retained = histories[0].retained_epoch_indices(state.iteration)
+    epochs_hit = [sum(h.sample_count(epoch_indices=[e]) > 0
+                      for e in retained) for h in histories]
+    jk = None
+    if len(retained) >= 2 and min(epochs_hit) >= 2:
+        jk = pt.tss_free_energy_uncertainties(state)
+    n_seg = len(windows)
+    md, sweep = bucket["run_chunk"], bucket["state_energies"]
+    host = bucket["apply_observations"]
+    line = (f"TSS-lambda: {TSS_CYCLES} cycles x {len(TSS_STARTS)} replicas "
+            f"of {TSS_MD} steps in {wall:.2f} s, per replica iteration "
+            f"{1e3 * wall / n_seg:.2f} ms: MD {1e3 * md / n_seg:.2f} ms "
+            f"({1e3 * md / (n_seg * TSS_MD):.4f} ms/step), energy sweep "
+            f"{1e3 * sweep / n_seg:.2f} ms ({n_eval / n_seg:.2f} lambdas on "
+            f"average), host estimator {1e3 * host / n_seg:.3f} ms per "
+            f"replica ({1e3 * host / TSS_CYCLES:.3f} ms per cycle), the "
+            f"rest {1e3 * (wall - md - sweep - host) / n_seg:.2f} ms; "
+            f"windows visited {sorted(set(windows))}, retained epochs with "
+            f"samples per window {epochs_hit}; f {np.round(f, 4).tolist()} "
+            "kT; jackknife standard errors " + (
+                f"{np.round(jk.standard_errors, 4).tolist()} kT over epochs "
+                f"{jk.epoch_indices}" if jk is not None else
+                "undefined (a window has samples in fewer than two "
+                "retained epochs)"))
+    print(line, flush=True)
+    if not (np.isfinite(f).all() and (jk is None or (
+            np.isfinite(jk.free_energies).all()
+            and np.isfinite(jk.standard_errors).all()))):
+        raise RuntimeError(line + ": a free energy or error is not finite")
+    r0 = sim.replicas[0].sys
+    check_states_f64("TSS-lambda", space, r0, r0.neighbor_finder.find(
+        r0.coords, r0.boundary, r0.exclusions))
+    return dict(launches=launches, wall=wall,
+                ms=1e3 * md / (n_seg * TSS_MD))
+
+
+def free_energy_phases(pme_end, fep_end, mask, pme_ms):
+    """The five free-energy phases; returns each one's launches, biased
+    ms/step and wall time."""
+    o_c = int(mask.nonzero()[0])
+    out = {}
+    cv, d0 = umbrella_cv(pme_end, o_c)
+    print(f"Free-energy phases: CV O-O distance from atom {cv.i} (FEP-water's"
+          f" solute oxygen) to atom {cv.j}, {d0:.4f} nm on the PME path's "
+          "end state", flush=True)
+    import mollytpu_torch as pt
+    space = pt.ExtendedStateSpace.umbrella_windows(
+        [pt.BiasPotential(bias=pt.SquareBias(k=UMB_K, cv0=c), cv=cv)
+         for c in UMB_CENTERS], temperature=TEMP)
+    for label, run in (
+            ("Umbrella-MBAR", lambda: umbrella_phase(pme_end, cv, space,
+                                                     pme_ms)),
+            ("AWH-umbrella", lambda: awh_umbrella_phase(pme_end, cv, space)),
+            ("GridAWH", lambda: grid_awh_phase(pme_end, cv)),
+            ("AWH-lambda", lambda: awh_lambda_phase(fep_end, mask)),
+            ("TSS-lambda", lambda: tss_lambda_phase(fep_end, mask))):
+        t0 = time.perf_counter()
+        out[label] = run()
+        print(f"{label}: phase wall time {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return out
 
 
 def lattice_energy():
@@ -3228,10 +3799,10 @@ def main():
                 production = production_phase(run, workdir)
                 more[label] = production["launches"] + integrators_phase(run)
                 muller_brown_phase(dev)
+            if label == "PME":
+                pme_system, pme_end = system, runs[label]["system"]
             runs[label] = {k: runs[label][k]
                            for k in ("launches", "ms", "ns_day")}
-            if label == "PME":
-                pme_system = system
             del system
         runs["Bonded-PME"] = bonded_pme_path(dev, workdir)
         more["PME"] = (runs["Bonded-PME"]["launches"]
@@ -3262,6 +3833,8 @@ def main():
         components(f"FEP-water lambda={FEP_TIMED}", timed, ham, FEP_LAMS)
         runs["FEP-water"] = {k: timed[k] for k in ("launches", "ms",
                                                    "ns_day")}
+        fe = free_energy_phases(pme_end, timed["system"], mask,
+                                runs["PME"]["ms"])
     lj = lj_bench_path(dev, line)
     forms_phase(dev)
     dpd_card_phase(dev)
@@ -3296,8 +3869,11 @@ def main():
         f"{lincs['lincs_ms']['SHAKE'][0]:.4f} / RATTLE "
         f"{lincs['lincs_ms']['SHAKE'][1]:.4f} ms on the same O-H pairs; "
         f"GROMACS-PME {gmx['ms']:.4f} ms/step (neighbor-table engine, a "
-        f"rebuild every {gmx['cadence']} steps, list builds included)",
-        flush=True)
+        f"rebuild every {gmx['cadence']} steps, list builds included); "
+        "free-energy phases: " + "; ".join(
+            f"{label} {r['ms']:.4f} ms per biased or lambda step, "
+            f"{r['launches']} pair-kernel launches, {r['wall']:.1f} s"
+            for label, r in fe.items()), flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
@@ -3321,6 +3897,21 @@ def main():
              f"{N_WATERS:,} virtual sites)", TIP4P_FAMILY, tip4p),
             (f"LINCS-PME ({2 * N_WATERS:,} O-H constraints on LINCS)",
              LINCS_FAMILY, lincs))]
+    kernels += [{
+        "name": f"{FAMILIES[family]} on {label} (its launches there; "
+                f"checked and timed on the {frame} frame)", "route": "cuda",
+        "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
+        "replaces": "mollytpu/ops/pallas_pairwise.py:636",
+        "launches": fe[label]["launches"],
+        **{k: stats[family][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+        "library_ms": None}
+        for label, family, frame in (
+            ("Umbrella-MBAR", "coul3-ortho", "PME"),
+            ("AWH-umbrella", "coul3-ortho", "PME"),
+            ("GridAWH", "coul3-ortho", "PME"),
+            ("AWH-lambda", FEP_FAMILY, f"FEP-water lambda={FEP_TIMED}"),
+            ("TSS-lambda", FEP_FAMILY, f"FEP-water lambda={FEP_TIMED}"))]
     kernels.append({
         "name": "pair_nonbonded K1a with energy and virial (LJ + Ewald "
                 "real space, orthorhombic; the NPT path's Monte Carlo trial "

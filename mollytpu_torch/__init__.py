@@ -77,9 +77,30 @@ from .spatial import (kinetic_energy, kinetic_energy_tensor,
                       scale_coords, scale_coords_molecular, temperature)
 from .ops.virtual_sites import VirtualSites
 from .system import Exclusions, System, molecule_ids_from_bonds
-from .free_energy.mbar import (MBARInput, assemble_mbar_inputs,
+from .free_energy.mbar import (PMF, MBARInput, assemble_mbar_inputs,
                                free_energy_differences, iterate_mbar,
-                               mbar_weights)
+                               mbar_pmf, mbar_weights, pmf_with_uncertainty)
+from .free_energy.cv import (CalcCMDist, CalcDist, CalcMaxDist, CalcMinDist,
+                             CalcRg, CalcRMSD, CalcSingleDist, CalcTorsion,
+                             cv_gradient)
+from .free_energy.bias import (BiasPotential, FlatBottomSquareBias,
+                               LinearBias, PeriodicFlatBottomBias,
+                               SquareBias)
+from .free_energy.extended_ensemble import (ActiveThermoState,
+                                            ExtendedStateSpace)
+from .free_energy.awh import (AWHPMFBackend, AWHSimulation, AWHState,
+                              GridAWH, GridAWHState, GridBias)
+from .free_energy.pmf import (
+    PMFGrid as PMFGridND, PMFResult, SampledPMFDeconvolutionAccumulator,
+    build_log_coupling_matrix, pmf_bin_quality, pmf_log_bin_weights,
+    pmf_result_from_sampled_deconvolution)
+from .free_energy.tss import (
+    TSSHistoryForgetting, TSSJackknifeResult, TSSLocalEstimator,
+    TSSPMFDeconvolution, TSSSimulation, TSSState, tss_free_energies,
+    tss_free_energy_uncertainties)
+from .free_energy.tss_graph import (
+    TSSGraph, TSSGraphBuilder, TSSWindow, add_tss_edge, build_tss_graph,
+    single_window_tss_graph, tss_grid_graph)
 from .free_energy.stats import (effective_sample_size,
                                 statistical_inefficiency, subsample_indices)
 from .free_energy.thermo import (AlchemicalPartition, LambdaHamiltonian,

@@ -2,7 +2,9 @@
 fetched to the host (``jax.device_get(sys)``): the "weights" of a run
 (atom parameters, box, interactions, bonded lists with CMAP, exclusions,
 PME moduli, implicit solvent, constraints on SHAKE or LINCS, virtual sites,
-molecule ids) carried over as numpy arrays. Duck-typed on attribute and
+molecule ids) carried over as numpy arrays. ``free_energy_from_arrays``
+carries a CV, a bias, a BiasPotential, a GridBias or an
+ExtendedStateSpace the same way. Duck-typed on attribute and
 class names, so the port never imports the JAX package; the parity tests
 use it to hand both packages the same system.
 """
@@ -18,6 +20,11 @@ from .atoms import Atoms
 from .boundary import Orthorhombic, Triclinic
 from .config import resolve_device
 from .free_energy import alchemy
+from .free_energy import bias as fe_bias
+from .free_energy import cv as fe_cv
+from .free_energy.awh import GridBias
+from .free_energy.extended_ensemble import ExtendedStateSpace
+from .free_energy.thermo import ThermoState
 from .ops import cutoffs, mixing, pairwise
 from .ops.blockpairs import BlockPairFinder
 from .ops.bonded import TERM_FUNCS, SpecificList
@@ -182,6 +189,8 @@ def _general(gi, dtype, device):
     if name == "MullerBrown":
         return MullerBrown(**{k: _tensor(getattr(gi, k), dtype, device)
                               for k in ("A", "a", "b", "c", "x0", "y0")})
+    if name in ("BiasPotential", "GridBias"):
+        return free_energy_from_arrays(gi, dtype, device)
     if name == "EwaldExclusionCorrection":
         return EwaldExclusionCorrection.setup(
             pairs_from_bitmap(gi.bits, gi.far), float(gi.alpha),
@@ -198,6 +207,70 @@ def _general(gi, dtype, device):
                       _tensor(v, dtype, device) if isinstance(v, np.ndarray)
                       else float(v) for k, v in fields.items()})
     raise NotImplementedError(f"general interaction {name} is not ported")
+
+
+#: the CVs and biases the port carries, by class name
+_CVS = ("CalcSingleDist", "CalcDist", "CalcMinDist", "CalcMaxDist",
+        "CalcCMDist", "CalcRg", "CalcRMSD", "CalcTorsion")
+_BIASES = ("LinearBias", "SquareBias", "FlatBottomSquareBias",
+           "PeriodicFlatBottomBias")
+
+
+def _cv_field(name, value, dtype, device):
+    if name in ("i", "j", "k", "l"):
+        return int(value)
+    if name == "beta":
+        return float(value)
+    if name.startswith("group"):
+        return _tensor(value, torch.int64, device)
+    return _tensor(value, dtype, device)
+
+
+def _number(value, dtype, device):
+    """A bias parameter: a Python float for a scalar, else a tensor."""
+    if np.ndim(value) == 0:
+        return float(value)
+    return _tensor(value, dtype, device)
+
+
+def free_energy_from_arrays(obj, dtype=None, device=None):
+    """The port's counterpart of a host-side JAX free-energy object: a CV
+    (free_energy/cv.py), a bias (free_energy/bias.py), a BiasPotential, a
+    GridBias or an ExtendedStateSpace (its biases carried, its atom mask
+    as a bool tensor), arrays through numpy onto ``device`` (the CUDA card
+    unless the caller names another) in ``dtype`` (float64 by default)."""
+    device = resolve_device(device)
+    dtype = dtype or torch.float64
+    name = type(obj).__name__
+    if name in _CVS:
+        cls = getattr(fe_cv, name)
+        return cls(**{f.name: _cv_field(f.name, getattr(obj, f.name), dtype,
+                                        device)
+                      for f in dataclasses.fields(cls)})
+    if name in _BIASES:
+        cls = getattr(fe_bias, name)
+        return cls(**{f.name: _number(getattr(obj, f.name), dtype, device)
+                      for f in dataclasses.fields(cls)})
+    if name == "BiasPotential":
+        return fe_bias.BiasPotential(
+            bias=free_energy_from_arrays(obj.bias, dtype, device),
+            cv=free_energy_from_arrays(obj.cv, dtype, device))
+    if name == "GridBias":
+        return GridBias(cv=free_energy_from_arrays(obj.cv, dtype, device),
+                        centers=_tensor(obj.centers, dtype, device),
+                        values=_tensor(obj.values, dtype, device))
+    if name == "ExtendedStateSpace":
+        states = tuple(ThermoState(
+            lam=float(s.lam), temperature=float(s.temperature),
+            pressure=None if s.pressure is None else float(s.pressure),
+            name=s.name) for s in obj.states)
+        biases = None if obj.biases is None else tuple(
+            None if b is None else free_energy_from_arrays(b, dtype, device)
+            for b in obj.biases)
+        mask = None if obj.atom_mask is None else _tensor(
+            obj.atom_mask, torch.bool, device)
+        return ExtendedStateSpace(states, biases=biases, atom_mask=mask)
+    raise NotImplementedError(f"free-energy object {name} is not carried")
 
 
 def _specific(slist, dtype, device, cmap_tables):

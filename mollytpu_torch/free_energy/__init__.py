@@ -1,2 +1,3 @@
-"""Alchemical free energy: lambda schedulers, window Hamiltonians, MBAR and
-time-series statistics (counterpart of mollytpu/free_energy)."""
+"""Free energy (counterpart of mollytpu/free_energy): lambda schedulers,
+window Hamiltonians, MBAR and PMFs, time-series statistics, collective
+variables and biases, extended state spaces, AWH and TSS."""

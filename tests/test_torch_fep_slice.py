@@ -37,7 +37,9 @@ from mollytpu_torch.bridge import system_from_arrays
 from torch_parity import (CADENCE, CPU, LIST_RADIUS, jax_neighbors,
                           jax_system, max_rel, np64, port_neighbors,
                           port_system)
+from torch_parity import alchemical as _alchemical
 from torch_parity import jax_fresh_start
+from torch_parity import solute_atoms as _solute
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -45,46 +47,6 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 DT, TEMP, FRICTION = 0.002, 300.0, 1.0
 LAMS = (0.0, 0.25, 0.5, 0.75, 1.0)
 TOL = 1e-9
-
-
-def _solute(coords, side):
-    """The atoms of the water whose oxygen lies nearest the box centre."""
-    oxy = np.arange(0, coords.shape[0], 3)
-    d = np.linalg.norm(coords[oxy] - 0.5 * side, axis=1)
-    o = int(oxy[np.argmin(d)])
-    return np.arange(o, o + 3)
-
-
-def _alchemical(mod, sys, mask, lam):
-    """``sys`` (JAX or port, ``mod`` its package) with the solute INSERTed
-    at ``lam``, the soft-core pair interactions and PME on the scheduled
-    charges, everything else as built."""
-    n = sys.coords.shape[0]
-    if mod is mt:
-        roles = jnp.where(jnp.asarray(mask), mt.ALCH_INSERT, mt.ALCH_CORE)
-        atoms = dataclasses.replace(
-            sys.atoms, lam=jnp.ones(n, sys.coords.dtype),
-            alch_role=roles.astype(jnp.int32))
-    else:
-        roles = torch.where(torch.as_tensor(mask), pt.ALCH_INSERT,
-                            pt.ALCH_CORE).to(torch.int32)
-        atoms = dataclasses.replace(
-            sys.atoms, lam=torch.ones(n, dtype=sys.coords.dtype),
-            alch_role=roles)
-    w14 = sys.pairwise_inters[1].weight_special
-    pair = (mod.LennardJonesSoftCoreBeutler(
-                cutoff=mod.DistanceCutoff(1.0), alpha=0.5, use_neighbors=True,
-                weight_special=sys.pairwise_inters[0].weight_special),
-            mod.CoulombSoftCoreBeutlerEwald(
-                dist_cutoff=1.0, alpha_sc=0.5, use_neighbors=True,
-                weight_special=w14))
-    general = tuple(
-        dataclasses.replace(g, scheduler=mod.DefaultLambdaScheduler())
-        if type(g).__name__ == "PME" else g for g in sys.general_inters)
-    out = sys.update(atoms=atoms, pairwise_inters=pair,
-                     general_inters=general)
-    mask_t = jnp.asarray(mask) if mod is mt else torch.as_tensor(mask)
-    return mod.set_lambda(out, lam, atom_mask=mask_t)
 
 
 @pytest.fixture(scope="module")

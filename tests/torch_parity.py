@@ -225,6 +225,47 @@ def jax_noise_sequence(key, n_steps, shape, n_sub=None):
     return out
 
 
+def solute_atoms(coords, side):
+    """The atoms of the water whose oxygen lies nearest the box centre."""
+    oxy = np.arange(0, coords.shape[0], 3)
+    d = np.linalg.norm(coords[oxy] - 0.5 * side, axis=1)
+    o = int(oxy[np.argmin(d)])
+    return np.arange(o, o + 3)
+
+
+def alchemical(mod, sys, mask, lam, scheduled_pme=True):
+    """``sys`` (JAX or port, ``mod`` its package) with the solute INSERTed
+    at ``lam``, the soft-core pair interactions and (``scheduled_pme``) PME
+    on the scheduled charges, everything else as built."""
+    n = sys.coords.shape[0]
+    if mod is mt:
+        roles = jnp.where(jnp.asarray(mask), mt.ALCH_INSERT, mt.ALCH_CORE)
+        atoms = dataclasses.replace(
+            sys.atoms, lam=jnp.ones(n, sys.coords.dtype),
+            alch_role=roles.astype(jnp.int32))
+    else:
+        roles = torch.where(torch.as_tensor(mask), pt.ALCH_INSERT,
+                            pt.ALCH_CORE).to(torch.int32)
+        atoms = dataclasses.replace(
+            sys.atoms, lam=torch.ones(n, dtype=sys.coords.dtype),
+            alch_role=roles)
+    w14 = sys.pairwise_inters[1].weight_special
+    pair = (mod.LennardJonesSoftCoreBeutler(
+                cutoff=mod.DistanceCutoff(1.0), alpha=0.5, use_neighbors=True,
+                weight_special=sys.pairwise_inters[0].weight_special),
+            mod.CoulombSoftCoreBeutlerEwald(
+                dist_cutoff=1.0, alpha_sc=0.5, use_neighbors=True,
+                weight_special=w14))
+    general = tuple(
+        dataclasses.replace(g, scheduler=mod.DefaultLambdaScheduler())
+        if type(g).__name__ == "PME" and scheduled_pme else g
+        for g in sys.general_inters)
+    out = sys.update(atoms=atoms, pairwise_inters=pair,
+                     general_inters=general)
+    mask_t = jnp.asarray(mask) if mod is mt else torch.as_tensor(mask)
+    return mod.set_lambda(out, lam, atom_mask=mask_t)
+
+
 def jax_neighbors(sys):
     return jax_find_neighbors(sys.neighbor_finder, sys.coords, sys.boundary,
                               sys.exclusions, 0)
