@@ -163,12 +163,12 @@ Phases, each printing one line or more before the next starts:
    (K1a) and FEP-water's end state at lambda 0.75 (K1c), the CV the O-O
    distance from FEP-water's solute oxygen to the oxygen nearest it:
    Umbrella-MBAR, eight SquareBias windows (2,000 kJ/mol/nm^2, 0.25-0.60
-   nm) each 50 + 150 steps from the previous window's end with the eight
+   nm) each 50 + 100 steps from the previous window's end with the eight
    window energies every 10 steps (one energy launch each), MBAR on the
    card against the CPU, the PMF with error bars (mbar_pmf,
    pmf_with_uncertainty) on 14 bins from 0.24 to 0.66 nm, each window's
    mean CV within three sqrt(kT/k) of its centre; AWH-umbrella,
-   AWHSimulation over the same windows (40 iterations of 20 steps) with
+   AWHSimulation over the same windows (25 iterations of 20 steps) with
    its PMF backend; GridAWH, 20 updates of 20 steps on 16 bins from 0.24
    to 0.64 nm; AWH-lambda, AWHSimulation over a 12-rung lambda ladder on
    the inserted water (12 energy launches per sweep); TSS-lambda, two
@@ -180,16 +180,50 @@ Phases, each printing one line or more before the next starts:
    and the last frame of each phase against float64 through the plain
    twins (each state's energy, U_k - U_0, each bias's energy and forces).
 
+12. the last modules. After MTS-PME, on the PME path's end state:
+   T-REMD-PME, ReplicaExchangeMD with four replicas on a 300.0, 300.6,
+   301.2, 301.8 K ladder (adjacent rungs this close exchange at 5,318
+   waters), Langevin at each rung, 4 cycles of 50 steps; then
+   Calculators: Calculator's energy and forces against potential_energy
+   and forces_virial (one K1a energy launch, one forces launch), an
+   ExternalCalculator wrapping a numpy harmonic tether on every oxygen
+   for 50 Langevin steps beside 50 without it (its forces and energy
+   against add_position_restraints' with the same k and references, the
+   ms/step the host round trip adds), and NPT (C-rescale) with it and no
+   fn_virial raising. After the free-energy phases, on FEP-water's end
+   state: H-REMD-FEP, HamiltonianReplicaExchangeMD over lambda 1.0,
+   0.75, 0.5, 0.25 of the inserted water, 3 cycles of 50 steps, each
+   exchange's eight energies on lists built for them (K1c). Gates of
+   both REMD phases: exact launches (per replica and cycle 1 + 50 force
+   evaluations, and 1 (T-REMD) or 2 (H-REMD) with energy), no stale list,
+   every exchange decision equal to the host's float64 recomputation
+   from the printed energies and uniforms, velocities rescaled by exactly
+   sqrt(T_i / T_j) (T-REMD; unscaled under H-REMD), the last cycle's
+   energies against float64 twins, each replica's state; ms per
+   replica-step beside the PME path's and ms per exchange. After
+   LJ-bench: MC-LJ, MetropolisMonteCarlo on its 32,000-atom end state at
+   its kinetic temperature, random_normal_translation(0.02), 500 moves
+   on one neighbor table (gates: acceptance in (0.05, 1], the running
+   energy against a fresh potential_energy, no pair-kernel launch, the
+   table not stale at the end; ms per move); Gradients, dE/d(epsilon)
+   through 20 velocity Verlet steps of simulate_differentiable on in.lj's
+   float64 liquid (LJ-bench's f64 run), with and without per-step
+   checkpointing, against the central difference on the card (2e-3),
+   the peak memory of each, and a gradient through the pair kernel
+   raising NotImplementedError without a launch.
+
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
 and MTS-PME paths together; coul3-triclinic's those of PME-dodecahedron,
 its production and resumed steps and the integrators phase), K1a on the
 TIP4P-Ew-PME and on the LINCS-PME frame with those paths' launches, K1a
-and K1c on each free-energy phase with its launches, K1a's
+and K1c on each free-energy phase, on T-REMD-PME, H-REMD-FEP and the
+Calculators phase with its launches (energy launches included), K1a's
 energy and virial instance on the NPT path, coul3-triclinic's on the
 production phase, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
-probe phase; LJ-bench launches no kernel and has no entry); the last is
+probe phase; LJ-bench, MC-LJ and Gradients launch no kernel and have no
+entry); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -376,10 +410,12 @@ TOL_MBAR = 1e-8
 #: solute oxygen to the oxygen nearest it at the phase's start.
 #: Umbrella-MBAR: UMB_CENTERS windows of UMB_K kJ/mol/nm^2, each UMB_WARMUP
 #: + UMB_STEPS steps from the previous window's end, the K window energies
-#: every UMB_SAMPLE steps; the PMF on PMF_BINS (lo, hi, bins)
+#: every UMB_SAMPLE steps; the PMF on PMF_BINS (lo, hi, bins). UMB_STEPS
+#: and AWH_ITERS were cut from 150 and 40 to keep the whole run near 500 s
+#: with the replica, Monte Carlo, gradient and calculator phases
 UMB_K = 2000.0
 UMB_CENTERS = tuple(round(0.25 + 0.05 * k, 2) for k in range(8))
-UMB_WARMUP, UMB_STEPS, UMB_SAMPLE = 50, 150, 10
+UMB_WARMUP, UMB_STEPS, UMB_SAMPLE = 50, 100, 10
 PMF_BINS = (0.24, 0.66, 14)
 #: a window's mean CV within UMB_SIGMAS standard deviations sqrt(kT / k)
 #: of its centre
@@ -387,7 +423,7 @@ UMB_SIGMAS = 3.0
 #: AWH over the umbrella windows (its PMF backend on AWH_GRID) and over
 #: the lambda ladder: steps per segment, iterations; GridAWH on the CV:
 #: (lo, hi, bins), updates of GRID_STEPS steps
-AWH_MD, AWH_ITERS, AWH_GRID = 20, 40, (0.24, 0.64, 16)
+AWH_MD, AWH_ITERS, AWH_GRID = 20, 25, (0.24, 0.64, 16)
 GRID_AWH, GRID_UPDATES, GRID_STEPS = (0.24, 0.64, 16), 20, 20
 #: the lambda ladder on FEP-water's inserted water (AWH-lambda starts at
 #: rung LADDER_START); TSS: windows of TSS_WINDOW rungs, a replica from
@@ -480,6 +516,18 @@ TOL_ENGINES, TOL_FORMS_F64 = 1e-5, 1e-4
 #: DPD on the card against the CPU: a fluid of 1,536 unit masses at
 #: density 3, 20 DPDVelocityVerlet steps in float64
 DPD_N, DPD_STEPS, TOL_DPD = 1536, 20, 1e-9
+
+REMD_TEMPS = (300.0, 300.6, 301.2, 301.8)
+REMD_CYCLE, REMD_CYCLES = 50, 4
+HREMD_LAMS, HREMD_CYCLES = (1.0, 0.75, 0.5, 0.25), 3
+MC_MOVES, MC_SHIFT, TOL_MC_ENERGY = 500, 0.02, 1e-6
+# in.lj's DistanceCutoff truncates: one pair crossing 0.85 nm between the
+# two central-difference trajectories moves E by U(rc) ~ 0.016 kJ/mol,
+# 816 of dE/d(epsilon) at h 1e-5 epsilon (measured on the H100); at 1e-8 a
+# crossing is ~1e-3 as likely and float64 roundoff stays ~1e-8 relative
+GRAD_STEPS, GRAD_H, TOL_GRAD = 20, 1e-8, 2e-3
+TETHER_K, CALC_STEPS, TOL_CALC = 1000.0, 50, 1e-5
+TOL_TETHER_FORCE, TOL_TETHER_ENERGY = 1e-2, 1e-4
 
 
 def card_line():
@@ -2938,7 +2986,8 @@ def lj_bench_path(dev, line):
     print(f"{label}: device busy {dev_ms / ms:.3f} of the step "
           f"({dev_ms:.4f} ms device time per {ms:.4f} ms step)", flush=True)
     return {"ms": ms, "cadence": cadence, "calls": calls,
-            "busy": dev_ms / ms, "tau_day": tau_day, "components": comps}
+            "busy": dev_ms / ms, "tau_day": tau_day, "components": comps,
+            "end": system, "liquid64": out64}
 
 
 def melt_frame(dev):
@@ -3756,7 +3805,449 @@ def setup_options_phase(dev, workdir):
     vsite_types_check(dev)
 
 
+# --- slice 11: replica exchange, Monte Carlo, gradients, calculators -------
+
+
+def recording(cls):
+    """``cls`` (a REMD class) with each exchange's inputs and outputs and
+    H-REMD's self and cross energies kept, for the host's recomputation."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(cls):
+        log: list = dataclasses.field(default_factory=list)
+
+        def exchange(self, *args):
+            out = super().exchange(*args)
+            self.log.append(("exchange", args, out))
+            return out
+
+        def energies(self, *args):
+            out = super().energies(*args)
+            self.log.append(("energies", args, out))
+            return out
+
+    return Recording
+
+
+def check_exchanges(label, remd, temps=None, beta=None):
+    """Each recorded exchange against the host's recomputation in float64
+    from the printed energies and uniforms: the same swaps (read from the
+    rows each slot received, which a gather copies exactly), and the
+    velocities rescaled by exactly sqrt(T_i / T_j) (T-REMD; H-REMD: not
+    rescaled). Returns the last exchange's (pre-exchange coords, self
+    energies as floats)."""
+    import numpy as np
+    import torch
+    from mollytpu_torch.sim.remd import exchange_pairs
+    from mollytpu_torch.units import KB
+    cross, last, n_acc = None, None, 0
+    for kind, args, out in remd.log:
+        if kind == "energies":
+            cross = [o.double().cpu().numpy() for o in out]
+            continue
+        if temps is not None:
+            coords, vels, pes, c, u = args
+            e = pes.double().cpu().numpy()
+        else:
+            _, coords, vels, c, u = args
+            e = out[2].double().cpu().numpy()
+        u = u.double().cpu().numpy()
+        r = len(u)
+        partner, lower, valid = exchange_pairs(r, c)
+        if temps is not None:
+            b = 1.0 / (KB * np.asarray(temps, dtype=np.float64))
+            delta = (b - b[partner]) * (e[partner] - e)
+            what = "U_i(x_i)"
+        else:
+            es, ec = cross
+            if not np.array_equal(es, e):
+                raise RuntimeError(f"{label} cycle {c}: the recorded self "
+                                   "energies are not the history's")
+            delta = beta * (ec + ec[partner] - es - es[partner])
+            what = (f"U_i(x_partner) {[float(x) for x in ec]!r} kJ/mol, "
+                    "U_i(x_i)")
+        u_pair = np.where(lower, u, u[partner])
+        accept = np.asarray(valid) & (u_pair < np.exp(np.minimum(-delta,
+                                                                 0.0)))
+        expect = [partner[i] if accept[i] else i for i in range(r)]
+        perm = [next((j for j in range(r)
+                      if torch.equal(out[0][i], coords[j])), -1)
+                for i in range(r)]
+        perm_t = torch.as_tensor(perm, device=vels.device)
+        if temps is not None:
+            t = torch.as_tensor(temps, dtype=torch.float64,
+                                device=vels.device)
+            want_v = vels[perm_t] * torch.sqrt(t / t[perm_t]).to(
+                vels.dtype)[:, None, None]
+        else:
+            want_v = vels[perm_t]
+        n_acc += int(sum(accept[i] for i in range(r) if lower[i]))
+        print(f"{label} cycle {c}: {what} {[float(x) for x in e]!r} kJ/mol, "
+              f"uniforms {[float(x) for x in u]!r}; host float64: swap "
+              f"{[(i, partner[i]) for i in range(r) if lower[i] and accept[i]]}"
+              f"; slots received {perm}", flush=True)
+        if perm != expect:
+            raise RuntimeError(f"{label} cycle {c}: slots received {perm}, "
+                               f"the host's recomputation gives {expect}")
+        if not torch.equal(out[1], want_v):
+            raise RuntimeError(f"{label} cycle {c}: the velocities are not "
+                               "the partner's " + (
+                                   "rescaled by sqrt(T_i / T_j)"
+                                   if temps is not None else "unscaled"))
+        last = (coords, e)
+    return last, n_acc
+
+
+def remd_f64(label, template, coords, energies, lams=None, mask=None):
+    """Each replica's last-cycle energy (f32, the kernel's energy
+    instance) against a float64 evaluation through the plain twins on the
+    same coordinates (at its lambda for H-REMD)."""
+    import mollytpu_torch as pt
+    worst = 0.0
+    for i in range(coords.shape[0]):
+        sys64, nb64 = f64_system(template, coords[i])
+        if lams is not None:
+            sys64 = pt.set_lambda(sys64, lams[i], atom_mask=mask)
+        e64 = float(f64_forces_energy(sys64, nb64)[1])
+        worst = max(worst, abs(float(energies[i]) - e64) / abs(e64))
+    print(f"{label}: the last cycle's {coords.shape[0]} replica energies "
+          f"against float64 twins: max rel dE {worst:.3e} (tolerance "
+          f"{TOL_F64})", flush=True)
+    if worst > TOL_F64:
+        raise RuntimeError(f"{label}: a replica energy disagrees with "
+                           "float64")
+
+
+def t_remd_phase(pme_end, pme_ms):
+    """T-REMD-PME: four replicas of the PME path's end state on the
+    REMD_TEMPS ladder, Langevin at each rung's temperature, REMD_CYCLES
+    cycles of REMD_CYCLE steps. Gates: K1a launched exactly once per force
+    evaluation (each segment's init_aux and steps) plus once with energy
+    per replica per cycle, no stale list (run_chunk raises), the exchanges
+    against the host's float64 recomputation, the last cycle's energies
+    against float64, each replica's state."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    from mollytpu_torch.sim import remd as remd_mod
+    label = "T-REMD-PME"
+    r = len(REMD_TEMPS)
+    remd = recording(pt.ReplicaExchangeMD)(
+        temperatures=list(REMD_TEMPS),
+        simulator=pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION),
+        cycle_length=REMD_CYCLE)
+    gen = torch.Generator(device=pme_end.device).manual_seed(SEED + 600)
+    pk.reset_launch_counts()
+    bucket = {}
+    t0 = time.perf_counter()
+    with timed_calls(bucket, (remd_mod, "run_replica"),
+                     (remd_mod, "potential_energy"),
+                     (type(remd), "exchange")):
+        ens, info = remd.simulate(pme_end, REMD_CYCLES, generator=gen)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_seg = r * REMD_CYCLES
+    launches = count_launches(label, "coul3-ortho",
+                              n_seg * (1 + REMD_CYCLE), n_seg)
+    (coords, pes), n_acc = check_exchanges(label, remd, temps=REMD_TEMPS)
+    remd_f64(label, ens.template, coords, pes)
+    for i in range(r):
+        check_state(f"{label} replica {i}", ens.replica(i))
+    md_ms = 1e3 * bucket["run_replica"] / (n_seg * REMD_CYCLE)
+    ex_ms = 1e3 * (bucket["potential_energy"] + bucket["exchange"]) \
+        / REMD_CYCLES
+    print(f"{label}: {r} replicas on {list(REMD_TEMPS)} K, {REMD_CYCLES} "
+          f"cycles of {REMD_CYCLE} steps in {wall:.2f} s; exchange rate "
+          f"{info['exchange_rate']:.3f} ({n_acc} of "
+          f"{REMD_CYCLES * (r // 2)} attempts); {md_ms:.4f} ms per replica-"
+          f"step (each segment's list, init_aux and stale checks included)"
+          f" beside the PME path's {pme_ms:.4f} ms/step; {ex_ms:.4f} ms per "
+          f"exchange ({r} energies "
+          f"{1e3 * bucket['potential_energy'] / REMD_CYCLES:.4f} ms + the "
+          f"sweep {1e3 * bucket['exchange'] / REMD_CYCLES:.4f} ms)",
+          flush=True)
+    return dict(launches=launches, ms=md_ms, exchange_ms=ex_ms, wall=wall)
+
+
+def h_remd_phase(fep_end, mask):
+    """H-REMD-FEP: four replicas of FEP-water's end state on the
+    HREMD_LAMS ladder of the inserted water, HREMD_CYCLES cycles of
+    REMD_CYCLE steps; each exchange's self and cross energies on lists
+    built for them. Gates: K1c launched exactly once per force evaluation
+    plus twice with energy per replica per cycle, the exchanges against
+    the host's float64 recomputation, the last cycle's self energies
+    against float64, each replica's state."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    from mollytpu_torch.sim import remd as remd_mod
+    label = "H-REMD-FEP"
+    r = len(HREMD_LAMS)
+    cls = recording(pt.HamiltonianReplicaExchangeMD)
+    remd = cls(lambdas=list(HREMD_LAMS),
+               simulator=pt.Langevin(dt=DT, temperature=TEMP,
+                                     friction=FRICTION),
+               cycle_length=REMD_CYCLE, atom_mask=mask)
+    gen = torch.Generator(device=fep_end.device).manual_seed(SEED + 700)
+    pk.reset_launch_counts()
+    bucket = {}
+    t0 = time.perf_counter()
+    with timed_calls(bucket, (remd_mod, "run_replica"), (cls, "_energy"),
+                     (cls, "exchange")):
+        ens, info = remd.simulate(fep_end, HREMD_CYCLES, generator=gen)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_seg = r * HREMD_CYCLES
+    launches = count_launches(label, FEP_FAMILY, n_seg * (1 + REMD_CYCLE),
+                              2 * n_seg)
+    (coords, e_self), n_acc = check_exchanges(
+        label, remd, beta=1.0 / (pt.units.KB * TEMP))
+    remd_f64(label, ens.template, coords, e_self, HREMD_LAMS, mask)
+    for i in range(r):
+        check_state(f"{label} replica {i}", ens.replica(i))
+    hist = info["energies"].double().cpu().tolist()
+    md_ms = 1e3 * bucket["run_replica"] / (n_seg * REMD_CYCLE)
+    print(f"{label}: {r} replicas at lambda {list(HREMD_LAMS)}, "
+          f"{HREMD_CYCLES} cycles of {REMD_CYCLE} steps in {wall:.2f} s; "
+          f"exchange rate {info['exchange_rate']:.3f} ({n_acc} of "
+          f"{HREMD_CYCLES * (r // 2)}); {md_ms:.4f} ms per replica-step; "
+          f"{1e3 * bucket['exchange'] / HREMD_CYCLES:.4f} ms per exchange "
+          f"({2 * r} list builds and energies "
+          f"{1e3 * bucket['_energy'] / HREMD_CYCLES:.4f} ms); the "
+          f"({HREMD_CYCLES}, {r}) self-energy history (kJ/mol): {hist!r}",
+          flush=True)
+    return dict(launches=launches, ms=md_ms, wall=wall,
+                exchange_ms=1e3 * bucket["exchange"] / HREMD_CYCLES)
+
+
+def mc_lj_phase(end):
+    """MC-LJ: MetropolisMonteCarlo on LJ-bench's 32,000-atom end state at
+    its kinetic temperature, random_normal_translation(MC_SHIFT), MC_MOVES
+    moves on one neighbor table built at the start. Gates: acceptance in
+    (0.05, 1], the running energy after the last move against a fresh
+    potential_energy (TOL_MC_ENERGY relative), no pair-kernel launch, the
+    table not stale at the end (MetropolisMonteCarlo raises)."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    from mollytpu_torch.sim.simulate import list_check, list_cutoff
+    label = "MC-LJ"
+    nb = pt.find_neighbors(end.neighbor_finder, end.coords, end.boundary,
+                           end.exclusions)
+    temp = float(pt.temperature(end.masses, end.velocities, end.n_dof))
+    mc = pt.MetropolisMonteCarlo(
+        temperature=temp, trial_move=pt.random_normal_translation(MC_SHIFT))
+    gen = torch.Generator(device=end.device).manual_seed(SEED + 800)
+    k1 = (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, info = mc.simulate(end, MC_MOVES, generator=gen, neighbors=nb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rate = float(info["acceptance_rate"])
+    e_run = float(info["energies"][-1])
+    e_new = float(pt.potential_energy(final, nb))
+    rel = abs(e_run - e_new) / abs(e_new)
+    closest, _ = list_check(final, nb, list_cutoff(final))
+    line = (f"{label}: {MC_MOVES} moves on {end.n_atoms} atoms at "
+            f"{temp:.3f} K (LJ-bench's end state), shift "
+            f"{MC_SHIFT} nm, one table: acceptance {rate:.4f}; running "
+            f"energy {e_run:.6f} against a fresh potential_energy "
+            f"{e_new:.6f} kJ/mol (rel {rel:.3e}); closest pair missing "
+            f"from the table inside the cutoff at the end {float(closest)}"
+            f" nm (inf: none); {1e3 * wall / MC_MOVES:.4f} ms per move")
+    print(line, flush=True)
+    if not (0.05 < rate <= 1.0) or rel > TOL_MC_ENERGY:
+        raise RuntimeError(line)
+    if (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES)) != k1:
+        raise RuntimeError(f"{label}: the pair kernel was launched")
+    return dict(ms=1e3 * wall / MC_MOVES, rate=rate)
+
+
+def gradient_phase(start64, pme_end):
+    """Gradients: dE_final/d(epsilon) through GRAD_STEPS velocity Verlet
+    steps of simulate_differentiable on in.lj's float64 liquid (the
+    neighbor-table engine, its list rebuilt on the cadence), with and
+    without per-step checkpointing, against the central difference on
+    the card (TOL_GRAD); the peak memory of each. Then a gradient asked
+    for through the pair kernel (the PME end state's cluster-pair list)
+    must raise NotImplementedError, with no launch."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "Gradients"
+    sim = ljbench.lj_bench_integrator()
+    n = start64.n_atoms
+
+    def loss(eps, remat=True):
+        s = start64.update(atoms=dataclasses.replace(
+            start64.atoms, epsilon=eps.expand(n)))
+        final = pt.simulate_differentiable(s, sim, GRAD_STEPS, remat=remat)
+        nb = pt.find_neighbors(final.neighbor_finder, final.coords.detach(),
+                               final.boundary, final.exclusions)
+        return pt.potential_energy(final, nb)
+
+    eps0 = float(ljbench.EPSILON)
+    grads, peaks, secs = {}, {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eps = torch.tensor(eps0, dtype=torch.float64, device=start64.device,
+                           requires_grad=True)
+        (g,) = torch.autograd.grad(loss(eps, remat), eps)
+        grads[remat] = float(g)
+        torch.cuda.synchronize()
+        secs[remat] = time.perf_counter() - t0
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    h = GRAD_H * eps0
+    with torch.no_grad():
+        fd = (float(loss(torch.tensor(eps0 + h, dtype=torch.float64,
+                                      device=start64.device)))
+              - float(loss(torch.tensor(eps0 - h, dtype=torch.float64,
+                                        device=start64.device)))) / (2 * h)
+    rel = abs(grads[True] - fd) / abs(fd)
+    same = abs(grads[True] - grads[False]) / abs(grads[False])
+    line = (f"{label}: in.lj's float64 liquid ({n} atoms), dE/d(epsilon) "
+            f"after {GRAD_STEPS} velocity Verlet steps: "
+            f"{grads[True]!r} with remat, {grads[False]!r} without (rel "
+            f"{same:.3e}), central difference (h {h:g}) {fd!r}: rel "
+            f"{rel:.3e} (tolerance {TOL_GRAD}); peak memory over the "
+            f"forward and backward {peaks[True]:.3f} GiB with remat, "
+            f"{peaks[False]:.3f} GiB without; {secs[True]:.2f} s and "
+            f"{secs[False]:.2f} s")
+    print(line, flush=True)
+    if not (rel <= TOL_GRAD and same <= 1e-9):
+        raise RuntimeError(line)
+    nb = pt.find_neighbors(pme_end.neighbor_finder, pme_end.coords,
+                           pme_end.boundary, pme_end.exclusions)
+    x = pme_end.coords.clone().requires_grad_(True)
+    k1 = pk.LAUNCHES
+    try:
+        pt.forces(pme_end.update(coords=x), nb)
+    except NotImplementedError as err:
+        print(f"{label}: a gradient through the pair kernel raised "
+              f"NotImplementedError ({err}), no launch", flush=True)
+    else:
+        raise RuntimeError(f"{label}: a gradient through the pair kernel "
+                           "did not raise")
+    if pk.LAUNCHES != k1:
+        raise RuntimeError(f"{label}: the refused call launched the kernel")
+    return dict(peaks=peaks, rel=rel, secs=secs)
+
+
+def calculator_phase(pme_end):
+    """Calculators on the PME path's end state: Calculator's energy and
+    forces against potential_energy and forces_virial on the same
+    coordinates (one K1a energy launch, one forces launch); an
+    ExternalCalculator wrapping a numpy harmonic tether (TETHER_K) on
+    every oxygen joins the general interactions for CALC_STEPS Langevin
+    steps, its forces and energy at the end against
+    add_position_restraints' with the same k and references; NPT
+    (C-rescale) with it and no fn_virial raises. Returns the phase's K1a
+    launches and the ms/step the host round trip adds."""
+    import numpy as np
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "Calculators"
+    nb = pt.find_neighbors(pme_end.neighbor_finder, pme_end.coords,
+                           pme_end.boundary, pme_end.exclusions)
+    with uncounted():
+        e_ref = float(pt.potential_energy(pme_end, nb))
+        f_ref = pt.forces_virial(pme_end, nb)[0]
+    calc = pt.Calculator(pme_end)
+    pk.reset_launch_counts()
+    e = float(calc.energy(pme_end.coords))
+    count_launches(f"{label} energy", "coul3-ortho", 0, 1)
+    f = calc.forces(pme_end.coords)
+    count_launches(f"{label} energy + forces", "coul3-ortho", 1, 1)
+    de = abs(e - e_ref) / abs(e_ref)
+    df = float((f - f_ref).abs().max() / f_ref.abs().max())
+    line = (f"{label}: Calculator energy {e:.6f} against potential_energy "
+            f"{e_ref:.6f} kJ/mol (rel {de:.3e}), forces max|dF|/max|F| "
+            f"{df:.3e} (tolerance {TOL_CALC})")
+    print(line, flush=True)
+    if de > TOL_CALC or df > TOL_CALC:
+        raise RuntimeError(line)
+
+    oxy = np.nonzero(pme_end.atom_data.element == "O")[0]
+    x0 = pme_end.coords.double().cpu().numpy()[oxy]
+
+    def tether(c, box):
+        d = x0 - c[oxy]
+        d -= box * np.round(d / box)
+        f = np.zeros_like(c)
+        f[oxy] = TETHER_K * d
+        return 0.5 * TETHER_K * float(np.sum(d * d)), f
+
+    ext = pt.ExternalCalculator(fn=tether, n_atoms=pme_end.n_atoms)
+    tethered = pme_end.update(general_inters=pme_end.general_inters
+                              + (ext,))
+    restrained = pt.add_position_restraints(pme_end, TETHER_K,
+                                            atom_selector=oxy)
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
+    ms = {"plain": [], "tethered": []}
+    # in turns, plain, tethered, tethered, plain: the host's speed drifts
+    for name in ("plain", "tethered", "tethered", "plain"):
+        system = tethered if name == "tethered" else pme_end
+        gen = torch.Generator(device=pme_end.device).manual_seed(SEED + 900)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run, _, _ = pt.simulate(system, sim, CALC_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / CALC_STEPS)
+        if name == "tethered":
+            out = run
+    ms = {k: statistics.mean(v) for k, v in ms.items()}
+    launches = count_launches(f"{label} with the Langevin runs",
+                              "coul3-ortho", 1 + 4 * (1 + CALC_STEPS), 1)
+    check_state(f"{label} tethered", out)
+    call_ms = statistics.median(
+        _host_ms(lambda: ext.force_virial(out.coords, out.boundary,
+                                          out.atoms)) for _ in range(10))
+    f_ext, _ = ext.force_virial(out.coords, out.boundary, out.atoms)
+    f_res, _ = pt.specific_forces(restrained.specific_lists[-1], out.coords,
+                                  out.boundary)
+    e_ext = float(ext.energy(out.coords, out.boundary, out.atoms))
+    e_res = float(pt.specific_energy(restrained.specific_lists[-1],
+                                     out.coords, out.boundary))
+    dfr = float((f_ext - f_res).abs().max())
+    der = abs(e_ext - e_res) / abs(e_res)
+    line = (f"{label}: ExternalCalculator tether (k {TETHER_K:g} "
+            f"kJ/mol/nm^2 on {len(oxy)} oxygens) after {CALC_STEPS} "
+            f"Langevin steps: forces against add_position_restraints' "
+            f"max|dF| {dfr:.3e} kJ/mol/nm (tolerance {TOL_TETHER_FORCE}; "
+            f"max|F| {float(f_res.abs().max()):.4f}), energy {e_ext:.6f} "
+            f"against {e_res:.6f} kJ/mol (rel {der:.3e}); one force_virial "
+            f"call (the host round trip) {call_ms:.4f} ms (median of 10); "
+            f"{ms['tethered']:.4f} ms/step against {ms['plain']:.4f} "
+            f"without it (each the mean of two runs of {CALC_STEPS} steps, "
+            "in turns): it adds "
+            f"{ms['tethered'] - ms['plain']:.4f} ms/step")
+    print(line, flush=True)
+    if dfr > TOL_TETHER_FORCE or der > TOL_TETHER_ENERGY:
+        raise RuntimeError(line)
+    npt = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION,
+                      coupling=(pt.CRescaleBarostat(
+                          NPT_BAR * pt.units.BAR, TEMP, CRESCALE_TAU,
+                          n_steps=CRESCALE_EVERY),))
+    with uncounted():
+        try:
+            pt.simulate(tethered, npt, CRESCALE_EVERY)
+        except ValueError as err:
+            print(f"{label}: NPT (C-rescale) with the tether and no "
+                  f"fn_virial raised ValueError ({err})", flush=True)
+        else:
+            raise RuntimeError(f"{label}: NPT without fn_virial ran")
+    return dict(launches=launches, add_ms=ms["tethered"] - ms["plain"],
+                call_ms=call_ms)
+
+
 def main():
+    t_start = time.perf_counter()
     line = require_cuda()
     import torch
     import mollytpu_torch as pt
@@ -3788,6 +4279,9 @@ def main():
                 npt, npt_energy = npt_phase(system, runs[label], line)
                 bonded = bonded_phase(runs[label]["system"])
                 runs["MTS-PME"] = mts_path(runs[label], line)
+                t_remd = t_remd_phase(runs[label]["system"],
+                                      runs[label]["ms"])
+                calc = calculator_phase(runs[label]["system"])
             if label == "RF-ortho":
                 components(label, runs[label])
             if label == "PME-dodecahedron":
@@ -3835,7 +4329,10 @@ def main():
                                                    "ns_day")}
         fe = free_energy_phases(pme_end, timed["system"], mask,
                                 runs["PME"]["ms"])
+        h_remd = h_remd_phase(timed["system"], mask)
     lj = lj_bench_path(dev, line)
+    mc = mc_lj_phase(lj["end"])
+    grads = gradient_phase(lj["liquid64"], pme_end)
     forms_phase(dev)
     dpd_card_phase(dev)
     paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
@@ -3873,7 +4370,16 @@ def main():
         "free-energy phases: " + "; ".join(
             f"{label} {r['ms']:.4f} ms per biased or lambda step, "
             f"{r['launches']} pair-kernel launches, {r['wall']:.1f} s"
-            for label, r in fe.items()), flush=True)
+            for label, r in fe.items())
+        + f"; T-REMD-PME {t_remd['ms']:.4f} ms per replica-step, "
+        f"{t_remd['exchange_ms']:.4f} ms per exchange; H-REMD-FEP "
+        f"{h_remd['ms']:.4f} ms per replica-step, "
+        f"{h_remd['exchange_ms']:.4f} ms per exchange; MC-LJ "
+        f"{mc['ms']:.4f} ms per move; Gradients peak memory "
+        f"{grads['peaks'][True]:.3f} GiB with remat, "
+        f"{grads['peaks'][False]:.3f} GiB without; ExternalCalculator "
+        f"{calc['call_ms']:.4f} ms per call, {calc['add_ms']:.4f} ms/step "
+        "added", flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
@@ -3902,7 +4408,8 @@ def main():
                 f"checked and timed on the {frame} frame)", "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",
         "replaces": "mollytpu/ops/pallas_pairwise.py:636",
-        "launches": fe[label]["launches"],
+        "launches": {**fe, "T-REMD-PME": t_remd, "H-REMD-FEP": h_remd,
+                     "Calculators": calc}[label]["launches"],
         **{k: stats[family][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by")},
         "library_ms": None}
@@ -3911,7 +4418,10 @@ def main():
             ("AWH-umbrella", "coul3-ortho", "PME"),
             ("GridAWH", "coul3-ortho", "PME"),
             ("AWH-lambda", FEP_FAMILY, f"FEP-water lambda={FEP_TIMED}"),
-            ("TSS-lambda", FEP_FAMILY, f"FEP-water lambda={FEP_TIMED}"))]
+            ("TSS-lambda", FEP_FAMILY, f"FEP-water lambda={FEP_TIMED}"),
+            ("T-REMD-PME", "coul3-ortho", "PME"),
+            ("H-REMD-FEP", FEP_FAMILY, f"FEP-water lambda={FEP_TIMED}"),
+            ("Calculators", "coul3-ortho", "PME"))]
     kernels.append({
         "name": "pair_nonbonded K1a with energy and virial (LJ + Ewald "
                 "real space, orthorhombic; the NPT path's Monte Carlo trial "
@@ -3939,6 +4449,9 @@ def main():
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None} for e in probes]
+    print(f"chip_smoke.py: the whole run took "
+          f"{time.perf_counter() - t_start:.1f} s (the kernels' build "
+          "included)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,15 +9,17 @@ Entry points build on the CUDA card unless given ``device="cpu"``.
 """
 
 from . import units
-from .atoms import ALCH_CORE, ALCH_DELETE, ALCH_INSERT, Atoms, make_atoms
-from .boundary import (Orthorhombic, Triclinic, cubic, place_atoms,
+from .atoms import (ALCH_CORE, ALCH_DELETE, ALCH_INSERT, AtomData, Atoms,
+                    make_atoms)
+from .boundary import (Orthorhombic, Triclinic, cubic, distance, place_atoms,
                        place_diatomics, random_coords, rectangular,
-                       triclinic, triclinic_from_lengths_angles)
-from .config import resolve_device
+                       sq_distance, triclinic, triclinic_from_lengths_angles)
+from .config import report_issue, resolve_device, strictness
 from .forces import (accelerations, forces, forces_virial,
                      potential_energy, total_energy)
 from .models.forcefield import ForceField
-from .models.setup import add_position_restraints, system_from_pdb
+from .models.setup import (add_position_restraints, crystal_system,
+                           system_from_pdb)
 from .models.gromacs import read_gro, system_from_gromacs
 from .models.waterbox import (DODECAHEDRON, TIP3P_XML, TIP4PEW_XML,
                               water_box_gromacs, water_box_pdb)
@@ -30,7 +32,7 @@ from .ops.cutoffs import (CubicSplineCutoff, DistanceCutoff, NoCutoff,
                           PolynomialCutoff, ShiftedForceCutoff,
                           ShiftedPotentialCutoff, cutoff_distance)
 from .ops.cmap import cmap_coefficients, make_cmap_list
-from .ops.constraints import SHAKERattle
+from .ops.constraints import SHAKERattle, angle_constraint
 from .ops.ewald import (PME, Ewald, EwaldExclusionCorrection,
                         ewald_exclusion_list)
 from .ops.gbsa import (ImplicitSolventGBN2, ImplicitSolventOBC,
@@ -70,11 +72,18 @@ from .sim.integrators import (DPDVelocityVerlet, Langevin,
                               VelocityVerlet)
 from .sim.minimize import SteepestDescentMinimizer
 from .sim.simulate import (StaleNeighborList, npt_resetup, run_chunk,
-                           simulate)
+                           simulate, simulate_differentiable)
+from .sim.mc import (MetropolisMonteCarlo, random_normal_translation,
+                     random_uniform_translation)
+from .sim.remd import HamiltonianReplicaExchangeMD, ReplicaExchangeMD
+from .parallel.replicas import (ReplicaEnsemble, make_ensemble,
+                                make_ensemble_step, simulate_ensemble)
+from .interop import Calculator, ExternalCalculator
 from .spatial import (kinetic_energy, kinetic_energy_tensor,
                       molecule_centers, n_dof, pressure_tensor,
-                      random_velocities, remove_cm_motion, scalar_pressure,
-                      scale_coords, scale_coords_molecular, temperature)
+                      random_velocities, random_velocity, remove_cm_motion,
+                      scalar_pressure, scale_coords, scale_coords_molecular,
+                      temperature, unwrap_molecules)
 from .ops.virtual_sites import VirtualSites
 from .system import Exclusions, System, molecule_ids_from_bonds
 from .free_energy.mbar import (PMF, MBARInput, assemble_mbar_inputs,
@@ -125,3 +134,5 @@ from .free_energy.alchemy import (DefaultLambdaScheduler,
                                   EleScaledLambdaScheduler,
                                   NAMDLambdaScheduler,
                                   QuartersLambdaScheduler)
+
+__version__ = "0.1.0"

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .config import resolve_device
@@ -76,3 +77,16 @@ def make_atoms(n=None, mass=1.0, charge=0.0, sigma=0.0, epsilon=0.0,
     return Atoms(mass=mass_t, charge=arr(charge), sigma=arr(sigma),
                  epsilon=arr(epsilon), atom_type=type_t, lam=lam_t,
                  alch_role=role_t, **buck)
+
+
+@dataclasses.dataclass
+class AtomData:
+    """Host-side per-atom metadata, numpy arrays that never go to the
+    device (mollytpu/atoms.py:93-102): the trajectory writers' names."""
+
+    atom_name: np.ndarray = None      # str
+    residue_name: np.ndarray = None   # str
+    residue_number: np.ndarray = None  # int
+    chain_id: np.ndarray = None       # str
+    element: np.ndarray = None        # str
+    hetero_atom: np.ndarray = None    # bool

@@ -388,3 +388,25 @@ def place_diatomics(generator, boundary, n_molecules, bond_length,
     second = first.clone()
     second[:, 0] += bond_length
     return boundary.wrap(torch.stack([first, second], dim=1).reshape(-1, 3))
+
+
+def displacement_fn(boundary):
+    """The pairwise displacement function closed over ``boundary``
+    (mollytpu/boundary.py:222-228)."""
+
+    def disp(xi, xj):
+        return boundary.displacement(xi, xj)
+
+    return disp
+
+
+def distance(boundary, xi, xj):
+    """Minimum-image distance |x_j - x_i| (mollytpu/boundary.py:231-233)."""
+    dr = boundary.displacement(xi, xj)
+    return torch.sqrt(torch.sum(dr * dr, dim=-1))
+
+
+def sq_distance(boundary, xi, xj):
+    """Minimum-image squared distance (mollytpu/boundary.py:236-238)."""
+    dr = boundary.displacement(xi, xj)
+    return torch.sum(dr * dr, dim=-1)

@@ -4,6 +4,7 @@ port's entry points."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 
@@ -23,6 +24,23 @@ def resolve_device(device=None):
             "mollytpu_torch runs on a CUDA card by default and none is "
             "available; pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda")
+
+
+def tracks_grad(*tensors):
+    """True when grad mode is on and one of ``tensors`` (None skipped)
+    requires grad: the autograd force engines then keep their graph
+    (``create_graph``), so that a gradient runs through the forces
+    (sim.simulate.simulate_differentiable)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def atom_tensors(atoms):
+    """The per-atom tensors of an Atoms (for ``tracks_grad``); none for
+    anything else (a caller may pass no atoms)."""
+    if not dataclasses.is_dataclass(atoms):
+        return ()
+    return tuple(getattr(atoms, f.name) for f in dataclasses.fields(atoms))
 
 
 def strictness(override: str | None = None) -> str:

@@ -105,17 +105,14 @@ def forces_virial(sys, neighbors=None, step_n=0, needs_virial=False):
                 velocities=sys.velocities, step_n=step_n,
                 needs_virial=needs_virial)
             fs, vir = fs + f, vir + v
-    # in place below: the accumulators are this function's own tensors
     if any(s.n_terms for s in sys.specific_lists):
         f, v = all_specific_forces(sys.specific_lists, coords, boundary,
                                    needs_virial=needs_virial)
-        fs.add_(f)
-        vir.add_(v)
+        fs, vir = fs + f, vir + v
     for gi in sys.general_inters:
         f, v = gi.force_virial(coords, boundary, atoms,
                                needs_virial=needs_virial)
-        fs.add_(f)
-        vir.add_(v)
+        fs, vir = fs + f, vir + v
     if sys.virtual_sites is not None:
         fs = sys.virtual_sites.distribute_forces(coords, boundary, fs)
     return fs, vir

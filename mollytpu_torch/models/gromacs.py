@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import boundary as bnd
-from ..atoms import make_atoms
+from ..atoms import AtomData, make_atoms
 from ..config import resolve_device
 from ..ops import bonded
 from ..ops.constraints import SHAKERattle
@@ -427,7 +427,7 @@ def system_from_gromacs(gro_path, top_path, nonbonded_method="cutoff",
     comb-rule 3, else Lorentz. The listed interactions run on a
     CellListNeighborFinder of radius ``dist_neighbors``."""
     device = resolve_device(device)
-    names, _, _, coords, vels, box = read_gro(gro_path)
+    names, res_names, res_nums, coords, vels, box = read_gro(gro_path)
     top = GromacsTopology(top_path)
     atype, charge, mass, bonds_all, pairs_all, settles, rows = \
         _replicate(top)
@@ -508,4 +508,12 @@ def system_from_gromacs(gro_path, top_path, nonbonded_method="cutoff",
                   specific_lists=_gromacs_lists(rows, dtype, device),
                   general_inters=tuple(general), exclusions=exclusions,
                   neighbor_finder=finder, molecule_ids=mol_ids,
-                  n_molecules=n_mol, constraints=constraints)
+                  n_molecules=n_mol, constraints=constraints,
+                  atom_data=AtomData(
+                      atom_name=np.asarray(names),
+                      residue_name=np.asarray(res_names),
+                      residue_number=np.asarray(res_nums),
+                      chain_id=np.asarray(["A"] * n),
+                      element=np.asarray([nm[0] if nm else "?"
+                                          for nm in names]),
+                      hetero_atom=np.asarray([False] * n)))

@@ -22,13 +22,13 @@ import numpy as np
 import torch
 
 from .. import boundary as bnd
-from ..atoms import make_atoms
+from ..atoms import AtomData, make_atoms
 from ..config import resolve_device
 from ..ops import bonded
 from ..ops.blockpairs import BlockPairFinder
 from ..ops.cmap import cmap_coefficients, make_cmap_list
 from ..ops.constraints import build_constrainers, setup_constraints
-from ..ops.cutoffs import DistanceCutoff
+from ..ops.cutoffs import DistanceCutoff, ShiftedForceCutoff
 from ..ops.ewald import PME, EwaldExclusionCorrection, ewald_error_alpha
 from ..ops.gbsa import make_implicit_solvent
 from ..ops.general import LJDispersionCorrection
@@ -630,12 +630,21 @@ def system_from_pdb(path, ff, nonbonded_method="cutoff", dist_cutoff=1.0,
         # the file's site positions are rounded: set them from the parents
         coords = vsites.place(coords, boundary)
     mol_ids, n_mol = molecule_ids_from_bonds(n, bonds, device=device)
+    res = [struct.residues[r] for r in struct.res_index_of_atom]
+    atom_data = AtomData(
+        atom_name=np.asarray(struct.atom_names),
+        residue_name=np.asarray([r.name for r in res]),
+        residue_number=np.asarray([r.number for r in res]),
+        chain_id=np.asarray([r.chain for r in res]),
+        element=np.asarray(struct.elements),
+        hetero_atom=np.asarray([r.hetero for r in res]))
     return System(atoms=atoms, coords=coords, boundary=boundary,
                   pairwise_inters=pairwise, specific_lists=lists,
                   general_inters=tuple(general),
                   constraints=constrainers, virtual_sites=vsites,
                   exclusions=exclusions, neighbor_finder=finder,
-                  molecule_ids=mol_ids, n_molecules=n_mol)
+                  molecule_ids=mol_ids, n_molecules=n_mol,
+                  atom_data=atom_data)
 
 
 def add_position_restraints(sys, k, atom_selector=None):
@@ -665,3 +674,40 @@ def add_position_restraints(sys, k, atom_selector=None):
                                        dtype=sys.coords.dtype,
                                        device=sys.device)
     return sys.update(specific_lists=sys.specific_lists + (slist,))
+
+
+_LATTICE_BASIS = {
+    "sc": [(0.0, 0.0, 0.0)],
+    "bcc": [(0.0, 0.0, 0.0), (0.5, 0.5, 0.5)],
+    "fcc": [(0.0, 0.0, 0.0), (0.5, 0.5, 0.0), (0.5, 0.0, 0.5),
+            (0.0, 0.5, 0.5)],
+}
+
+
+def crystal_system(lattice_constant, element_mass, n_cells, lattice="fcc",
+                   sigma=0.34, epsilon=0.994, charge=0.0, dtype=torch.float32,
+                   device=None, pairwise_inters=None, **system_kwargs):
+    """A System of atoms on a perfect replicated crystal lattice ("sc",
+    "bcc" or "fcc"; lattice_constant in nm, n_cells an int or (nx, ny,
+    nz)) on ``device`` (the CUDA card unless the caller names another),
+    as mollytpu/models/setup.py:846-890 builds it. Without
+    ``pairwise_inters``, LJ with a 1.0 nm shifted-force cutoff on the
+    dense engine (the JAX package's box-dependent branch never runs)."""
+    device = resolve_device(device)
+    basis = _LATTICE_BASIS[lattice]
+    if isinstance(n_cells, int):
+        n_cells = (n_cells, n_cells, n_cells)
+    a = float(lattice_constant)
+    pts = [((ix + bx) * a, (iy + by) * a, (iz + bz) * a)
+           for ix in range(n_cells[0]) for iy in range(n_cells[1])
+           for iz in range(n_cells[2]) for (bx, by, bz) in basis]
+    coords = torch.as_tensor(np.asarray(pts), dtype=dtype, device=device)
+    boundary = bnd.rectangular((n_cells[0] * a, n_cells[1] * a,
+                                n_cells[2] * a), dtype=dtype, device=device)
+    atoms = make_atoms(n=coords.shape[0], mass=element_mass, sigma=sigma,
+                       epsilon=epsilon, charge=charge, dtype=dtype,
+                       device=device)
+    if pairwise_inters is None:
+        pairwise_inters = (LennardJones(cutoff=ShiftedForceCutoff(1.0)),)
+    return System(atoms=atoms, coords=coords, boundary=boundary,
+                  pairwise_inters=pairwise_inters, **system_kwargs)

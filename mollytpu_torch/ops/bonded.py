@@ -29,7 +29,7 @@ from typing import Dict
 
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, tracks_grad
 
 _EPS = 1e-24
 
@@ -254,16 +254,19 @@ def register_term(kind, fn):
     """Add a bonded term kind. ``fn(x, boundary, p)`` takes the gathered
     term coordinates (K, arity, 3), the box and the (K,) parameters
     (without ``weight``) and returns the (K,) energies; their gradients come
-    from torch.autograd."""
+    from torch.autograd, and keep their graph when x or a parameter tracks
+    grad."""
 
     def term(x, boundary, p, grad):
         if not grad:
             return fn(x, boundary, p), None
+        graph = tracks_grad(x, *p.values())
         with torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
+            xg = x if graph and x.requires_grad else x.detach(
+            ).requires_grad_(True)
             e = fn(xg, boundary, p)
-            g, = torch.autograd.grad(e.sum(), xg)
-        return e.detach(), g
+            g, = torch.autograd.grad(e.sum(), xg, create_graph=graph)
+        return (e if graph else e.detach()), g
 
     TERM_FUNCS[kind] = term
 

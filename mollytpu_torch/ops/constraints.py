@@ -475,3 +475,12 @@ def _filter_rows(slist, drop):
     return dataclasses.replace(
         slist, atom_idx=slist.atom_idx[keep],
         params={k: v[keep] for k, v in slist.params.items()})
+
+
+def angle_constraint(i, j, k, dist_ij, dist_jk, angle):
+    """An angle constraint as three distance constraints
+    (mollytpu/ops/constraints.py:612-620): the pairs ((i, j), (j, k),
+    (i, k)) and their distances, i-k from the law of cosines."""
+    d_ik = math.sqrt(dist_ij ** 2 + dist_jk ** 2
+                     - 2.0 * dist_ij * dist_jk * math.cos(angle))
+    return [(i, j), (j, k), (i, k)], [dist_ij, dist_jk, d_ik]

@@ -30,13 +30,34 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, _const(x, lo)), _const(x, hi))
 
 
+def _tracks_other_leaf(t, x):
+    """Whether t's graph reaches a leaf that requires grad other than x
+    (a walk over its autograd nodes, a few dozen for a pair energy)."""
+    seen, stack = set(), [t.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if hasattr(fn, "variable"):            # AccumulateGrad: a leaf
+            if fn.variable is not x:
+                return True
+            continue
+        stack.extend(f for f, _ in fn.next_functions)
+    return False
+
+
 def _grad_at(u, r, at):
     """du/dr at the radius ``at``, per pair (the shape of r): JAX's
-    jax.grad(u)(at). Its value only: the outer derivative with respect to
-    r treats it as a constant, as it is."""
+    jax.grad(u)(at). A constant in r. In grad mode, when u depends on atom
+    parameters that require grad, it keeps its graph (create_graph), so
+    that a gradient with respect to them includes it."""
+    outer = torch.is_grad_enabled()
     with torch.enable_grad():
         x = torch.full_like(r, float(at)).requires_grad_(True)
-        (g,) = torch.autograd.grad(u(x).sum(), x)
+        ux = u(x).sum()
+        graph = outer and _tracks_other_leaf(ux, x)
+        (g,) = torch.autograd.grad(ux, x, create_graph=graph)
     return g
 
 

@@ -179,9 +179,8 @@ def _exclusion_force_virial(q, coords, boundary, alpha, ke, excl_i, excl_j,
                        * torch.exp(-(alpha * r) ** 2) / r - erf_ar / r2)
     coef = dudr / r
     fi = coef[:, None] * dr                                   # force on i
-    forces = torch.zeros_like(coords)
-    forces.index_add_(0, excl_i, fi)
-    forces.index_add_(0, excl_j, -fi)
+    forces = torch.zeros_like(coords).index_add(0, excl_i, fi).index_add(
+        0, excl_j, -fi)
     if needs_virial:
         vir = -torch.einsum("k,ka,kb->ab", coef, dr, dr)
     return forces, vir

@@ -12,18 +12,24 @@ import dataclasses
 
 import torch
 
+from ..config import atom_tensors, tracks_grad
+
 
 class GeneralInteraction:
     """Base of a user's general interaction, which defines ``energy``: the
     forces are -dE/dx by torch.autograd, and the virial is the JAX
     package's isotropic strain estimate W = -dE/d(eps) / 3 on the diagonal,
     with coordinates and box scaled by (1 + eps) (mollytpu/ops/general.py:
-    33-57)."""
+    33-57). When the coordinates or an atom parameter track grad, the
+    forces keep their graph (create_graph)."""
 
     def force_virial(self, coords, boundary, atoms, needs_virial=False):
+        graph = tracks_grad(coords, *atom_tensors(atoms))
         with torch.enable_grad():
-            x = coords.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(self.energy(x, boundary, atoms), x)
+            x = (coords if graph and coords.requires_grad
+                 else coords.detach().requires_grad_(True))
+            (grad,) = torch.autograd.grad(self.energy(x, boundary, atoms), x,
+                                          create_graph=graph)
             vir = torch.zeros((3, 3), dtype=coords.dtype,
                               device=coords.device)
             if needs_virial:

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..config import atom_tensors, tracks_grad
+
 
 class _PairView:
     """Per-pair atom parameters, gathered on first use: ``fn`` of the
@@ -52,11 +54,16 @@ def _pair_energy(inters, r, ai, aj, special):
 
 def _pair_grad(inters, r, ai, aj, special):
     """dU/dr per pair: each pair's energy depends on its own r only, so the
-    gradient of the sum is the per-pair derivative."""
+    gradient of the sum is the per-pair derivative. When r or an atom
+    parameter tracks grad, dU/dr keeps its graph (create_graph), so that
+    a gradient runs through the forces."""
+    graph = tracks_grad(r, *atom_tensors(ai._atoms))
     with torch.enable_grad():
-        rr = r.detach().requires_grad_(True)
+        rr = r if graph and r.requires_grad else r.detach().requires_grad_(
+            True)
         (g,) = torch.autograd.grad(
-            _pair_energy(inters, rr, ai, aj, special).sum(), rr)
+            _pair_energy(inters, rr, ai, aj, special).sum(), rr,
+            create_graph=graph)
     return g
 
 
@@ -199,8 +206,8 @@ def neighbor_forces(inters, atoms, coords, boundary, neighbors,
                                          ai, aj, neighbors.special), 0.0)
         coef = g / r
         fk = coef[..., None] * drv           # the pair force on the row atom
-        forces = forces + fk.sum(dim=1)
-        forces.index_add_(0, flat_j, -fk.reshape(-1, 3))
+        forces = (forces + fk.sum(dim=1)).index_add(0, flat_j,
+                                                   -fk.reshape(-1, 3))
         if needs_virial:
             vir = vir + _virial(coef, drs, 1.0)
     if veldep:
@@ -211,8 +218,8 @@ def neighbor_forces(inters, atoms, coords, boundary, neighbors,
                                  velocities[:, None, :], velocities[safe_j],
                                  neighbors.special, step_n)
             fv = live[..., None] * fv             # the force on j
-            forces = forces - fv.sum(dim=1)
-            forces.index_add_(0, flat_j, fv.reshape(-1, 3))
+            forces = (forces - fv.sum(dim=1)).index_add(0, flat_j,
+                                                       fv.reshape(-1, 3))
             if needs_virial:
                 vir = vir + torch.einsum("ikd,ike->de", drv, fv)
     return forces, vir

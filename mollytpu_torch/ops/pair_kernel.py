@@ -42,6 +42,7 @@ import torch
 
 from . import native
 from ..boundary import mic
+from ..config import atom_tensors, tracks_grad
 from ..free_energy.alchemy import SCHEDULER_IDS, scaled_charge
 from .blockpairs import CLUSTER
 from .cutoffs import (DistanceCutoff, NoCutoff, ShiftedForceCutoff,
@@ -802,12 +803,28 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
     return forces, energy, virial
 
 
+def refuse_grad(*tensors):
+    """The pair kernel has no backward (nor has the JAX package's): raise
+    NotImplementedError when grad mode is on and one of ``tensors``
+    requires grad, on either device, so that a gradient through the
+    cluster-pair path fails instead of coming back detached."""
+    if tracks_grad(*tensors):
+        raise NotImplementedError(
+            "the pair kernel (the cluster-pair list of BlockPairFinder) has "
+            "no backward: differentiate through the dense engine "
+            "(use_neighbors=False) or the neighbor-table engine "
+            "(neighbor_finder=\"cell\" or \"distance\")")
+
+
 def pair_nonbonded(spec, blockpairs, boundary, n_atoms, compute_energy=False,
                    lam_role=None, probe=""):
     """(forces (N, 3), energy, virial (3, 3)) of every listed pair inside
     cut_max; energy and virial are None unless ``compute_energy``. CPU
     tensors run the plain twin; CUDA tensors launch the kernel (f32 only)
-    or raise. ``probe`` names a roofline probe (never on a main path)."""
+    or raise. ``probe`` names a roofline probe (never on a main path).
+    Raises NotImplementedError for inputs that require grad
+    (``refuse_grad``)."""
+    refuse_grad(blockpairs.pos4, blockpairs.lj2, lam_role)
     if blockpairs.pos4.is_cuda:
         return _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
                                     compute_energy, lam_role, probe)
@@ -910,7 +927,11 @@ def block_nonbonded(spec, coords, boundary, atoms, exclusions, blockpairs,
     """Main-path entry (counterpart of pallas_block_nonbonded): fill this
     call's slot rows (kernel_inputs), run the pair kernel (or its twin on
     CPU) and apply the far-pair corrections. It takes no roofline probe.
-    Energy and virial are None unless ``compute_energy``."""
+    Energy and virial are None unless ``compute_energy``. Raises
+    NotImplementedError for inputs that require grad (``refuse_grad``)."""
+    refuse_grad(coords, *atom_tensors(atoms),
+                getattr(boundary, "side_lengths", None),
+                getattr(boundary, "basis", None))
     blockpairs, lam_role, charge = kernel_inputs(spec, coords, atoms,
                                                  blockpairs)
     forces, energy, virial = pair_nonbonded(spec, blockpairs, boundary,

@@ -36,10 +36,11 @@ import sys as _sys
 import time
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..forces import forces_virial
 from ..ops.blockpairs import unlisted_min_distance
-from ..ops.neighbors import Neighbors, find_neighbors
+from ..ops.neighbors import Neighbors, find_neighbors, maybe_rebuild
 from ..ops.pairwise import interaction_cutoff
 from ..spatial import remove_cm_motion
 from .coupling import virial_due
@@ -335,3 +336,56 @@ def simulate(sys, simulator, n_steps, generator=None, neighbors=None,
     if loggers is None:
         return sys, neighbors, aux
     return sys, neighbors, aux, {k: _stack(v) for k, v in logs.items()}
+
+
+def simulate_differentiable(sys, simulator, n_steps, generator=None,
+                            neighbors=None, remat=True, noise=None):
+    """n_steps of MD that autograd differentiates (counterpart of
+    mollytpu/sim/simulate.py:278-311): one loop with no host reads and no
+    stale-list check, each step wrapped in ``torch.utils.checkpoint`` when
+    ``remat`` (activations recomputed in the backward pass, so memory
+    grows with one step, not the trajectory). Returns the final System.
+
+    The state is functional: no step writes in place into a tensor that
+    carries the graph. The autograd force engines keep their graph when
+    their inputs track grad (config.tracks_grad); the hand-written bonded
+    and PME forces are differentiated through. The pair kernel has no
+    backward and raises (ops.pair_kernel.refuse_grad): use the dense or
+    neighbor-table engine. The list is rebuilt on the finder's cadence
+    from detached coordinates (its indices carry no gradient). A
+    stochastic step draws from a generator cloned from ``generator`` (one
+    seeded 0 when None) at the step's start, so the recomputation draws
+    the same numbers; ``generator`` ends advanced past the run's draws.
+    ``noise`` is an optional step_n -> that step's normals.
+
+    Differentiate e.g. with
+        torch.autograd.grad(observable(simulate_differentiable(s, sim, n)),
+                            parameter)
+    """
+    if neighbors is None:
+        neighbors = find_neighbors(sys.neighbor_finder, sys.coords.detach(),
+                                   sys.boundary, sys.exclusions, 0)
+    aux = simulator.init_aux(sys, neighbors, needs_virial=False)
+
+    def step(sys, aux, neighbors, step_n, state):
+        gen = torch.Generator(device=sys.device)
+        gen.set_state(state)
+        injected = {} if noise is None else {"noise": noise(step_n)}
+        sys, aux = simulator.step(sys, neighbors, aux, step_n, generator=gen,
+                                  needs_virial=False, **injected)
+        return sys, aux, gen.get_state()
+
+    if generator is None:
+        generator = torch.Generator(device=sys.device).manual_seed(0)
+    state = generator.get_state()
+    for i in range(n_steps):
+        if remat:
+            sys, aux, state = checkpoint(step, sys, aux, neighbors, i, state,
+                                         use_reentrant=False)
+        else:
+            sys, aux, state = step(sys, aux, neighbors, i, state)
+        neighbors = maybe_rebuild(sys.neighbor_finder, neighbors,
+                                  sys.coords.detach(), sys.boundary,
+                                  sys.exclusions, i + 1)
+    generator.set_state(state)
+    return sys

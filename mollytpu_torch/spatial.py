@@ -15,9 +15,20 @@ straddles a face.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .units import KB
+
+
+def random_velocity(mass, temp, generator, n_dims=3, dtype=torch.float32):
+    """One Maxwell-Boltzmann velocity sample (nm/ps) of an atom of ``mass``,
+    on the generator's device."""
+    sigma = math.sqrt(KB * float(temp) / float(mass))
+    return sigma * torch.randn((n_dims,), generator=generator, dtype=dtype,
+                               device=generator.device)
 
 
 def random_velocities(masses, temp, generator, n_dims=3):
@@ -136,3 +147,39 @@ def scale_coords_molecular(boundary, coords, mu, masses, molecule_ids,
     centers = molecule_centers(whole, masses, ids, n_molecules)
     new_centers = centers @ mu.T if mu.dim() == 2 else centers * mu
     return boundary.scale(mu), whole + (new_centers - centers)[ids]
+
+
+def unwrap_molecules(coords, boundary, molecule_ids, bonds_i, bonds_j):
+    """Molecules made whole across the periodic boundary by a breadth-first
+    walk over the bonds, on the host (mollytpu/spatial.py:128-164): each
+    bonded atom moves by whole box lengths to its partner's image. For
+    trajectory writers and visualisation; returns a numpy (N, 3) float64
+    array. ``molecule_ids`` is unused, as in the JAX package."""
+    c = np.asarray(torch.as_tensor(coords).detach().cpu(),
+                   dtype=np.float64).copy()
+    sides = np.asarray(torch.as_tensor(boundary.side_lengths).detach().cpu(),
+                       dtype=np.float64)
+    periodic = np.isfinite(sides)
+    safe = np.where(periodic, sides, 1.0)
+    n = c.shape[0]
+    adj = [[] for _ in range(n)]
+    for i, j in zip(np.asarray(bonds_i), np.asarray(bonds_j)):
+        adj[int(i)].append(int(j))
+        adj[int(j)].append(int(i))
+    seen = np.zeros(n, dtype=bool)
+    for start in range(n):
+        if seen[start]:
+            continue
+        seen[start] = True
+        stack = [start]
+        while stack:
+            a = stack.pop()
+            for b in adj[a]:
+                if seen[b]:
+                    continue
+                d = c[b] - c[a]
+                c[b] = c[b] - np.where(periodic,
+                                       np.round(d / safe) * sides, 0.0)
+                seen[b] = True
+                stack.append(b)
+    return c

@@ -13,7 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .atoms import Atoms
+from .atoms import AtomData, Atoms
 from .config import resolve_device
 from .spatial import n_dof as calc_n_dof
 
@@ -132,6 +132,10 @@ class System:
     n_dof: int = 0
     molecule_ids: torch.Tensor = None   # (N,) int32; all 0 by default
     n_molecules: int = 1
+    #: host-side names for the trajectory writers (set by system_from_pdb
+    #: and system_from_gromacs);
+    #: a field, so that ``update`` carries it
+    atom_data: AtomData = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.velocities is None:

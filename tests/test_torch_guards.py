@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -137,7 +138,28 @@ ENTRY_POINTS = {
     "make_atoms": lambda tmp, **kw: pt.make_atoms(n=4, **kw).mass,
     "Exclusions.build": lambda tmp, **kw: pt.Exclusions.build(
         4, [(0, 1)], **kw).excl_bits,
+    "crystal_system": lambda tmp, **kw: _crystal(**kw).coords,
+    "make_ensemble": lambda tmp, **kw: pt.make_ensemble(
+        _crystal(**kw), 2).coords,
+    "ReplicaExchangeMD.simulate": lambda tmp, **kw: pt.ReplicaExchangeMD(
+        temperatures=[100.0, 110.0], simulator=_langevin(),
+        cycle_length=2).simulate(_crystal(**kw), 1)[0].coords,
+    "HamiltonianReplicaExchangeMD.simulate": lambda tmp, **kw:
+        pt.HamiltonianReplicaExchangeMD(
+            lambdas=[1.0, 0.5], simulator=_langevin(),
+            cycle_length=2).simulate(_crystal(**kw), 1)[0].coords,
+    "Calculator": lambda tmp, **kw: pt.Calculator(_crystal(**kw)).forces(
+        np.zeros((4, 3)) + np.arange(4)[:, None] * 0.11),
 }
+
+
+def _crystal(**kw):
+    """Four LJ atoms of one fcc cell (0.5 nm) in float64."""
+    return pt.crystal_system(0.5, 40.0, 1, dtype=torch.float64, **kw)
+
+
+def _langevin():
+    return pt.Langevin(dt=0.001, temperature=100.0, friction=1.0)
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))

@@ -10,6 +10,7 @@ byte for byte on the same frames; a run resumed from a checkpoint at a
 rebuild step is the uninterrupted run bit for bit (CPU, float64); the
 analysis functions agree to 1e-10 relative."""
 
+import functools
 import math
 import os
 
@@ -118,10 +119,26 @@ def _frames(n=40, n_frames=3, seed=3):
     return rng.uniform(0.0, 2.4, (n_frames, n, 3)), rng.normal(size=(n, 3))
 
 
-@pytest.mark.parametrize("fmt", ["pdb", "xyz", "trr", "mol2", "dcd", "xtc"])
+@functools.lru_cache(maxsize=None)
+def _atom_data():
+    """The 64-water box's AtomData from each package's system_from_pdb."""
+    from mollytpu.models.setup import system_from_pdb as jax_from_pdb
+    from torch_parity import box_path, port_system
+    js = jax_from_pdb(box_path("tiny64"), mt.ForceField(pt.TIP3P_XML),
+                      dtype=jnp.float64, build_cache=False)
+    return js.atom_data, port_system("tiny64").atom_data
+
+
+@pytest.mark.parametrize("fmt", ["pdb", "xyz", "trr", "mol2", "dcd", "xtc",
+                                 "pdb-atom_data", "xyz-atom_data",
+                                 "mol2-atom_data"])
 @pytest.mark.parametrize("box", ["cube", "dodecahedron"])
 def test_writers_match_jax_bytes_and_read_back(tmp_path, fmt, box):
-    frames, vels = _frames()
+    """Each writer's bytes equal the JAX package's, without names and (the
+    -atom_data cases) with each package's AtomData of the 64-water box."""
+    fmt, _, named = fmt.partition("-")
+    jad, pad = _atom_data() if named else (None, None)
+    frames, vels = _frames(n=192 if named else 40)
     n = frames.shape[1]
     if box == "cube":
         jb = mt.rectangular(jnp.asarray([2.4, 2.5, 2.6]), dtype=jnp.float64)
@@ -133,8 +150,10 @@ def test_writers_match_jax_bytes_and_read_back(tmp_path, fmt, box):
         pb = pt.triclinic_from_lengths_angles((2.4,) * 3, angles,
                                               dtype=torch.float64,
                                               device=CPU)
-    jw = jax_traj.TrajectoryWriter(10, str(tmp_path / f"jax.{fmt}"))
-    pw = pt.TrajectoryWriter(10, str(tmp_path / f"port.{fmt}"))
+    jw = jax_traj.TrajectoryWriter(10, str(tmp_path / f"jax.{fmt}"),
+                                   atom_data=jad)
+    pw = pt.TrajectoryWriter(10, str(tmp_path / f"port.{fmt}"),
+                             atom_data=pad)
     for t, x in enumerate(frames):
         js = mt.System(atoms=mt.make_atoms(n=n, dtype=jnp.float64),
                        coords=jnp.asarray(x), boundary=jb,
