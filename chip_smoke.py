@@ -212,6 +212,30 @@ Phases, each printing one line or more before the next starts:
    the peak memory of each, and a gradient through the pair kernel
    raising NotImplementedError without a launch.
 
+13. the last public modules. After the Calculators, on the PME
+   path's start frame: CellTiles-PME, the cell-tile engine (ops/
+   celltiles.py, plain PyTorch: JAX's is XLA) on a CellTileFinder of the
+   main paths' 1.15 nm radius (4^3 cells of capacity 352): its pair
+   forces, energy and virial against K1a's on the frame (TOL_TILE_K1A;
+   K1a launched uncounted, as the comparator) and against the float64
+   tile engine (TOL_F64 off the cutoff), ms per tile_forces, tile_energy
+   and find, then 10 + 40 Langevin steps (ms/step, no overflow, no stale
+   table, no pair-kernel launch, the state, peak device memory) and one
+   rebuild interval under set_sync_debug_mode("error"); Mesh, one T-REMD
+   cycle of 5 steps on CellTiles-PME's end state through
+   mesh=replica_mesh() against mesh=None from generators seeded alike,
+   under torch.use_deterministic_algorithms, bit for bit, with the
+   device count; Tuner, tune_launch on the PME end state (skin 0.15 nm
+   at cadence 10, then 0.10, 0.20, 0.30 at cadence(s) = round(10 (s /
+   0.15)^2)), each candidate's ms/step, the choice, and its round trip
+   through the on-disk cache. After LJ-bench: CellTiles-LJ, in.lj's
+   32,000 atoms on tiles (11^3 cells of capacity 64) at LJ-bench's
+   cadence: the lattice energy (TOL_LJ_E0_F32), 100 NVE steps beside 100
+   on the cell list from the same state (the tiles' drift at most twice
+   the cell list's + LJ_DRIFT_SLACK), the tile forces and energy against
+   the cell-list engine's on the end frame (TOL_ENGINES), ms/step and
+   timesteps/s beside the cell list's, peak memory, no pair-kernel launch.
+
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
 and MTS-PME paths together; coul3-triclinic's those of PME-dodecahedron,
@@ -222,8 +246,9 @@ Calculators phase with its launches (energy launches included), K1a's
 energy and virial instance on the NPT path, coul3-triclinic's on the
 production phase, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
-probe phase; LJ-bench, MC-LJ and Gradients launch no kernel and have no
-entry); the last is
+probe phase; LJ-bench, MC-LJ, Gradients, CellTiles-PME, CellTiles-LJ and
+Mesh launch no kernel on their paths and have no entry; the Tuner's K1a
+launches time candidates and are printed); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -435,10 +460,18 @@ TSS_WINDOW, TSS_STARTS, TSS_MD, TSS_CYCLES = 4, (0, 11), 20, 15
 #: difference from state 0, U_k - U_0, in kJ/mol: the states share the f32
 #: coordinates and all but the solute's or the bias's terms, so their
 #: differences keep far less than the f32 total's rounding (~0.1 kJ/mol
-#: of PME's f32 mesh sums at most); TOL_STATE_DIFF is 0.2 kT. A bias's
+#: of PME's f32 mesh sums at most); TOL_STATE_DIFF is 0.2 kT. A state
+#: whose own terms are too large for f32 to hold U_k - U_0 to that (a
+#: soft-core solute overlapping a solvent atom at a partly decoupled rung,
+#: then taken at full sterics) is held to STATE_DIFF_ULPS f32 ulps of
+#: |U_k - U_0| instead, the larger of the two: that replaces 0.5 kJ/mol
+#: only above |U_k - U_0| = 2^18 kJ/mol. The readings it was set from,
+#: TSS-lambda on an H100: 721.6 kJ/mol at a span of 1.25e9 kJ/mol (5.6
+#: ulps) and 1.0 kJ/mol at 5.9e6 kJ/mol (2.0 ulps). A bfloat16 control,
+#: the card's energies rounded to bfloat16, must fail the gate. A bias's
 #: energy and forces relative to max(1, the float64 largest): the f32
 #: distance carries ~5e-7 nm of coordinate rounding into k (d - d0).
-TOL_STATE_DIFF, TOL_BIAS = 0.5, 1e-4
+TOL_STATE_DIFF, STATE_DIFF_ULPS, TOL_BIAS = 0.5, 16, 1e-4
 
 # The kernel's bound: the largest of its bytes over the card's memory
 # rate, its FP32 operations over the card's FP32 rate and its special-
@@ -528,6 +561,33 @@ MC_MOVES, MC_SHIFT, TOL_MC_ENERGY = 500, 0.02, 1e-6
 GRAD_STEPS, GRAD_H, TOL_GRAD = 20, 1e-8, 2e-3
 TETHER_K, CALC_STEPS, TOL_CALC = 1000.0, 50, 1e-5
 TOL_TETHER_FORCE, TOL_TETHER_ENERGY = 1e-2, 1e-4
+
+#: the cell-tile engine (ops/celltiles.py) on the PME cube's start frame:
+#: its pair forces, energy and virial against K1a's on the same frame
+#: (f32 both: K1a's exact erfcf against the engines' Abramowitz-Stegun
+#: erfc, under 1.5e-7 absolute, and f32 row sums of ~1e4 slots against
+#: K1a's fixed-point and atomic sums), against the float64 tile engine
+#: (TOL_F64 off the cutoff, as the main paths); then TILE_WARMUP +
+#: TILE_STEPS Langevin steps at the main paths' cadence. The steps of
+#: this phase, Mesh and CellTiles-LJ were cut from 100, 10 and 200 after
+#: a whole run on a slow host took 598.0 s on an H100, above the 533.6 s
+#: the run took before these phases
+TOL_TILE_K1A = 1e-5
+TILE_WARMUP, TILE_STEPS = 10, 40
+#: LJ-bench on tiles: TILE_LJ_STEPS NVE steps from the lattice beside as
+#: many on the cell list from the same state, the total energy every
+#: LJ_SAMPLE steps; the tile forces against the cell-list engine's on the
+#: tile run's end frame (the same f32 r^2 on both sides: TOL_ENGINES)
+TILE_LJ_STEPS = 100
+#: the replica mesh: one T-REMD cycle of MESH_CYCLE steps on the
+#: CellTiles-PME end state through replica_mesh() and through mesh=None,
+#: both under torch.use_deterministic_algorithms (PME's and SHAKE's
+#: index_add_ sum in a fixed order there; the tile engine has no atomics,
+#: K1 has float atomics and so is not on this phase's path)
+MESH_CYCLE = 5
+#: the launch tuner on the PME end state: the anchor skin 0.15 nm at the
+#: main paths' cadence, then these skins
+TUNE_SKIN, TUNE_SKINS = 0.15, (0.10, 0.20, 0.30)
 
 
 def card_line():
@@ -2293,6 +2353,7 @@ def check_states_f64(label, space, system, nb):
     evaluation through the plain twins at each state's lambda plus its
     float64 bias; each state's bias against float64 (check_bias_f64)."""
     import numpy as np
+    import torch
     import mollytpu_torch as pt
     e32 = space.state_energies(system, nb).cpu().numpy()
     sys64, nb64 = f64_system(system, system.coords)
@@ -2311,17 +2372,26 @@ def check_states_f64(label, space, system, nb):
         e64.append(e)
     e64 = np.array(e64)
     rel = float((np.abs(e32 - e64) / np.abs(e64)).max())
-    diff = float(np.abs((e32 - e32[0]) - (e64 - e64[0])).max())
+    d64 = e64 - e64[0]
+    err = np.abs((e32 - e32[0]) - d64)
+    tol = np.maximum(TOL_STATE_DIFF, STATE_DIFF_ULPS * np.spacing(
+        np.abs(d64).astype(np.float32)).astype(np.float64))
+    diff, worst = float(err.max()), float((err / tol).max())
+    # the control: the same energies rounded to bfloat16
+    e16 = torch.from_numpy(e32).to(torch.bfloat16).double().numpy()
+    control = float((np.abs((e16 - e16[0]) - d64) / tol).max())
     line = (f"{label} last frame vs float64 twins: {space.n_states} state "
             f"energies ({len(at_lam)} lambdas) max rel dE {rel:.3e} "
-            f"(tolerance {TOL_F64}), max |d(U_k - U_0)| {diff:.3e} kJ/mol "
-            f"(tolerance {TOL_STATE_DIFF}; U_k - U_0 spans "
-            f"{float(np.ptp(e64 - e64[0])):.4f} kJ/mol)")
+            f"(tolerance {TOL_F64}), max |d(U_k - U_0)| {diff:.3e} kJ/mol, "
+            f"{worst:.3f} of its tolerance (the larger of {TOL_STATE_DIFF} "
+            f"kJ/mol and {STATE_DIFF_ULPS} f32 ulps of |U_k - U_0|, which "
+            f"spans {float(np.ptp(d64)):.4f} kJ/mol); the bfloat16 control "
+            f"reads {control:.3f} of it")
     if space.biases is not None:
         line += (f"; biases: max|dF|/max|F| {bias_err[0]:.3e}, rel dE "
                  f"{bias_err[1]:.3e} (tolerance {TOL_BIAS})")
     print(line, flush=True)
-    if not (rel <= TOL_F64 and diff <= TOL_STATE_DIFF):
+    if not (rel <= TOL_F64 and worst <= 1.0 < control):
         raise RuntimeError(line)
 
 
@@ -3849,7 +3919,7 @@ def check_exchanges(label, remd, temps=None, beta=None):
             coords, vels, pes, c, u = args
             e = pes.double().cpu().numpy()
         else:
-            _, coords, vels, c, u = args
+            _, coords, vels, c, u = args[:5]
             e = out[2].double().cpu().numpy()
         u = u.double().cpu().numpy()
         r = len(u)
@@ -3940,7 +4010,7 @@ def t_remd_phase(pme_end, pme_ms):
     pk.reset_launch_counts()
     bucket = {}
     t0 = time.perf_counter()
-    with timed_calls(bucket, (remd_mod, "run_replica"),
+    with timed_calls(bucket, (remd_mod, "run_segments"),
                      (remd_mod, "potential_energy"),
                      (type(remd), "exchange")):
         ens, info = remd.simulate(pme_end, REMD_CYCLES, generator=gen)
@@ -3953,7 +4023,7 @@ def t_remd_phase(pme_end, pme_ms):
     remd_f64(label, ens.template, coords, pes)
     for i in range(r):
         check_state(f"{label} replica {i}", ens.replica(i))
-    md_ms = 1e3 * bucket["run_replica"] / (n_seg * REMD_CYCLE)
+    md_ms = 1e3 * bucket["run_segments"] / (n_seg * REMD_CYCLE)
     ex_ms = 1e3 * (bucket["potential_energy"] + bucket["exchange"]) \
         / REMD_CYCLES
     print(f"{label}: {r} replicas on {list(REMD_TEMPS)} K, {REMD_CYCLES} "
@@ -3992,7 +4062,7 @@ def h_remd_phase(fep_end, mask):
     pk.reset_launch_counts()
     bucket = {}
     t0 = time.perf_counter()
-    with timed_calls(bucket, (remd_mod, "run_replica"), (cls, "_energy"),
+    with timed_calls(bucket, (remd_mod, "run_segments"), (cls, "_energy"),
                      (cls, "exchange")):
         ens, info = remd.simulate(fep_end, HREMD_CYCLES, generator=gen)
         torch.cuda.synchronize()
@@ -4006,7 +4076,7 @@ def h_remd_phase(fep_end, mask):
     for i in range(r):
         check_state(f"{label} replica {i}", ens.replica(i))
     hist = info["energies"].double().cpu().tolist()
-    md_ms = 1e3 * bucket["run_replica"] / (n_seg * REMD_CYCLE)
+    md_ms = 1e3 * bucket["run_segments"] / (n_seg * REMD_CYCLE)
     print(f"{label}: {r} replicas at lambda {list(HREMD_LAMS)}, "
           f"{HREMD_CYCLES} cycles of {REMD_CYCLE} steps in {wall:.2f} s; "
           f"exchange rate {info['exchange_rate']:.3f} ({n_acc} of "
@@ -4246,8 +4316,349 @@ def calculator_phase(pme_end):
                 call_ms=call_ms)
 
 
+def tile_system(system, radius, cadence):
+    """``system`` on a CellTileFinder of list radius ``radius``."""
+    import mollytpu_torch as pt
+    return system.update(neighbor_finder=pt.CellTileFinder.setup(
+        system.boundary, radius, system.n_atoms, n_steps=cadence))
+
+
+def describe_tiles(label, finder, n):
+    """Print the grid; returns the pair slots of one evaluation."""
+    import numpy as np
+    cells = int(np.prod(finder.grid_dims))
+    s = finder.stencil.shape[1]
+    cap = finder.cell_capacity
+    slots = cells * cap * s * cap
+    print(f"{label}: {n} atoms, CellTileFinder radius {finder.dist_cutoff} "
+          f"nm, grid {finder.grid_dims} ({cells} cells), capacity {cap}, "
+          f"stencil {s} cells: {slots:,} pair slots per evaluation",
+          flush=True)
+    return slots
+
+
+def tile_terms(system, tiles):
+    """The tile engine's pair forces, energy and virial of ``system``'s
+    listed interactions."""
+    from mollytpu_torch.ops import celltiles
+    nl = tuple(i for i in system.pairwise_inters
+               if getattr(i, "use_neighbors", False))
+    args = (nl, system.atoms, system.coords, system.boundary, tiles,
+            system.neighbor_finder, system.exclusions)
+    f, v = celltiles.tile_forces(*args, needs_virial=True)
+    return f, celltiles.tile_energy(*args), v
+
+
+def celltiles_pme_phase(system, line):
+    """CellTiles-PME: the PME cube's start frame on the cell-tile engine.
+    Gates: no overflow; the tile pair terms against K1a's on the frame
+    (TOL_TILE_K1A; K1a launched uncounted, as a comparator) and against
+    the float64 tile engine (TOL_F64 off the cutoff); TILE_WARMUP +
+    TILE_STEPS Langevin steps with no stale table and no overflow
+    (run_chunk raises), no pair-kernel launch, the state; one rebuild
+    interval under set_sync_debug_mode("error"). Reports ms per tile
+    evaluation, ms/step and the peak device memory of an evaluation and
+    of the run."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "CellTiles-PME"
+    ts = tile_system(system, LIST_RADIUS, CADENCE)
+    slots = describe_tiles(label, ts.neighbor_finder, ts.n_atoms)
+    tiles = ts.neighbor_finder.find(ts.coords, ts.boundary, ts.exclusions)
+    if int(tiles.overflow):
+        raise RuntimeError(f"{label}: {int(tiles.overflow)} atoms found "
+                           "their cell full")
+    spec = pk.build_fused_spec(system.pairwise_inters)
+    nb = system.neighbor_finder.find(system.coords, system.boundary,
+                                     system.exclusions)
+    with uncounted():
+        f_k, e_k, v_k = pk.block_nonbonded(
+            spec, system.coords, system.boundary, system.atoms,
+            system.exclusions, nb, compute_energy=True)
+        k1_ms = _time(lambda: pk.block_nonbonded(
+            spec, system.coords, system.boundary, system.atoms,
+            system.exclusions, nb))
+        again = pk.block_nonbonded(spec, system.coords, system.boundary,
+                                   system.atoms, system.exclusions, nb)[0]
+    # K1's float atomics add in no fixed order, so the Mesh phase, which
+    # compares two runs bit for bit, runs on the tile engine
+    print(f"{label}: K1a's forces on the frame twice: bit for bit "
+          f"{torch.equal(again, f_k)}, max|dF| "
+          f"{float((again - f_k).abs().max()):.3e} kJ/mol/nm", flush=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    f_t, e_t, v_t = tile_terms(ts, tiles)
+    torch.cuda.synchronize()
+    eval_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    rms = float(f_k.double().pow(2).sum(dim=1).mean().sqrt())
+    ratio = float((f_t - f_k).abs().max()) / rms
+    de = abs(float(e_t) - float(e_k)) / abs(float(e_k))
+    dv = float((v_t - v_k).abs().max()) / float(v_k.abs().max())
+    print(f"{label}: tile pair terms against K1a on the start frame: "
+          f"max|dF|/rms|F| {ratio:.3e} (rms|F| {rms:.3f} kJ/mol/nm), rel dE "
+          f"{de:.3e} (E {float(e_k):.6e} kJ/mol), rel dvir {dv:.3e} "
+          f"(tolerance {TOL_TILE_K1A})", flush=True)
+    if max(ratio, de, dv) > TOL_TILE_K1A:
+        raise RuntimeError(f"{label}: the tile engine disagrees with K1a")
+    s64 = ts.update(atoms=ts.atoms.to(dtype=torch.float64),
+                    coords=ts.coords.double(),
+                    boundary=ts.boundary.to(dtype=torch.float64))
+    f64, e64, v64 = tile_terms(s64, tiles)
+    nbk, _, _ = pk.kernel_inputs(spec, system.coords, system.atoms, nb)
+    near = near_cutoff_atoms(spec, nbk, system.boundary, system.n_atoms)
+    rms64 = float(f64.pow(2).sum(dim=1).mean().sqrt())
+    err = (f_t.double() - f64).abs().amax(dim=1) / rms64
+    df64 = float(err[~near].max())
+    de64 = abs(float(e_t) - float(e64)) / abs(float(e64))
+    dv64 = float((v_t.double() - v64).abs().max()) / float(v64.abs().max())
+    print(f"{label}: f32 tiles against float64 tiles: max|dF|/rms|F| "
+          f"{df64:.3e} over the {int((~near).sum())} atoms with no pair "
+          f"within {NEAR_CUT} nm of the cutoff, rel dE {de64:.3e}, rel dvir "
+          f"{dv64:.3e} (tolerance {TOL_F64})", flush=True)
+    if max(df64, de64, dv64) > TOL_F64:
+        raise RuntimeError(f"{label}: f32 tiles disagree with float64")
+    nl = tuple(i for i in ts.pairwise_inters if i.use_neighbors)
+    from mollytpu_torch.ops import celltiles
+    args = (nl, ts.atoms, ts.coords, ts.boundary, tiles, ts.neighbor_finder,
+            ts.exclusions)
+    f_ms = _time(lambda: celltiles.tile_forces(*args), 1, 5)
+    e_ms = _time(lambda: celltiles.tile_energy(*args), 1, 5)
+    find_ms = _time(lambda: ts.neighbor_finder.find(
+        ts.coords, ts.boundary, ts.exclusions), 2, 10)
+    print(f"{label}: tile_forces {f_ms:.4f} ms, tile_energy {e_ms:.4f} ms, "
+          f"find {find_ms:.4f} ms (CUDA events, median of 5 / 5 / 10) "
+          f"over {slots:,} slots; K1a forces through its wrapper "
+          f"{k1_ms:.4f} ms on the block list; peak memory of an "
+          f"evaluation with the virial {eval_gib:.3f} GiB", flush=True)
+
+    dev = ts.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ts = ts.update(velocities=pt.random_velocities(ts.masses, TEMP, gen))
+    sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    nbt = pt.find_neighbors(ts.neighbor_finder, ts.coords, ts.boundary,
+                            ts.exclusions)
+    aux = sim.init_aux(ts, nbt)
+    ts, nbt, aux, _ = pt.run_chunk(sim, ts, nbt, aux, 0, TILE_WARMUP,
+                                   generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, nbt, aux, closest = pt.run_chunk(sim, ts, nbt, aux, TILE_WARMUP,
+                                         TILE_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TILE_STEPS
+    run_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if pk.LAUNCHES:
+        raise RuntimeError(f"{label}: the pair kernel was launched "
+                           f"{pk.LAUNCHES} times")
+    temp, viol = check_state(label, ts)
+    step = TILE_WARMUP + TILE_STEPS
+    print(f"card: {line}; {label}: {step} Langevin steps, rebuild every "
+          f"{CADENCE}: {ms:.4f} ms/step over the last {TILE_STEPS} "
+          f"({pt.units.ps_per_step_to_ns_per_day(DT, ms * 1e-3):.4f} "
+          f"ns/day); 0 pair-kernel launches; no overflow; closest pair "
+          f"outside the old tiles' stencil at the rebuilds {closest:.4f} nm "
+          f"(none inside the cutoff); T {temp:.2f} K, max constraint "
+          f"violation {viol:.3e} nm; peak device memory of the run "
+          f"{run_gib:.3f} GiB", flush=True)
+    run = {"sim": sim, "system": ts, "nb": nbt, "aux": aux, "gen": gen}
+    end = steps_without_sync(label, run, step, CADENCE)
+    return dict(ms=ms, f_ms=f_ms, eval_gib=eval_gib, run_gib=run_gib,
+                slots=slots, system=end["system"], ratio=ratio)
+
+
+def celltiles_lj_phase(dev, line, cadence):
+    """CellTiles-LJ: in.lj's 32,000 atoms on the cell-tile engine at
+    LJ-bench's rebuild cadence. Gates: the lattice's pair energy per atom
+    (TOL_LJ_E0_F32); TILE_LJ_STEPS NVE steps with no stale table and no
+    overflow, beside as many on the cell list from the same state, the
+    tiles' drift at most twice the cell list's plus LJ_DRIFT_SLACK; the
+    tile forces and energy against the cell-list engine's on the tile
+    run's end frame (TOL_ENGINES); finite coordinates and T < 1000 K; no
+    pair-kernel launch."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "CellTiles-LJ"
+    cells = ljbench.lj_bench_system(LJ_CELLS, torch.float32, dev, SEED)
+    cells = cells.update(neighbor_finder=dataclasses.replace(
+        cells.neighbor_finder, n_steps=cadence))
+    tiled = tile_system(cells, ljbench.CUTOFF + ljbench.SKIN, cadence)
+    n = tiled.n_atoms
+    slots = describe_tiles(label, tiled.neighbor_finder, n)
+    k1 = (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES))
+    tiles = tiled.neighbor_finder.find(tiled.coords, tiled.boundary,
+                                       tiled.exclusions)
+    e0 = float(pt.potential_energy(tiled, tiles)) / n / ljbench.EPSILON
+    ref = lattice_energy()
+    print(f"{label}: step-0 E_pair/N {e0:.9f} epsilon (f32) against the "
+          f"numpy lattice sum {ref:.12f}: relative {abs(e0 / ref - 1):.3e} "
+          f"(tolerance {TOL_LJ_E0_F32})", flush=True)
+    if abs(e0 / ref - 1.0) > TOL_LJ_E0_F32:
+        raise RuntimeError(f"{label}: the step-0 lattice energy is off")
+
+    def nve(system):
+        sim = ljbench.lj_bench_integrator()
+        nb = pt.find_neighbors(system.neighbor_finder, system.coords,
+                               system.boundary, system.exclusions)
+        aux = sim.init_aux(system, nb)
+        samples, elapsed = [total_energy(system, nb)], 0.0
+        for step in range(0, TILE_LJ_STEPS, LJ_SAMPLE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            system, nb, aux, _ = pt.run_chunk(sim, system, nb, aux, step,
+                                              LJ_SAMPLE)
+            torch.cuda.synchronize()
+            elapsed += time.perf_counter() - t0
+            samples.append(total_energy(system, nb))
+        e = [float(a) + float(b) for a, b in samples]
+        drift = max(abs(x - e[0]) for x in e) / n / ljbench.EPSILON
+        return system, nb, 1e3 * elapsed / TILE_LJ_STEPS, drift
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    end, nb_t, ms, drift = nve(tiled)
+    run_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    _, _, ms_cell, drift_cell = nve(cells)
+    if (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES)) != k1:
+        raise RuntimeError(f"{label}: the pair kernel was launched")
+    temp = float(pt.temperature(end.masses, end.velocities, end.n_dof))
+    if not bool(torch.isfinite(end.coords).all()) or not temp < 1000.0:
+        raise RuntimeError(f"{label}: the state after the run is bad")
+    on_cells = end.update(neighbor_finder=cells.neighbor_finder)
+    nb_c = pt.find_neighbors(on_cells.neighbor_finder, on_cells.coords,
+                             on_cells.boundary, on_cells.exclusions)
+    f_c, f_t = pt.forces(on_cells, nb_c), pt.forces(end, nb_t)
+    e_c = float(pt.potential_energy(on_cells, nb_c))
+    e_t = float(pt.potential_energy(end, nb_t))
+    rms = float(f_c.double().pow(2).sum(dim=1).mean().sqrt())
+    ratio = float((f_t - f_c).abs().max()) / rms
+    de = abs(e_t - e_c) / abs(e_c)
+    per_s = 1e3 / ms
+    print(f"card: {line}; {label}: {TILE_LJ_STEPS} NVE steps from the "
+          f"lattice, rebuild every {cadence}: {ms:.4f} ms/step, "
+          f"{per_s:.2f} timesteps/s, {n * per_s / 1e3:.1f} katom-step/s "
+          f"(the cell list's neighbor engine {ms_cell:.4f} ms/step in the "
+          f"same call); NVE drift max|E(t) - E(0)|/N {drift:.3e} epsilon "
+          f"beside the cell list's {drift_cell:.3e} (gate: <= 2x + "
+          f"{LJ_DRIFT_SLACK}); T {temp:.3f} K at the end; tile forces "
+          f"against the cell-list engine's on the end frame: max|dF|/"
+          f"rms|F| {ratio:.3e}, rel dE {de:.3e} (tolerance {TOL_ENGINES}); "
+          f"peak device memory of the run {run_gib:.3f} GiB; no pair-kernel "
+          "launch", flush=True)
+    if drift > 2.0 * drift_cell + LJ_DRIFT_SLACK:
+        raise RuntimeError(f"{label}: drift beyond twice the cell list's")
+    if ratio > TOL_ENGINES or de > TOL_ENGINES:
+        raise RuntimeError(f"{label}: tiles disagree with the cell list")
+    return dict(ms=ms, ms_cell=ms_cell, run_gib=run_gib, slots=slots,
+                per_s=per_s)
+
+
+def mesh_phase(start):
+    """Mesh: one T-REMD cycle (REMD_TEMPS, MESH_CYCLE steps) from the
+    CellTiles-PME end state through mesh=replica_mesh() and through
+    mesh=None from generators seeded alike, under
+    torch.use_deterministic_algorithms; gate: coordinates, velocities,
+    energies and the exchange rate bit for bit."""
+    import torch
+    import mollytpu_torch as pt
+    label = "Mesh"
+    mesh = pt.replica_mesh()
+    remd = pt.ReplicaExchangeMD(
+        temperatures=list(REMD_TEMPS),
+        simulator=pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION),
+        cycle_length=MESH_CYCLE)
+    out, secs = [], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for m in (mesh, None):
+            gen = torch.Generator(device=start.device).manual_seed(SEED + 700)
+            t0 = time.perf_counter()
+            out.append(remd.simulate(start, 1, generator=gen, mesh=m))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (ens, info), (ens0, info0) = out
+    same = (torch.equal(ens.coords, ens0.coords)
+            and torch.equal(ens.velocities, ens0.velocities)
+            and torch.equal(info["pes"], info0["pes"])
+            and info["exchange_rate"] == info0["exchange_rate"])
+    print(f"{label}: replica_mesh() holds {len(mesh.devices)} device(s) "
+          f"{[str(d) for d in mesh.devices]} of torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}; one T-REMD cycle of {MESH_CYCLE} "
+          f"steps, {len(REMD_TEMPS)} replicas on the tile engine: "
+          f"{secs[0]:.2f} s through the mesh, {secs[1]:.2f} s with "
+          f"mesh=None; energies {[float(e) for e in info['pes'][0]]!r}; "
+          f"exchange rate {info['exchange_rate']}; bit for bit: {same}",
+          flush=True)
+    if not same:
+        raise RuntimeError(f"{label}: the mesh run differs from mesh=None")
+    return dict(devices=len(mesh.devices), secs=secs)
+
+
+def tuner_phase(system):
+    """Tuner: tune_launch on the PME end state (K1a; the anchor TUNE_SKIN
+    at the main paths' cadence, then TUNE_SKINS), each candidate's ms/step
+    printed; then its cache read back from disk in a fresh process state
+    (the in-process cache cleared; a second timing would raise)."""
+    import torch
+    from mollytpu_torch.ops import autotune
+    from mollytpu_torch.ops import pair_kernel as pk
+    label = "Tuner"
+    saved = os.environ.get("MOLLYTPU_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["MOLLYTPU_CACHE_DIR"] = cache
+        try:
+            autotune._MEM_CACHE.clear()
+            pk.reset_launch_counts()
+            t0 = time.perf_counter()
+            args = (system.boundary, 1.0, system.n_atoms, system.coords)
+            kw = dict(atoms=system.atoms, exclusions=system.exclusions,
+                      inters=system.pairwise_inters, cadence=CADENCE,
+                      skin=TUNE_SKIN, skins=TUNE_SKINS)
+            cfg = autotune.tune_launch(*args, verbose=True, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = pk.LAUNCHES
+            autotune._MEM_CACHE.clear()
+
+            def timed_again(skin, cadence):
+                raise RuntimeError(f"{label}: a cached choice was timed "
+                                   "again")
+
+            again = autotune.tune_launch(*args, score=timed_again, **kw)
+            stored = os.path.exists(os.path.join(cache,
+                                                 "autotune_torch.json"))
+        finally:
+            if saved is None:
+                os.environ.pop("MOLLYTPU_CACHE_DIR", None)
+            else:
+                os.environ["MOLLYTPU_CACHE_DIR"] = saved
+            autotune._MEM_CACHE.clear()
+    print(f"{label}: chose skin {cfg['skin']} nm, a rebuild every "
+          f"{cfg['cadence']} steps, {cfg['ms_per_step']:.4f} ms/step "
+          f"(block {cfg['block']}, lanes {cfg['lanes']}); {wall:.2f} s, "
+          f"{launches} pair-kernel launches; read back from the disk cache "
+          f"{'unchanged' if again == cfg and stored else 'CHANGED'}",
+          flush=True)
+    if again != cfg or not stored:
+        raise RuntimeError(f"{label}: the cache round trip changed it")
+    return dict(cfg=cfg, wall=wall, launches=launches)
+
+
 def main():
     t_start = time.perf_counter()
+    # the Mesh phase runs under torch.use_deterministic_algorithms, which
+    # needs cuBLAS's fixed workspace set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     line = require_cuda()
     import torch
     import mollytpu_torch as pt
@@ -4282,6 +4693,9 @@ def main():
                 t_remd = t_remd_phase(runs[label]["system"],
                                       runs[label]["ms"])
                 calc = calculator_phase(runs[label]["system"])
+                tiles_pme = celltiles_pme_phase(system, line)
+                mesh = mesh_phase(tiles_pme.pop("system"))
+                tuner = tuner_phase(runs[label]["system"])
             if label == "RF-ortho":
                 components(label, runs[label])
             if label == "PME-dodecahedron":
@@ -4331,6 +4745,7 @@ def main():
                                 runs["PME"]["ms"])
         h_remd = h_remd_phase(timed["system"], mask)
     lj = lj_bench_path(dev, line)
+    tiles_lj = celltiles_lj_phase(dev, line, lj["cadence"])
     mc = mc_lj_phase(lj["end"])
     grads = gradient_phase(lj["liquid64"], pme_end)
     forms_phase(dev)
@@ -4379,7 +4794,14 @@ def main():
         f"{grads['peaks'][True]:.3f} GiB with remat, "
         f"{grads['peaks'][False]:.3f} GiB without; ExternalCalculator "
         f"{calc['call_ms']:.4f} ms per call, {calc['add_ms']:.4f} ms/step "
-        "added", flush=True)
+        f"added; CellTiles-PME {tiles_pme['ms']:.4f} ms/step "
+        f"({tiles_pme['f_ms']:.4f} ms per tile_forces, peak "
+        f"{tiles_pme['run_gib']:.3f} GiB); CellTiles-LJ "
+        f"{tiles_lj['ms']:.4f} ms/step, {tiles_lj['per_s']:.2f} "
+        f"timesteps/s (peak {tiles_lj['run_gib']:.3f} GiB); Mesh "
+        f"{mesh['devices']} device(s), bit for bit with mesh=None; Tuner "
+        f"skin {tuner['cfg']['skin']} nm, a rebuild every "
+        f"{tuner['cfg']['cadence']} steps", flush=True)
     kernels = [{
         "name": FAMILIES[family], "route": "cuda",
         "source": "mollytpu_torch/csrc/pair_nonbonded.cu",

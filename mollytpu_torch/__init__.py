@@ -14,7 +14,8 @@ from .atoms import (ALCH_CORE, ALCH_DELETE, ALCH_INSERT, AtomData, Atoms,
 from .boundary import (Orthorhombic, Triclinic, cubic, distance, place_atoms,
                        place_diatomics, random_coords, rectangular,
                        sq_distance, triclinic, triclinic_from_lengths_angles)
-from .config import report_issue, resolve_device, strictness
+from .config import (ENV_FLAGS, describe_env, report_issue, resolve_device,
+                     strictness)
 from .forces import (accelerations, forces, forces_virial,
                      potential_energy, total_energy)
 from .models.forcefield import ForceField
@@ -60,6 +61,7 @@ from .ops.pairwise import (
     LennardJones, LennardJonesSoftCoreBeutler, LennardJonesSoftCoreGapsys,
     Mie, SoftSphere, Yukawa, interaction_cutoff)
 from .ops.blockpairs import BlockPairFinder, BlockPairs
+from .ops.celltiles import CellTileFinder, CellTiles
 from .sim.coupling import (AndersenThermostat, BerendsenBarostat,
                            BerendsenThermostat, CRescaleBarostat,
                            ImmediateThermostat, MonteCarloBarostat,
@@ -77,7 +79,8 @@ from .sim.mc import (MetropolisMonteCarlo, random_normal_translation,
                      random_uniform_translation)
 from .sim.remd import HamiltonianReplicaExchangeMD, ReplicaExchangeMD
 from .parallel.replicas import (ReplicaEnsemble, make_ensemble,
-                                make_ensemble_step, simulate_ensemble)
+                                make_ensemble_step, replica_mesh,
+                                shard_ensemble, simulate_ensemble)
 from .interop import Calculator, ExternalCalculator
 from .spatial import (kinetic_energy, kinetic_energy_tensor,
                       molecule_centers, n_dof, pressure_tensor,

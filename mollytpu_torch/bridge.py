@@ -28,6 +28,7 @@ from .free_energy.thermo import ThermoState
 from .ops import cutoffs, mixing, pairwise
 from .ops.blockpairs import BlockPairFinder
 from .ops.bonded import TERM_FUNCS, SpecificList
+from .ops.celltiles import CellTileFinder
 from .ops.cmap import register_cmap
 from .ops.gbsa import ImplicitSolventGBN2, ImplicitSolventOBC
 from .ops.lincs import LINCS
@@ -160,6 +161,16 @@ def _finder(f, boundary, n, atoms, dist_neighbors, n_steps):
             grid_dims=tuple(int(d) for d in f.grid_dims),
             n_steps=int(f.n_steps), max_neighbors=int(f.max_neighbors),
             cell_capacity=int(f.cell_capacity))
+    if name == "CellTileFinder":
+        return CellTileFinder(
+            dist_cutoff=float(f.dist_cutoff),
+            stencil=_tensor(f.stencil, torch.int64,
+                            boundary.box_matrix().device),
+            grid_dims=tuple(int(d) for d in f.grid_dims),
+            cell_capacity=int(f.cell_capacity), n_steps=int(f.n_steps),
+            ref_sides=None if f.ref_sides is None else tuple(
+                float(s) for s in f.ref_sides),
+            resetup_drift=float(f.resetup_drift))
     raise NotImplementedError(f"neighbor finder {name} is not carried: "
                               "pass dist_neighbors for a BlockPairFinder")
 

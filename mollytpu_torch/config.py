@@ -1,6 +1,7 @@
-"""Strictness levels for recoverable setup-time problems
-(counterpart of mollytpu/config.py:69-87) and the default device of the
-port's entry points."""
+"""Strictness levels for recoverable setup-time problems and the registry
+of the environment flags the port reads (counterpart of
+mollytpu/config.py:21-97), and the default device of the port's entry
+points."""
 
 from __future__ import annotations
 
@@ -11,6 +12,19 @@ import warnings
 import torch
 
 STRICTNESS_LEVELS = ("warn", "nowarn", "error")
+
+#: every environment flag mollytpu_torch reads, with its default and
+#: meaning (``describe_env`` renders it)
+ENV_FLAGS = {
+    "MOLLYTPU_STRICTNESS": (
+        "warn", "setup-time issue handling: warn | nowarn | error"),
+    "MOLLYTPU_AUTOTUNE_BUDGET": (
+        "600", "wall-clock budget (s) for a cold tune_launch sweep; "
+        "expansion stops early and keeps the best seen"),
+    "MOLLYTPU_CACHE_DIR": (
+        "~/.cache/mollytpu", "on-disk cache root (tune_launch's results in "
+        "autotune_torch.json)"),
+}
 
 
 def resolve_device(device=None):
@@ -59,3 +73,13 @@ def report_issue(msg: str, level: str | None = None) -> None:
         raise ValueError(msg)
     if level == "warn":
         warnings.warn(msg, stacklevel=3)
+
+
+def describe_env() -> str:
+    """A table of every flag of ENV_FLAGS, its current value and its
+    default, in the JAX package's format."""
+    lines = ["flag                        current    default    purpose"]
+    for flag, (default, purpose) in sorted(ENV_FLAGS.items()):
+        cur = os.environ.get(flag, "-")
+        lines.append(f"{flag:<27} {cur:<10} {default:<10} {purpose}")
+    return "\n".join(lines)

@@ -3,8 +3,8 @@
 Pairwise interactions split by ``use_neighbors``, as in the JAX package:
 those without a list run the dense all-pairs engine; those with one run
 the pair kernel when the list is the cluster-pair list (BlockPairs) and
-the kernel's spec takes them all, else the neighbor-table engine
-(ops/nonbonded.py). A cluster-pair list with interactions the kernel
+the kernel's spec takes them all, the cell-tile engine on cell tiles
+(ops/celltiles.py), else the neighbor-table engine (ops/nonbonded.py). A cluster-pair list with interactions the kernel
 refuses raises: that list feeds the kernel only. Then the bonded lists,
 then the general interactions (PME and the Ewald exclusion correction
 where the system has them, the dispersion correction, implicit solvent).
@@ -19,6 +19,7 @@ import torch
 from .ops import nonbonded
 from .ops.blockpairs import BlockPairs
 from .ops.bonded import all_specific_forces, specific_energy
+from .ops.celltiles import CellTiles, tile_energy, tile_forces
 from .ops.pair_kernel import block_nonbonded, build_fused_spec
 from .spatial import kinetic_energy as _kinetic_energy
 
@@ -67,6 +68,9 @@ def potential_energy(sys, neighbors=None, step_n=0):
                                          sys.exclusions, neighbors,
                                          compute_energy=True)
             e = e + e_nb
+        elif isinstance(neighbors, CellTiles):
+            e = e + tile_energy(nl, atoms, coords, boundary, neighbors,
+                                sys.neighbor_finder, sys.exclusions)
         else:
             e = e + nonbonded.neighbor_energy(nl, atoms, coords, boundary,
                                               neighbors)
@@ -99,6 +103,12 @@ def forces_virial(sys, neighbors=None, step_n=0, needs_virial=False):
             fs = fs + f
             if v is not None:
                 vir = vir + v
+        elif isinstance(neighbors, CellTiles):
+            f, v = tile_forces(nl, atoms, coords, boundary, neighbors,
+                               sys.neighbor_finder, sys.exclusions,
+                               velocities=sys.velocities, step_n=step_n,
+                               needs_virial=needs_virial)
+            fs, vir = fs + f, vir + v
         else:
             f, v = nonbonded.neighbor_forces(
                 nl, atoms, coords, boundary, neighbors,

@@ -81,11 +81,21 @@ class BlockPairFinder:
     resetup_drift: float = 0.05
 
     @classmethod
-    def setup(cls, boundary, dist_cutoff, n_atoms, atoms, n_steps=1):
+    def setup(cls, boundary, dist_cutoff, n_atoms, atoms, n_steps=1,
+              block=CLUSTER, lanes=None):
         """Size the sort grid for ~CLUSTER/2 atoms per cell and check that
         the per-pair minimum image of the kernel is valid: every periodic
         perpendicular width (the side of an orthorhombic box) must exceed
-        twice the list radius."""
+        twice the list radius. ``block`` and ``lanes`` are the JAX
+        package's Pallas tile shape (ops/autotune.py), taken so that its
+        calls replay: the pair kernel's cluster is one warp, so ``block``
+        must be CLUSTER; ``lanes`` has no meaning on the card and is not
+        kept."""
+        if block != CLUSTER:
+            raise ValueError(
+                f"block={block}: the pair kernel evaluates {CLUSTER} x "
+                f"{CLUSTER} cluster pairs, one warp per pair, so its block "
+                f"is {CLUSTER} atoms")
         sides = boundary.perp_widths()
         for s in sides:
             if math.isfinite(s) and s / 2.0 <= dist_cutoff:

@@ -772,10 +772,10 @@ def launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
 
 def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
                          compute_energy=False, lam_role=None, probe=""):
-    """Launch csrc/pair_nonbonded.cu on the current stream (f32 only). A
-    forces-only call issues one fill of the force buffer and the launch;
-    energy and virial are then None. ``probe`` "preponly" launches nothing
-    (zeros out)."""
+    """Launch csrc/pair_nonbonded.cu on the current stream of the card the
+    tensors lie on (f32 only). A forces-only call issues one fill of the
+    force buffer and the launch; energy and virial are then None.
+    ``probe`` "preponly" launches nothing (zeros out)."""
     global LAUNCHES
     dev = blockpairs.pos4.device
     forces = torch.zeros((n_atoms, 3), dtype=torch.float32, device=dev)
@@ -785,7 +785,10 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
                        ev, probe)
     if probe != "preponly":
         lib = native.load("pair_nonbonded", _SIG)
-        err = lib.pair_nonbonded_launch(*args[:-1])
+        # the launcher copies the box row and launches on the calling
+        # thread's current device: make that the tensors' card
+        with torch.cuda.device(dev):
+            err = lib.pair_nonbonded_launch(*args[:-1])
         if err != 0:
             raise RuntimeError(f"pair_nonbonded kernel launch failed: CUDA "
                                f"error {err}")

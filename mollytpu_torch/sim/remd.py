@@ -3,12 +3,15 @@ mollytpu/sim/remd.py:31-264).
 
 Temperature REMD (ReplicaExchangeMD) and Hamiltonian REMD over a lambda
 ladder (HamiltonianReplicaExchangeMD). A cycle runs every replica's MD
-segment from a fresh list (parallel/replicas.py: a loop over replicas on
-one card, where the JAX package vmaps them), then one exchange sweep on
-the device: alternating-parity neighbour pairs, one uniform per pair taken
+segment from a fresh list, each on its device of the replica mesh
+(parallel/replicas.py run_segments; the JAX package vmaps them over its
+sharded replica axis), then one exchange sweep on the mesh's first
+device: alternating-parity neighbour pairs, one uniform per pair taken
 from the lower slot, Metropolis on Delta, and states swapped between slots
 by a gather. T-REMD rescales the velocities by sqrt(T_i / T_j) when state
-j moves into slot i; H-REMD does not rescale.
+j moves into slot i; H-REMD does not rescale. Without a mesh, a system on
+a card is sharded over gcd(cards, replicas) cards when that exceeds 1, as
+the JAX package does over its devices.
 
 The acceptance test runs in float64 whatever the system's dtype (the JAX
 package runs it in the energies' dtype), so that it is reproducible from
@@ -26,8 +29,9 @@ import torch
 
 from ..forces import potential_energy
 from ..ops.neighbors import find_neighbors
-from ..parallel.replicas import (ReplicaEnsemble, make_ensemble, refuse_mesh,
-                                 replica_generators, run_replica)
+from ..parallel.replicas import (ReplicaEnsemble, make_ensemble,
+                                 mesh_size_for, placed, replica_generators,
+                                 replica_mesh, run_segments)
 from ..units import KB
 
 
@@ -71,18 +75,35 @@ def _uniforms(uniforms, generator, cycle_n, r, device):
     if uniforms is not None:
         return uniforms(cycle_n)
     return torch.rand((r,), generator=generator, dtype=torch.float64,
-                      device=device)
+                      device=generator.device).to(device)
 
 
 def _start(sys, r, generator, jitter, jitter_noise, mesh):
-    """(ensemble, one generator per replica, the exchange's generator: the
-    caller's, or a fresh one seeded 0)."""
-    refuse_mesh(mesh)
+    """(ensemble, the template on the device the exchange runs on, each
+    replica as a System on its device, one generator per replica, the
+    exchange's generator: the caller's, or a fresh one seeded 0)."""
+    if mesh is None and sys.device.type == "cuda":
+        n_dev = mesh_size_for(torch.cuda.device_count(), r)
+        if n_dev is not None:
+            mesh = replica_mesh(n_dev)
     if generator is None:
         generator = torch.Generator(device=sys.device).manual_seed(0)
     ens = make_ensemble(sys, r, generator=generator, jitter=jitter,
                         noise=jitter_noise)
-    return ens, replica_generators(generator, r, sys.device), generator
+    template, reps = placed(ens, mesh)
+    gens = replica_generators(generator, [s.device for s in reps])
+    return ens, template, reps, gens, generator
+
+
+def _injected(noise, cycle_n, i):
+    return None if noise is None else (
+        lambda step_n: noise(cycle_n, i, step_n))
+
+
+def _gathered(out, home):
+    """The segments' (R, N, 3) coordinates and velocities on ``home``."""
+    return (torch.stack([s.coords.to(home) for s, _ in out]),
+            torch.stack([s.velocities.to(home) for s, _ in out]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,15 +118,6 @@ class ReplicaExchangeMD:
     @property
     def n_replicas(self):
         return len(_ladder(self.temperatures))
-
-    def _one_replica_cycle(self, template, coords, vels, temp, generator,
-                           noise=None):
-        """One replica's segment at ``temp``; (coords, vels, potential
-        energy on the segment's last list)."""
-        sim = dataclasses.replace(self.simulator, temperature=temp)
-        sys, nbs = run_replica(sim, template, coords, vels,
-                               self.cycle_length, generator, noise)
-        return sys.coords, sys.velocities, potential_energy(sys, nbs)
 
     def exchange(self, coords, vels, pes, cycle_n, u):
         """The alternating-parity sweep on (R,) energies ``pes`` with the
@@ -130,23 +142,26 @@ class ReplicaExchangeMD:
         the start's jitter."""
         temps = _ladder(self.temperatures)
         r = len(temps)
-        ens, gens, generator = _start(sys, r, generator, jitter,
-                                       jitter_noise, mesh)
-        coords, vels = ens.coords, ens.velocities
+        ens, template, reps, gens, generator = _start(
+            sys, r, generator, jitter, jitter_noise, mesh)
+        home = template.device
+        coords, vels = ens.coords.to(home), ens.velocities.to(home)
         total_acc, pes_hist = 0, []
         for c in range(n_cycles):
-            out = [self._one_replica_cycle(
-                ens.template, coords[i], vels[i], temps[i], gens[i],
-                None if noise is None else (
-                    lambda step_n, c=c, i=i: noise(c, i, step_n)))
-                for i in range(r)]
-            coords, vels, pes = (torch.stack(x) for x in zip(*out))
-            u = _uniforms(uniforms, generator, c, r, pes.device)
+            out = run_segments([(
+                dataclasses.replace(self.simulator, temperature=temps[i]),
+                reps[i], coords[i].to(reps[i].device),
+                vels[i].to(reps[i].device), gens[i], _injected(noise, c, i))
+                for i in range(r)], self.cycle_length)
+            pes = torch.stack([potential_energy(s, nb).to(home)
+                               for s, nb in out])
+            coords, vels = _gathered(out, home)
+            u = _uniforms(uniforms, generator, c, r, home)
             coords, vels, n_acc = self.exchange(coords, vels, pes, c, u)
             total_acc += int(n_acc)
             pes_hist.append(pes)
         n_attempts = n_cycles * (r // 2)
-        return ReplicaEnsemble(template=ens.template, coords=coords,
+        return ReplicaEnsemble(template=template, coords=coords,
                                velocities=vels), {
             "exchange_rate": total_acc / max(n_attempts, 1),
             "pes": torch.stack(pes_hist) if pes_hist else None}
@@ -179,31 +194,32 @@ class HamiltonianReplicaExchangeMD:
                              sys.exclusions, 0)
         return potential_energy(sys, nbs)
 
-    def _one_replica_cycle(self, template, coords, vels, lam, generator,
-                           noise=None):
-        sys, _ = run_replica(self.simulator,
-                             self._with_lambda(template, coords, lam),
-                             coords, vels, self.cycle_length, generator,
-                             noise)
-        return sys.coords, sys.velocities
-
-    def energies(self, template, coords, partner):
-        """(U_i(x_i), U_i(x_partner(i))) for every slot i, each (R,)."""
+    def energies(self, template, coords, partner, replicas=None):
+        """(U_i(x_i), U_i(x_partner(i))) for every slot i, each (R,) on
+        the coordinates' device; slot i's on its replica's device when
+        ``replicas`` (one System per slot) is given."""
         lams = _ladder(self.lambdas)
-        e_self = torch.stack([self._energy(template, coords[i], lam)
-                              for i, lam in enumerate(lams)])
-        e_cross = torch.stack([self._energy(template, coords[partner[i]],
-                                            lam)
-                               for i, lam in enumerate(lams)])
+        home = coords.device
+        replicas = replicas or [template] * len(lams)
+
+        def energy(i, j):
+            dev = replicas[i].device
+            return self._energy(replicas[i], coords[j].to(dev),
+                                lams[i]).to(home)
+
+        e_self = torch.stack([energy(i, i) for i in range(len(lams))])
+        e_cross = torch.stack([energy(i, partner[i])
+                               for i in range(len(lams))])
         return e_self, e_cross
 
-    def exchange(self, template, coords, vels, cycle_n, u):
-        """The sweep on the cross energies: permuted (coords, vels), the
-        self energies (R,) and the accepted pairs (a device scalar)."""
+    def exchange(self, template, coords, vels, cycle_n, u, replicas=None):
+        """The sweep on the cross energies (``replicas`` as in
+        ``energies``): permuted (coords, vels), the self energies (R,)
+        and the accepted pairs (a device scalar)."""
         temp = getattr(self.simulator, "temperature", 300.0)
         beta = 1.0 / (KB * temp)
         partner, lower, valid = exchange_pairs(self.n_replicas, cycle_n)
-        e_self, e_cross = self.energies(template, coords, partner)
+        e_self, e_cross = self.energies(template, coords, partner, replicas)
         es, ec = e_self.to(torch.float64), e_cross.to(torch.float64)
         delta = beta * (ec + ec[partner] - es - es[partner])
         perm, n_acc = metropolis_swaps(delta, u, partner, lower, valid)
@@ -216,24 +232,27 @@ class HamiltonianReplicaExchangeMD:
         injection points as in ReplicaExchangeMD.simulate."""
         lams = _ladder(self.lambdas)
         r = len(lams)
-        ens, gens, generator = _start(sys, r, generator, jitter,
-                                       jitter_noise, mesh)
-        coords, vels = ens.coords, ens.velocities
+        ens, template, reps, gens, generator = _start(
+            sys, r, generator, jitter, jitter_noise, mesh)
+        home = template.device
+        coords, vels = ens.coords.to(home), ens.velocities.to(home)
         total_acc, e_hist = 0, []
         for c in range(n_cycles):
-            out = [self._one_replica_cycle(
-                ens.template, coords[i], vels[i], lams[i], gens[i],
-                None if noise is None else (
-                    lambda step_n, c=c, i=i: noise(c, i, step_n)))
-                for i in range(r)]
-            coords, vels = (torch.stack(x) for x in zip(*out))
-            u = _uniforms(uniforms, generator, c, r, coords.device)
+            out = run_segments([(
+                self.simulator,
+                self._with_lambda(reps[i], coords[i].to(reps[i].device),
+                                  lams[i]),
+                coords[i].to(reps[i].device), vels[i].to(reps[i].device),
+                gens[i], _injected(noise, c, i)) for i in range(r)],
+                self.cycle_length)
+            coords, vels = _gathered(out, home)
+            u = _uniforms(uniforms, generator, c, r, home)
             coords, vels, e_self, n_acc = self.exchange(
-                ens.template, coords, vels, c, u)
+                template, coords, vels, c, u, reps)
             total_acc += int(n_acc)
             e_hist.append(e_self)
         n_attempts = n_cycles * (r // 2)
-        return ReplicaEnsemble(template=ens.template, coords=coords,
+        return ReplicaEnsemble(template=template, coords=coords,
                                velocities=vels), {
             "exchange_rate": total_acc / max(n_attempts, 1),
             "energies": torch.stack(e_hist) if e_hist else None}

@@ -13,8 +13,11 @@ old list left out, which must lie beyond the cutoff. On a neighbor table
 (ops.neighbors.Neighbors), every pair the table built at the same
 coordinates holds inside the cutoff must be in the old one
 (``missing_min_distance``); at the end of a chunk a table is built for
-the check alone. A table that overflowed its capacity raises the JAX
-package's RuntimeError at the end of the chunk. A box scaled between
+the check alone. On cell tiles (ops.celltiles.CellTiles) the same holds
+for every pair that tiles built at those coordinates place inside the
+cutoff: it must be covered by the old table and its stencil
+(``uncovered_min_distance``). A table that overflowed its capacity raises
+the JAX package's RuntimeError at the end of the chunk. A box scaled between
 rebuilds moves atoms by up to (mu - 1) L / 2, which the skin must absorb;
 the same check proves it did.
 
@@ -40,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..forces import forces_virial
 from ..ops.blockpairs import unlisted_min_distance
+from ..ops.celltiles import CellTiles, uncovered_min_distance
 from ..ops.neighbors import Neighbors, find_neighbors, maybe_rebuild
 from ..ops.pairwise import interaction_cutoff
 from ..spatial import remove_cm_motion
@@ -48,6 +52,11 @@ from .coupling import virial_due
 
 class StaleNeighborList(RuntimeError):
     """A pair inside the cutoff was missing from the neighbor list."""
+
+
+class NeighborOverflow(RuntimeError):
+    """A neighbor table or cell table could not hold every atom or pair
+    (the JAX package's RuntimeError)."""
 
 
 def list_cutoff(sys):
@@ -86,23 +95,28 @@ def list_check(sys, neighbors, cutoff, new=None):
     unlisted atom pair (exact below the cutoff); on a neighbor table it is
     the closest pair inside the cutoff that a table built at these
     coordinates (``new``, or one built here) holds and ``neighbors`` does
-    not (inf: none)."""
-    if not isinstance(neighbors, Neighbors):
+    not, on cell tiles the closest such pair the old tiles do not cover
+    (inf: none)."""
+    if not isinstance(neighbors, (Neighbors, CellTiles)):
         return unlisted_min_distance(neighbors, sys.coords, sys.boundary,
                                      cutoff), None
     if new is None:
         new = sys.neighbor_finder.find(sys.coords, sys.boundary,
                                        sys.exclusions)
+    if isinstance(neighbors, CellTiles):
+        return uncovered_min_distance(neighbors, new, sys.neighbor_finder,
+                                      sys.coords, sys.boundary,
+                                      cutoff), new.overflow
     return missing_min_distance(neighbors, new, sys.coords, sys.boundary,
                                 cutoff), new.overflow
 
 
 def raise_if_overflow(overflow, step_n):
-    """Raises the JAX package's RuntimeError if a neighbor table
-    overflowed (``overflow`` a device scalar, read here)."""
+    """Raises NeighborOverflow, the JAX package's RuntimeError, if a
+    neighbor table overflowed (``overflow`` a device scalar, read here)."""
     over = int(overflow)
     if over > 0:
-        raise RuntimeError(
+        raise NeighborOverflow(
             f"neighbor finder overflow at step {step_n}: neighbor list "
             f"overflow by {over}; increase max_neighbors / cell_capacity on "
             "the finder")
@@ -120,21 +134,14 @@ def raise_if_stale(closest, cutoff):
     return closest
 
 
-def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
-              noise=None, draws=None, virial_at=None):
-    """Advance n steps from step number step0 (outer steps of an MTS
-    integrator, which the rebuild cadence counts). ``noise`` is an optional
-    callable step_n -> the step's standard-normal draws that replace the
-    generator's: an (N, 3) tensor for Langevin and OverdampedLangevin, a
-    sequence of one per O for LangevinSplitting, one per innermost
-    substep for MTSLangevinIntegrator; ``draws`` one step_n ->
-    per-coupler draws (coupling.py) for the couplers'. ``virial_at`` is an
-    optional callable step_n -> whether the step computes the virial
-    (coupling.virial_due by default). Returns (sys,
-    neighbors, aux, closest distance in nm at the checked evaluations: of
-    an unlisted atom pair on a cluster-pair list, of a pair missing
-    inside the cutoff (inf: none) on a neighbor table). Raises
-    StaleNeighborList, or RuntimeError on a table's overflow."""
+def chunk_steps(simulator, sys, neighbors, aux, step0, n, generator=None,
+                noise=None, draws=None, virial_at=None):
+    """run_chunk's loop as a generator that yields after each step, so
+    that a caller can interleave the chunks of several replicas (parallel.
+    replicas.run_segments). It reads nothing on the host: its value
+    (StopIteration.value) is (sys, neighbors, aux, the closest distance of
+    the checked evaluations as a device scalar, the largest table overflow
+    as a device scalar or None without a table)."""
     finder = sys.neighbor_finder
     r = finder.n_steps if finder is not None and neighbors is not None else 1
     cutoff = list_cutoff(sys)
@@ -145,7 +152,7 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
     if virial_at is None:
         def virial_at(step_n):
             return virial_due(couplers, step_n)
-    table = isinstance(neighbors, Neighbors)
+    table = isinstance(neighbors, (Neighbors, CellTiles))
     overflow = neighbors.overflow if table else None
 
     def steps(sys, aux, first, k):
@@ -158,6 +165,7 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
             sys, aux = simulator.step(
                 sys, neighbors, aux, step_n, generator=generator,
                 needs_virial=virial_at(step_n), **injected)
+            yield
         return sys, aux
 
     def check(sys, new=None):
@@ -177,7 +185,7 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
 
     if r <= 1:
         for step_n in range(step0, step0 + n):
-            sys, aux = steps(sys, aux, step_n, 1)
+            sys, aux = yield from steps(sys, aux, step_n, 1)
             if neighbors is not None:
                 neighbors = rebuild(sys, step_n + 1)
     else:
@@ -185,23 +193,59 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
         n_periods = (n - pre) // r
         tail = n - pre - n_periods * r
         if pre:
-            sys, aux = steps(sys, aux, step0, pre)
+            sys, aux = yield from steps(sys, aux, step0, pre)
             neighbors = rebuild(sys, step0 + pre)
         for k in range(n_periods):
             first = step0 + pre + k * r
-            sys, aux = steps(sys, aux, first, r)
+            sys, aux = yield from steps(sys, aux, first, r)
             neighbors = rebuild(sys, first + r)
         if tail:
-            sys, aux = steps(sys, aux, step0 + pre + n_periods * r, tail)
+            sys, aux = yield from steps(sys, aux, step0 + pre + n_periods * r,
+                                        tail)
             check(sys)
-    if table:
-        raise_if_overflow(overflow, step0 + n)
-    return sys, neighbors, aux, raise_if_stale(closest, cutoff)
+    return sys, neighbors, aux, closest, overflow
+
+
+def finish_chunk(sys, out, step_n):
+    """Reads a chunk's checks on the host (chunk_steps' value ``out``, its
+    last step ``step_n``): raises on an overflowed table and on a stale
+    list; returns (sys, neighbors, aux, the closest distance as a
+    float)."""
+    sys_out, neighbors, aux, closest, overflow = out
+    if overflow is not None:
+        raise_if_overflow(overflow, step_n)
+    return sys_out, neighbors, aux, raise_if_stale(closest, list_cutoff(sys))
+
+
+def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
+              noise=None, draws=None, virial_at=None):
+    """Advance n steps from step number step0 (outer steps of an MTS
+    integrator, which the rebuild cadence counts). ``noise`` is an optional
+    callable step_n -> the step's standard-normal draws that replace the
+    generator's: an (N, 3) tensor for Langevin and OverdampedLangevin, a
+    sequence of one per O for LangevinSplitting, one per innermost
+    substep for MTSLangevinIntegrator; ``draws`` one step_n ->
+    per-coupler draws (coupling.py) for the couplers'. ``virial_at`` is an
+    optional callable step_n -> whether the step computes the virial
+    (coupling.virial_due by default). Returns (sys,
+    neighbors, aux, closest distance in nm at the checked evaluations: of
+    an unlisted atom pair on a cluster-pair list, of a pair missing
+    inside the cutoff (inf: none) on a neighbor table or cell tiles).
+    Raises StaleNeighborList, or RuntimeError on a table's overflow."""
+    steps = chunk_steps(simulator, sys, neighbors, aux, step0, n,
+                        generator=generator, noise=noise, draws=draws,
+                        virial_at=virial_at)
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return finish_chunk(sys, done.value, step0 + n)
 
 
 def npt_resetup(simulator, sys, neighbors, step_n):
     """Between chunks under a barostat: once the box has drifted beyond the
-    neighbor finder's band (BlockPairFinder.box_drift_exceeded), set the
+    neighbor finder's band (box_drift_exceeded of BlockPairFinder and
+    CellTileFinder), set the
     finder up for the current box and rebuild the list at step_n
     (mollytpu/sim/simulate.py:243-256). Reads the box on the host, once.
     Returns (sys, neighbors)."""

@@ -1,6 +1,6 @@
 """The public names of mollytpu_torch against the JAX package's, float64
 on the CPU: every name mollytpu/__init__.py exports exists in the port
-but the TPU-only ones ROADMAP leaves out; AtomData field by field on the
+but the TPU-only ``_prec``; AtomData field by field on the
 water box (system_from_pdb) and on the GROMACS topology, carried by
 System.update; crystal_system, add_position_restraints and
 unwrap_molecules as tests/test_setup_utils.py:11-51 checks JAX's; and
@@ -28,10 +28,10 @@ from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-#: names of mollytpu/__init__.py that only the TPU build has: the cell-tile
-#: finder, the TPU environment flags and the XLA matmul precision switch
-TPU_ONLY = {"CellTileFinder", "CellTiles", "ENV_FLAGS", "describe_env",
-            "_prec"}
+#: names of mollytpu/__init__.py that only the TPU build has: the XLA
+#: matmul precision switch (PyTorch's float32 matmuls on CUDA are full
+#: float32 unless TF32 is turned on)
+TPU_ONLY = {"_prec"}
 FIELDS = ("atom_name", "residue_name", "residue_number", "chain_id",
           "element", "hetero_atom")
 

@@ -12,7 +12,8 @@ same final coordinates and velocities to 1e-9 nm (nm/ps). H-REMD on the
 small alchemical water box runs through the cluster-pair list and the
 pair kernel's plain twin (JAX: its Pallas kernel in interpret mode), held
 at the FEP slice's tolerances. simulate_ensemble matches the JAX
-package's on a one-device mesh.
+package's on a one-device mesh; an object that is not a mesh raises
+TypeError.
 """
 
 import dataclasses
@@ -257,9 +258,10 @@ def test_mesh_raises_and_jitter_uses_the_generator():
         temperatures=[100.0, 120.0],
         simulator=pt.Langevin(dt=0.002, temperature=100.0, friction=1.0),
         cycle_length=2)
-    with pytest.raises(NotImplementedError):
+    # a mesh is a ReplicaMesh (tests/test_torch_replica_mesh.py runs them)
+    with pytest.raises(TypeError):
         remd.simulate(ps, 1, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         pt.simulate_ensemble(ps, remd.simulator, 2, 2, mesh=object())
     g = torch.Generator().manual_seed(3)
     a = pt.make_ensemble(ps, 2, generator=g, jitter=0.01)
