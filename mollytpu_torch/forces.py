@@ -22,6 +22,7 @@ from .ops.bonded import all_specific_forces, specific_energy
 from .ops.celltiles import CellTiles, tile_energy, tile_forces
 from .ops.pair_kernel import block_nonbonded, build_fused_spec
 from .spatial import kinetic_energy as _kinetic_energy
+from .tracing import span
 
 
 def _split_by_neighbors(inters):
@@ -83,45 +84,57 @@ def potential_energy(sys, neighbors=None, step_n=0):
 
 def forces_virial(sys, neighbors=None, step_n=0, needs_virial=False):
     """(forces (N, 3) kJ/mol/nm, virial (3, 3) kJ/mol)."""
+    with span("forces"):
+        return _forces_virial(sys, neighbors, step_n, needs_virial)
+
+
+def _forces_virial(sys, neighbors, step_n, needs_virial):
     coords, boundary, atoms = sys.coords, sys.boundary, sys.atoms
     fs = torch.zeros_like(coords)
     vir = torch.zeros((3, 3), dtype=coords.dtype, device=sys.device)
     nonl, nl = _split_by_neighbors(sys.pairwise_inters)
     if nonl:
-        mask = nonbonded.dense_pair_mask(sys.n_atoms, sys.exclusions,
-                                         sys.device)
-        f, v = nonbonded.dense_forces(
-            nonl, atoms, coords, boundary, mask, velocities=sys.velocities,
-            step_n=step_n, needs_virial=needs_virial)
+        with span("forces.pairs", "dense"):
+            mask = nonbonded.dense_pair_mask(sys.n_atoms, sys.exclusions,
+                                             sys.device)
+            f, v = nonbonded.dense_forces(
+                nonl, atoms, coords, boundary, mask,
+                velocities=sys.velocities, step_n=step_n,
+                needs_virial=needs_virial)
         fs, vir = fs + f, vir + v
     if nl:
         spec = _listed(nl, neighbors)
         if spec is not None:
-            f, _, v = block_nonbonded(spec, coords, boundary, atoms,
-                                      sys.exclusions, neighbors,
-                                      compute_energy=needs_virial)
+            with span("forces.pairs", "kernel"):
+                f, _, v = block_nonbonded(spec, coords, boundary, atoms,
+                                          sys.exclusions, neighbors,
+                                          compute_energy=needs_virial)
             fs = fs + f
             if v is not None:
                 vir = vir + v
         elif isinstance(neighbors, CellTiles):
-            f, v = tile_forces(nl, atoms, coords, boundary, neighbors,
-                               sys.neighbor_finder, sys.exclusions,
-                               velocities=sys.velocities, step_n=step_n,
-                               needs_virial=needs_virial)
+            with span("forces.pairs", "tiles"):
+                f, v = tile_forces(nl, atoms, coords, boundary, neighbors,
+                                   sys.neighbor_finder, sys.exclusions,
+                                   velocities=sys.velocities, step_n=step_n,
+                                   needs_virial=needs_virial)
             fs, vir = fs + f, vir + v
         else:
-            f, v = nonbonded.neighbor_forces(
-                nl, atoms, coords, boundary, neighbors,
-                velocities=sys.velocities, step_n=step_n,
-                needs_virial=needs_virial)
+            with span("forces.pairs", "neighbor"):
+                f, v = nonbonded.neighbor_forces(
+                    nl, atoms, coords, boundary, neighbors,
+                    velocities=sys.velocities, step_n=step_n,
+                    needs_virial=needs_virial)
             fs, vir = fs + f, vir + v
     if any(s.n_terms for s in sys.specific_lists):
-        f, v = all_specific_forces(sys.specific_lists, coords, boundary,
-                                   needs_virial=needs_virial)
+        with span("forces.bonded"):
+            f, v = all_specific_forces(sys.specific_lists, coords, boundary,
+                                       needs_virial=needs_virial)
         fs, vir = fs + f, vir + v
     for gi in sys.general_inters:
-        f, v = gi.force_virial(coords, boundary, atoms,
-                               needs_virial=needs_virial)
+        with span("forces.general", type(gi).__name__):
+            f, v = gi.force_virial(coords, boundary, atoms,
+                                   needs_virial=needs_virial)
         fs, vir = fs + f, vir + v
     if sys.virtual_sites is not None:
         fs = sys.virtual_sites.distribute_forces(coords, boundary, fs)

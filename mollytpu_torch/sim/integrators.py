@@ -42,6 +42,7 @@ import torch
 from ..forces import forces_virial
 from ..spatial import (kinetic_energy, kinetic_energy_tensor,
                        remove_cm_motion)
+from ..tracing import span
 from ..units import KB
 from .coupling import apply_couplers, forces_invalidated_at
 
@@ -54,16 +55,22 @@ def _accels(masses, forces):
 
 
 def _apply_position_constraints(sys, coords_prev, coords_new, vels, dt):
-    for c in sys.constraints:
-        coords_new, vels = c.apply_position_constraints(
-            coords_prev, coords_new, vels, sys.masses, sys.boundary, dt)
+    if not sys.constraints:
+        return coords_new, vels
+    with span("md.constraints"):
+        for c in sys.constraints:
+            coords_new, vels = c.apply_position_constraints(
+                coords_prev, coords_new, vels, sys.masses, sys.boundary, dt)
     return coords_new, vels
 
 
 def _apply_velocity_constraints(sys, coords, vels):
-    for c in sys.constraints:
-        vels = c.apply_velocity_constraints(coords, vels, sys.masses,
-                                            sys.boundary)
+    if not sys.constraints:
+        return vels
+    with span("md.constraints"):
+        for c in sys.constraints:
+            vels = c.apply_velocity_constraints(coords, vels, sys.masses,
+                                                sys.boundary)
     return vels
 
 

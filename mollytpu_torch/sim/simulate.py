@@ -47,6 +47,7 @@ from ..ops.celltiles import CellTiles, uncovered_min_distance
 from ..ops.neighbors import Neighbors, find_neighbors, maybe_rebuild
 from ..ops.pairwise import interaction_cutoff
 from ..spatial import remove_cm_motion
+from ..tracing import span
 from .coupling import virial_due
 
 
@@ -162,9 +163,10 @@ def chunk_steps(simulator, sys, neighbors, aux, step0, n, generator=None,
                 injected["noise"] = noise(step_n)
             if draws is not None:
                 injected["draws"] = draws(step_n)
-            sys, aux = simulator.step(
-                sys, neighbors, aux, step_n, generator=generator,
-                needs_virial=virial_at(step_n), **injected)
+            with span("md.step"):
+                sys, aux = simulator.step(
+                    sys, neighbors, aux, step_n, generator=generator,
+                    needs_virial=virial_at(step_n), **injected)
             yield
         return sys, aux
 
@@ -172,14 +174,16 @@ def chunk_steps(simulator, sys, neighbors, aux, step0, n, generator=None,
         """The check of the last evaluation on ``neighbors``; ``new`` the
         table built at its coordinates, if there is one."""
         nonlocal closest, overflow
-        near, over = list_check(sys, neighbors, cutoff, new)
-        closest = torch.minimum(closest, near)
-        if over is not None:
-            overflow = torch.maximum(overflow, over)
+        with span("neighbors.check"):
+            near, over = list_check(sys, neighbors, cutoff, new)
+            closest = torch.minimum(closest, near)
+            if over is not None:
+                overflow = torch.maximum(overflow, over)
 
     def rebuild(sys, step_n):
-        new = find_neighbors(finder, sys.coords, sys.boundary,
-                             sys.exclusions, step_n)
+        with span("neighbors.find"):
+            new = find_neighbors(finder, sys.coords, sys.boundary,
+                                 sys.exclusions, step_n)
         check(sys, new)
         return new
 
@@ -212,9 +216,11 @@ def finish_chunk(sys, out, step_n):
     list; returns (sys, neighbors, aux, the closest distance as a
     float)."""
     sys_out, neighbors, aux, closest, overflow = out
-    if overflow is not None:
-        raise_if_overflow(overflow, step_n)
-    return sys_out, neighbors, aux, raise_if_stale(closest, list_cutoff(sys))
+    with span("md.finish"):
+        if overflow is not None:
+            raise_if_overflow(overflow, step_n)
+        closest = raise_if_stale(closest, list_cutoff(sys))
+    return sys_out, neighbors, aux, closest
 
 
 def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
@@ -235,11 +241,12 @@ def run_chunk(simulator, sys, neighbors, aux, step0, n, generator=None,
     steps = chunk_steps(simulator, sys, neighbors, aux, step0, n,
                         generator=generator, noise=noise, draws=draws,
                         virial_at=virial_at)
-    while True:
-        try:
-            next(steps)
-        except StopIteration as done:
-            return finish_chunk(sys, done.value, step0 + n)
+    with span("md.chunk", f"step0={step0},n={n}"):
+        while True:
+            try:
+                next(steps)
+            except StopIteration as done:
+                return finish_chunk(sys, done.value, step0 + n)
 
 
 def npt_resetup(simulator, sys, neighbors, step_n):
