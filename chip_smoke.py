@@ -236,6 +236,17 @@ Phases, each printing one line or more before the next starts:
    the cell-list engine's on the end frame (TOL_ENGINES), ms/step and
    timesteps/s beside the cell list's, peak memory, no pair-kernel launch.
 
+14. the cell-list kernel (csrc/cell_neighbors.cu), which every
+   CellListNeighborFinder.find on the card launches. Over GROMACS-PME,
+   LJ-bench, CellTiles-LJ, MC-LJ and Gradients, neighbors.FIND_LAUNCHES
+   is set to 0 before each and read after it (gates: one launch per find
+   on the card, no call of the twin find_plain there). After Gradients,
+   Cell-kernel: the kernel against find_plain on the same card tensors
+   (idx, special and overflow element for element; gated) on LJ-bench's
+   end frame and on in.lj at the benchmark cell's 256,000 atoms melted
+   100 steps, in f32 and f64, each with the kernel's device ms, the
+   whole find's, the twin's and the bound of the table's bytes.
+
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
 and MTS-PME paths together; coul3-triclinic's those of PME-dodecahedron,
@@ -247,8 +258,10 @@ energy and virial instance on the NPT path, coul3-triclinic's on the
 production phase, then each kernel probe instance (wrong
 physics on purpose, not on a main path; its launches are those of the
 probe phase; LJ-bench, MC-LJ, Gradients, CellTiles-PME, CellTiles-LJ and
-Mesh launch no kernel on their paths and have no entry; the Tuner's K1a
-launches time candidates and are printed); the last is
+Mesh launch no pair kernel and have no entry of it; the Tuner's K1a
+launches time candidates and are printed), then the cell-list kernel on
+each Cell-kernel frame (its launches those of the five phases of 14, by
+phase in launches_by_path); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -536,6 +549,12 @@ SCHEDULERS = ("DefaultLambdaScheduler", "NAMDLambdaScheduler",
 LJ_CELLS, LJ_RUN, LJ_SAMPLE = 20, 100, 10
 LJ_WARMUP, LJ_TIMED = 100, 200
 LJ_CADENCES = (20, 10)
+#: the cell-list kernel (csrc/cell_neighbors.cu) against its twin
+#: (find_plain) on the same card tensors: LJ-bench's end frame, and in.lj
+#: at the benchmark cell's CELL_BIG^3 fcc cells (256,000 atoms) after
+#: CELL_MELT NVE steps at the cell's rebuild every CELL_EVERY, in f32 and
+#: on the same frame in f64
+CELL_BIG, CELL_MELT, CELL_EVERY = 40, 100, 5
 #: in.lj's gates: the lattice's pair energy per atom against the numpy sum
 #: (f32, f64 on the card); f32 forces and energy against float64 on the
 #: frame after 100 steps; the f32 NVE drift at most twice the f64 run's
@@ -984,10 +1003,10 @@ def _dev_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profiled(fn, reps):
+def profiled(fn, reps, kernel="pair_nonbonded_kernel"):
     """torch.profiler over ``reps`` calls of fn (after one): (device ms per
-    call of the pair kernel, runtime calls per call that put work on the
-    device: kernel launches, memsets and copies)."""
+    call of ``kernel``, the pair kernel by default, runtime calls per call
+    that put work on the device: kernel launches, memsets and copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -998,8 +1017,7 @@ def profiled(fn, reps):
             fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    kernel_us = sum(_dev_us(e) for e in avgs
-                    if "pair_nonbonded_kernel" in e.key)
+    kernel_us = sum(_dev_us(e) for e in avgs if kernel in e.key)
     work = sum(e.count for e in avgs if e.key.startswith(
         ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemsetAsync",
          "cudaMemcpyAsync", "cudaMemcpyToSymbolAsync")))
@@ -2950,6 +2968,131 @@ def lj_components(label, system, nb, aux, cadence):
     return ms, launches / 20, busy / 20
 
 
+@contextlib.contextmanager
+def cell_finds(label):
+    """Over the block, with neighbors.FIND_LAUNCHES set to 0 first, counts
+    the cell finder's finds on card tensors and its twin's (find_plain)
+    calls on card tensors. Gates after it: every such find launched the
+    cell-list kernel once, and none took the twin. Yields the counts
+    (``launches`` is filled in at the end)."""
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import neighbors
+    cls = pt.CellListNeighborFinder
+    real = {name: getattr(cls, name) for name in ("find", "find_plain")}
+    counts = {"finds": 0, "twin": 0}
+
+    def counting(name, key):
+        def call(self, coords, *args, **kw):
+            counts[key] += int(coords.is_cuda)
+            return real[name](self, coords, *args, **kw)
+        return call
+
+    neighbors.FIND_LAUNCHES = 0
+    cls.find = counting("find", "finds")
+    cls.find_plain = counting("find_plain", "twin")
+    try:
+        yield counts
+    finally:
+        cls.find, cls.find_plain = real["find"], real["find_plain"]
+    counts["launches"] = neighbors.FIND_LAUNCHES
+    print(f"{label}: cell-list kernel launches over the phase "
+          f"{counts['launches']} for {counts['finds']} finds on the card, "
+          f"{counts['twin']} twin calls on the card", flush=True)
+    if (counts["launches"] != counts["finds"] or counts["twin"]
+            or not counts["finds"]):
+        raise RuntimeError(f"{label}: a cell-list find on the card did not "
+                           "launch the kernel once")
+
+
+def cell_kernel_check(label, system):
+    """The cell-list kernel on ``system``'s frame against its twin on the
+    same card tensors: find (the kernel) and find_plain give the same idx,
+    special and overflow element for element, no overflow, rows listed
+    (gated). Times: the kernel's device ms per find (torch.profiler over
+    25 finds), the whole find's (CUDA events around 25 back-to-back finds),
+    the twin's (median of 25) and the bound of the bytes: the (N, K) int32
+    idx and bool flags written, the coordinates, the sorted order (int64),
+    the cell starts and the partner tables read."""
+    import torch
+    f, x, box, ex = (system.neighbor_finder, system.coords, system.boundary,
+                     system.exclusions)
+
+    def find():
+        return f.find(x, box, ex)
+
+    def twin():
+        return f.find_plain(x, box, ex)
+
+    got, want = find(), twin()
+    n, k = got.idx.shape
+    mismatches = int((got.idx != want.idx).sum()
+                     + (got.special != want.special).sum())
+    err = float((got.idx.long() - want.idx.long()).abs().max())
+    over, over_twin = int(got.overflow), int(want.overflow)
+    listed = int((got.idx < n).sum())
+    del got, want
+    find_ms = burst_ms(find)
+    kernel_ms, calls = profiled(find, 25, kernel="cell_neighbors_kernel")
+    plain_ms = _time(twin)
+    torch.cuda.empty_cache()
+    width = sum(int(table.shape[1]) for pairs, table in (
+        (ex.excl_i, ex.excl_table), (ex.spec_i, ex.spec_table))
+        if pairs.numel())
+    n_bytes = (n * k * 5 + n * (3 * x.element_size() + 8 + 4 * width)
+               + 4 * (math.prod(f.grid_dims) + 1))
+    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    print(f"{label}: cell-list kernel against its twin on the same card "
+          f"tensors: {mismatches} of {2 * n * k} table elements differ, "
+          f"overflow {over} / {over_twin}, {listed} pairs listed (K "
+          f"{k}, capacity {f.cell_capacity}, grid {f.grid_dims}); "
+          f"cell_neighbors_kernel {kernel_ms:.4f} ms, the whole find "
+          f"{find_ms:.4f} ms ({calls:g} device calls), the twin "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} "
+          "MB over 3.35 TB/s)", flush=True)
+    if mismatches or over != over_twin or over or listed < n:
+        raise RuntimeError(f"{label}: the cell-list kernel's table differs "
+                           "from the twin's")
+    if not kernel_ms > 0.0:
+        raise RuntimeError(f"{label}: the profiler saw no "
+                           "cell_neighbors_kernel")
+    return dict(max_abs_err=err, ms=kernel_ms, find_ms=find_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
+
+
+def cell_kernel_phase(dev, lj_end):
+    """Cell-kernel: cell_kernel_check on LJ-bench's end frame (f32), on
+    in.lj at CELL_BIG^3 fcc cells after CELL_MELT NVE steps at a rebuild
+    every CELL_EVERY (f32), and on that frame in float64. Returns
+    {frame: the kernels-line numbers}."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.models import ljbench
+    t0 = time.perf_counter()
+    big = ljbench.lj_bench_system(CELL_BIG, torch.float32, dev, SEED,
+                                  n_steps=CELL_EVERY)
+    sim = ljbench.lj_bench_integrator()
+    nb = pt.find_neighbors(big.neighbor_finder, big.coords, big.boundary,
+                           big.exclusions)
+    big, _, _, _ = pt.run_chunk(sim, big, nb, sim.init_aux(big, nb), 0,
+                                CELL_MELT)
+    big64 = ljbench.lj_bench_system(CELL_BIG, torch.float64, dev, SEED,
+                                    n_steps=CELL_EVERY)
+    big64 = big64.update(coords=big.coords.double())
+    del nb
+    torch.cuda.empty_cache()
+    print(f"Cell-kernel: in.lj at {big.n_atoms} atoms melted {CELL_MELT} "
+          f"steps; {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for frame, system in (
+            (f"LJ-bench's end frame, {lj_end.n_atoms:,} atoms, f32", lj_end),
+            (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
+             "f32", big),
+            (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
+             "f64", big64)):
+        out[frame] = cell_kernel_check(f"Cell-kernel ({frame})", system)
+    return out
+
+
 def lj_bench_path(dev, line):
     """LJ-bench: LAMMPS's in.lj at 32,000 atoms on the general pair path.
     Gates: the lattice energy (f32 and f64), no overflow and no stale list
@@ -4666,7 +4809,7 @@ def main():
     dev = torch.device(DEVICE)
     small_modes(dev)
     small_alch_modes(dev)
-    stats, runs, probes, pme_eval, more = {}, {}, [], {}, {}
+    stats, runs, probes, pme_eval, more, finds = {}, {}, [], {}, {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         for label, method, angles, n_chunks, family in MAIN_PATHS:
             t0 = time.perf_counter()
@@ -4719,7 +4862,8 @@ def main():
         lincs = lincs_pme_path(dev, workdir, line)
         for label, r in (("TIP4P-Ew-PME", tip4p), ("LINCS-PME", lincs)):
             runs[label] = {k: r[k] for k in ("launches", "ms", "ns_day")}
-        gmx = gromacs_path(dev, workdir, line)
+        with cell_finds("GROMACS-PME") as finds["GROMACS-PME"]:
+            gmx = gromacs_path(dev, workdir, line)
         setup_options_phase(dev, workdir)
 
         t0 = time.perf_counter()
@@ -4744,10 +4888,15 @@ def main():
         fe = free_energy_phases(pme_end, timed["system"], mask,
                                 runs["PME"]["ms"])
         h_remd = h_remd_phase(timed["system"], mask)
-    lj = lj_bench_path(dev, line)
-    tiles_lj = celltiles_lj_phase(dev, line, lj["cadence"])
-    mc = mc_lj_phase(lj["end"])
-    grads = gradient_phase(lj["liquid64"], pme_end)
+    with cell_finds("LJ-bench") as finds["LJ-bench"]:
+        lj = lj_bench_path(dev, line)
+    with cell_finds("CellTiles-LJ") as finds["CellTiles-LJ"]:
+        tiles_lj = celltiles_lj_phase(dev, line, lj["cadence"])
+    with cell_finds("MC-LJ") as finds["MC-LJ"]:
+        mc = mc_lj_phase(lj["end"])
+    with cell_finds("Gradients") as finds["Gradients"]:
+        grads = gradient_phase(lj["liquid64"], pme_end)
+    cell_kernel = cell_kernel_phase(dev, lj["end"])
     forms_phase(dev)
     dpd_card_phase(dev)
     paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
@@ -4871,6 +5020,17 @@ def main():
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None} for e in probes]
+    kernels += [{
+        "name": f"cell_neighbors_kernel (CellListNeighborFinder.find's "
+                f"table) on {frame}", "route": "cuda",
+        "source": "mollytpu_torch/csrc/cell_neighbors.cu",
+        "replaces": "none: XLA, mollytpu/ops/neighbors.py:234",
+        "launches": sum(c["launches"] for c in finds.values()),
+        "launches_by_path": {label: c["launches"]
+                             for label, c in finds.items()},
+        **{k: r[k] for k in ("max_abs_err", "ms", "find_ms", "plain_ms",
+                             "bound_ms", "bound_by")},
+        "library_ms": None} for frame, r in cell_kernel.items()]
     print(f"chip_smoke.py: the whole run took "
           f"{time.perf_counter() - t_start:.1f} s (the kernels' build "
           "included)", flush=True)

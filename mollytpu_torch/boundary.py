@@ -90,6 +90,16 @@ class Orthorhombic:
         return safe, torch.where(periodic, self.side_lengths,
                                  torch.zeros_like(safe))
 
+    def mic_tensors(self, dtype=None):
+        """The (3,) divisors and image lengths ``mic_parts`` rounds with
+        (an open axis: 1 and 0) in ``dtype`` (the box's by default), as
+        PyTorch casts them against coordinates of that type; built once
+        per box and dtype on its device (no host read)."""
+        dtype = dtype or self.side_lengths.dtype
+        return _cached(self, ("mic", dtype), lambda: tuple(
+            t.detach().to(dtype).contiguous()
+            for t in _cached(self, "mic", self._mic_consts)))
+
     def perp_widths(self):
         """Widths of the cell normal to each face, as Python floats: the
         side lengths (inf for an open axis)."""
@@ -208,6 +218,16 @@ class Triclinic:
         fs = [f - torch.round(f) for f in fs]
         return tuple(fs[0] * b[0, k] + fs[1] * b[1, k] + fs[2] * b[2, k]
                      for k in range(3))
+
+    def mic_tensors(self, dtype=None):
+        """(inv, basis), the (3, 3) matrices ``mic_parts`` rounds with, in
+        ``dtype`` (the basis's by default), as PyTorch casts them against
+        coordinates of that type; built once per box and dtype on its
+        device (no host read)."""
+        dtype = dtype or self.basis.dtype
+        return _cached(self, ("mic", dtype), lambda: tuple(
+            t.detach().to(dtype).contiguous()
+            for t in (self.inv, self.basis)))
 
     def wrap(self, x):
         f = self.fractional(x)

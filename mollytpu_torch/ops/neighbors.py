@@ -17,15 +17,28 @@ for element:
 A table that could not hold every pair (more than K in a row, or more than
 the capacity in a cell) reports the excess in ``overflow``, a device
 scalar; the simulation loop reads it at the end of a chunk and raises.
+
+``CellListNeighborFinder.find`` dispatches on the device of the
+coordinates: CPU tensors go to ``find_plain``, the plain PyTorch twin;
+CUDA tensors to the hand-written kernel csrc/cell_neighbors.cu, which
+gives the twin's table element for element without the (N, 27 x capacity)
+candidate tensors and counts its launches in ``FIND_LAUNCHES``. There is
+no fallback between the two.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
 import numpy as np
 import torch
+
+from . import native
+
+#: launches of the cell-list kernel (one per CUDA find) since import
+FIND_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,19 +219,28 @@ class CellListNeighborFinder:
                 finder, max_neighbors=int(finder.max_neighbors * 1.15) + 8)
         return finder
 
+    def engine(self, coords):
+        """What computes find on ``coords``: "cuda", the kernel, on a CUDA
+        card; "torch", the twin (find_plain), elsewhere."""
+        return "cuda" if coords.is_cuda else "torch"
+
     def find(self, coords, boundary, exclusions, step_n=0):
+        """The table at ``coords``, computed by ``engine(coords)``."""
+        if self.engine(coords) == "cuda":
+            return _find_cuda(self, coords, boundary, exclusions, step_n)
+        return self.find_plain(coords, boundary, exclusions, step_n)
+
+    def find_plain(self, coords, boundary, exclusions, step_n=0):
+        """The plain PyTorch twin of the kernel (JAX's find, tensor for
+        tensor), on any device."""
         n = coords.shape[0]
         dev = coords.device
         dims = self.grid_dims
         n_cells = int(np.prod(dims))
         cap = self.cell_capacity
         dims_i = torch.tensor(dims, dtype=torch.int64, device=dev)
-
-        frac = torch.clamp(boundary.fractional(boundary.wrap(coords)),
-                           0.0, 1.0 - 1e-7)
-        cell3 = torch.floor(frac * dims_i.to(coords.dtype)).to(torch.int64)
-        cell3 = torch.minimum(torch.clamp(cell3, min=0), dims_i - 1)
-        cid = (cell3[:, 0] * dims[1] + cell3[:, 1]) * dims[2] + cell3[:, 2]
+        cells, cid = _cells(coords, boundary, dims)
+        cell3 = torch.stack(cells, dim=1)
 
         # cell -> atoms table: a stable sort by cell, each atom's rank in
         # its cell's run
@@ -254,6 +276,120 @@ class CellListNeighborFinder:
         idx, special, overflow = _compact_rows(
             js, in_range & ~excl, spec, self.max_neighbors, n)
         return Neighbors(idx, special, overflow + cell_overflow, int(step_n))
+
+
+class _FindSpec(ctypes.Structure):
+    """The launchers' spec, field for field csrc/cell_neighbors.cu's
+    FindSpec."""
+
+    _fields_ = [("cut2", ctypes.c_double)] + [
+        (name, ctypes.c_int) for name in ("n_atoms", "n_cells", "cap",
+                                          "k_max")] + [
+        ("dims", ctypes.c_int * 3), ("m", ctypes.c_int),
+        ("off", (ctypes.c_int * 3) * 27)] + [
+        (name, ctypes.c_int) for name in ("f64", "triclinic", "excl_w",
+                                          "spec_w")]
+
+
+_SIG = {"cell_neighbors_launch": [ctypes.c_void_p] * 12}
+
+#: dynamic shared memory a block may hold on an H100 (227 KB), less the
+#: kernel's static arrays
+_STAGE_BYTES = 232448 - 1024
+
+
+def _cells(coords, boundary, dims):
+    """(each atom's cell along each axis, three (N,) int64 tensors; its
+    cell id (N,) int64) from the wrapped fractional coordinates clamped
+    below 1. ``dims`` are Python ints, so nothing is copied from the host
+    and the caller is not blocked."""
+    frac = torch.clamp(boundary.fractional(boundary.wrap(coords)),
+                       0.0, 1.0 - 1e-7)
+    cells = tuple(torch.clamp(torch.floor(frac[:, k] * d).to(torch.int64),
+                              0, d - 1) for k, d in enumerate(dims))
+    return cells, (cells[0] * dims[1] + cells[1]) * dims[2] + cells[2]
+
+
+def _partner_table(pairs, table, dev):
+    """(the (N, W) int32 partner table, W) for the kernel; W = 0 without
+    pairs, as the twin then skips the test."""
+    if pairs.numel() == 0:
+        return None, 0
+    table = table.to(device=dev, dtype=torch.int32).contiguous()
+    return table, int(table.shape[1])
+
+
+def _find_cuda(finder, coords, boundary, exclusions, step_n):
+    """find on a CUDA card: the atoms binned as the twin bins them
+    (_cells) and sorted stably by cell in PyTorch, and the table written
+    whole by csrc/cell_neighbors.cu's cell_neighbors_kernel, on the
+    current stream, with no host read."""
+    global FIND_LAUNCHES
+    n = coords.shape[0]
+    dev = coords.device
+    dtype = coords.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the cell-list kernel takes float32 or float64 "
+                        f"coordinates, got {dtype}")
+    if n >= 2 ** 31 - 1:
+        raise ValueError(f"the cell-list kernel takes fewer than 2^31 - 1 "
+                         f"atoms, got {n}")
+    dims = tuple(int(d) for d in finder.grid_dims)
+    n_cells = int(np.prod(dims))
+    cap, k_max = int(finder.cell_capacity), int(finder.max_neighbors)
+    offsets = _stencil(dims)
+    stage = len(offsets) * cap * (3 * coords.element_size() + 4)
+    if stage > _STAGE_BYTES:
+        raise ValueError(
+            f"cell capacity {cap} stages {stage} bytes of candidates per "
+            f"cell ({len(offsets)} stencil cells x {cap} x "
+            f"{3 * coords.element_size() + 4} bytes), over the "
+            f"{_STAGE_BYTES} bytes of shared memory a block can hold")
+    triclinic = getattr(boundary, "basis", None) is not None
+    box_a, box_b = boundary.mic_tensors(dtype)
+    excl, excl_w = _partner_table(exclusions.excl_i, exclusions.excl_table,
+                                  dev)
+    spec_t, spec_w = _partner_table(exclusions.spec_i, exclusions.spec_table,
+                                    dev)
+    spec = _FindSpec(cut2=finder.dist_cutoff ** 2, n_atoms=n,
+                     n_cells=n_cells, cap=cap, k_max=k_max, dims=dims,
+                     m=len(offsets), f64=int(dtype == torch.float64),
+                     triclinic=int(triclinic), excl_w=excl_w, spec_w=spec_w)
+    for s, off in enumerate(offsets):
+        spec.off[s][:] = [int(o) for o in off]
+
+    coords = coords.detach().contiguous()
+    _, cid = _cells(coords, boundary, dims)
+    sorted_cid, order = torch.sort(cid.to(torch.int32), stable=True)
+    start = torch.searchsorted(
+        sorted_cid, torch.arange(n_cells + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    idx = torch.empty((n, k_max), dtype=torch.int32, device=dev)
+    special = torch.empty((n, k_max), dtype=torch.bool, device=dev)
+    over = torch.zeros((2,), dtype=torch.int32, device=dev)
+    lib = native.load("cell_neighbors", _SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the launcher launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        err = lib.cell_neighbors_launch(
+            ctypes.addressof(spec), coords.data_ptr(), box_a.data_ptr(),
+            box_b.data_ptr(), order.data_ptr(), start.data_ptr(),
+            excl.data_ptr() if excl_w else None,
+            spec_t.data_ptr() if spec_w else None, idx.data_ptr(),
+            special.data_ptr(), over.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"cell_neighbors kernel launch failed: CUDA "
+                           f"error {err}")
+    FIND_LAUNCHES += 1
+    return Neighbors(idx, special, over.sum(dtype=torch.int32), int(step_n))
+
+
+def find_engine(finder, coords):
+    """What computes finder.find on ``coords`` (the ``neighbors.find``
+    span's args): the finder's own ``engine(coords)`` where it has one,
+    else "torch"."""
+    engine = getattr(finder, "engine", None)
+    return engine(coords) if engine is not None else "torch"
 
 
 def _size_from_coords(coords, boundary, sides, dims, dist_cutoff,

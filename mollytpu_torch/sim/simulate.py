@@ -44,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from ..forces import forces_virial
 from ..ops.blockpairs import unlisted_min_distance
 from ..ops.celltiles import CellTiles, uncovered_min_distance
-from ..ops.neighbors import Neighbors, find_neighbors, maybe_rebuild
+from ..ops.neighbors import (Neighbors, find_engine, find_neighbors,
+                             maybe_rebuild)
 from ..ops.pairwise import interaction_cutoff
 from ..spatial import remove_cm_motion
 from ..tracing import span
@@ -181,7 +182,7 @@ def chunk_steps(simulator, sys, neighbors, aux, step0, n, generator=None,
                 overflow = torch.maximum(overflow, over)
 
     def rebuild(sys, step_n):
-        with span("neighbors.find"):
+        with span("neighbors.find", find_engine(finder, sys.coords)):
             new = find_neighbors(finder, sys.coords, sys.boundary,
                                  sys.exclusions, step_n)
         check(sys, new)

@@ -220,3 +220,38 @@ def test_maybe_rebuild_on_cadence():
     assert pt.maybe_rebuild(f, nb, tc, tb, tx, 8).step_built == 8
     assert pt.maybe_rebuild(pt.NoNeighborFinder(), nb, tc, tb, tx, 8) is nb
     assert pt.find_neighbors(pt.NoNeighborFinder(), tc, tb, tx) is None
+
+
+def test_cpu_find_takes_the_twin_and_tags_its_span_torch(monkeypatch):
+    """On the CPU, CellListNeighborFinder.find is its plain twin
+    (find_plain): the kernel's FIND_LAUNCHES does not move, and the loop's
+    ``neighbors.find`` span names the engine "torch"."""
+    from mollytpu_torch.ops import neighbors as nb_mod
+    from mollytpu_torch.sim import simulate
+    (_, _, _), (tc, tb, tx) = inputs("triclinic")
+    finder = pt.CellListNeighborFinder.setup(tb, RADIUS, tc.shape[0],
+                                             n_steps=5)
+    before = nb_mod.FIND_LAUNCHES
+    a = finder.find(tc, tb, tx, 3)
+    b = finder.find_plain(tc, tb, tx, 3)
+    assert torch.equal(a.idx, b.idx) and torch.equal(a.special, b.special)
+    assert int(a.overflow) == int(b.overflow) == 0 and a.step_built == 3
+    assert nb_mod.find_engine(finder, tc) == "torch"
+
+    seen = []
+    real = simulate.span
+
+    def spy(name, args=None):
+        seen.append((name, args))
+        return real(name, args)
+
+    monkeypatch.setattr(simulate, "span", spy)
+    sys = _lj_system(pt.CellListNeighborFinder.setup(
+        pt.rectangular((2.5, 2.0, 1.3), dtype=torch.float64, device=CPU),
+        RADIUS, 300, n_steps=5))
+    nb = pt.find_neighbors(sys.neighbor_finder, sys.coords, sys.boundary,
+                           sys.exclusions)
+    pt.run_chunk(_Drift(0.001), sys, nb, {}, 0, 10)
+    assert [args for name, args in seen
+            if name == "neighbors.find"] == ["torch", "torch"]
+    assert nb_mod.FIND_LAUNCHES == before
