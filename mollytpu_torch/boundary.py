@@ -102,8 +102,10 @@ class Orthorhombic:
 
     def perp_widths(self):
         """Widths of the cell normal to each face, as Python floats: the
-        side lengths (inf for an open axis)."""
-        return [float(s) for s in self.side_lengths.tolist()]
+        side lengths (inf for an open axis); read from the device once per
+        box."""
+        return list(_cached(self, "perp_widths", lambda: [
+            float(s) for s in self.side_lengths.tolist()]))
 
     def _row(self, dtype):
         box = self.side_lengths.to(dtype)
@@ -235,11 +237,13 @@ class Triclinic:
 
     def perp_widths(self):
         """V / |face area| along each axis normal, as Python floats
-        (mollytpu/ops/blockpairs.py:90-104)."""
-        h = self.basis.detach().to("cpu", torch.float64)
-        vol = abs(float(torch.linalg.det(h)))
-        return [vol / float(torch.linalg.vector_norm(torch.linalg.cross(
-            h[(k + 1) % 3], h[(k + 2) % 3]))) for k in range(3)]
+        (mollytpu/ops/blockpairs.py:90-104); worked out once per box."""
+        def widths():
+            h = self.basis.detach().to("cpu", torch.float64)
+            vol = abs(float(torch.linalg.det(h)))
+            return [vol / float(torch.linalg.vector_norm(torch.linalg.cross(
+                h[(k + 1) % 3], h[(k + 2) % 3]))) for k in range(3)]
+        return list(_cached(self, "perp_widths", widths))
 
     def _row(self, dtype):
         h = self.basis.to(dtype)

@@ -7,7 +7,9 @@ the kernel's spec takes them all, the cell-tile engine on cell tiles
 (ops/celltiles.py), else the neighbor-table engine (ops/nonbonded.py). A cluster-pair list with interactions the kernel
 refuses raises: that list feeds the kernel only. Then the bonded lists,
 then the general interactions (PME and the Ewald exclusion correction
-where the system has them, the dispersion correction, implicit solvent).
+where the system has them, the dispersion correction, implicit solvent),
+PME under the span ``forces.pme``, the exclusion correction under
+``forces.excl`` and the others under ``forces.general``.
 Last, the forces on virtual sites move onto their parents; the virial
 stays as computed at the site positions, as in the JAX package.
 """
@@ -20,9 +22,21 @@ from .ops import nonbonded
 from .ops.blockpairs import BlockPairs
 from .ops.bonded import all_specific_forces, specific_energy
 from .ops.celltiles import CellTiles, tile_energy, tile_forces
+from .ops.ewald import PME, EwaldExclusionCorrection
 from .ops.pair_kernel import block_nonbonded, build_fused_spec
 from .spatial import kinetic_energy as _kinetic_energy
 from .tracing import span
+
+
+def _general_span(inter):
+    """The span of a general interaction's force call: PME and the Ewald
+    exclusion correction have their own, the others share one."""
+    name = type(inter).__name__
+    if isinstance(inter, PME):
+        return span("forces.pme", name)
+    if isinstance(inter, EwaldExclusionCorrection):
+        return span("forces.excl", name)
+    return span("forces.general", name)
 
 
 def _split_by_neighbors(inters):
@@ -132,7 +146,7 @@ def _forces_virial(sys, neighbors, step_n, needs_virial):
                                        needs_virial=needs_virial)
         fs, vir = fs + f, vir + v
     for gi in sys.general_inters:
-        with span("forces.general", type(gi).__name__):
+        with _general_span(gi):
             f, v = gi.force_virial(coords, boundary, atoms,
                                    needs_virial=needs_virial)
         fs, vir = fs + f, vir + v

@@ -12,14 +12,20 @@ periodic improper. [pairs] are the 1-4 set, weighted by fudgeLJ and
 fudgeQQ; the other pairs within three bonds are excluded. [settles]
 become SHAKE / RATTLE triangles with ``use_settles=True``. The parser is
 the JAX package's plain Python; ``system_from_gromacs`` builds the port's
-tensors on the device and a CellListNeighborFinder, so a GROMACS system
-runs the neighbor-table engine (ops/nonbonded.py), not the pair kernel.
+tensors on the device, each molecule type once and its copies with numpy.
+Its listed interactions run on a CellListNeighborFinder and the
+neighbor-table engine (ops/nonbonded.py) by default, as in the JAX
+package, or with ``neighbor_finder="block"`` on the cluster-pair list and
+the pair kernel, the port's main path. PME takes OpenMM's rule for its
+splitting parameter and mesh, or GROMACS's (ewald-rtol, fourierspacing,
+pme-order). ``gen_vel_start`` is GROMACS's start of a fresh run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from collections import defaultdict
 
 import numpy as np
@@ -31,12 +37,16 @@ from ..config import resolve_device
 from ..ops import bonded
 from ..ops.constraints import SHAKERattle
 from ..ops.cutoffs import DistanceCutoff
-from ..ops.ewald import PME, EwaldExclusionCorrection, ewald_error_alpha
+from ..ops.blockpairs import BlockPairFinder
+from ..ops.ewald import (PME, EwaldExclusionCorrection, ewald_rtol_alpha,
+                         pme_mesh_dims_spacing)
 from ..ops.mixing import GeometricMixing, LorentzMixing
 from ..ops.neighbors import CellListNeighborFinder
 from ..ops.pairwise import (Coulomb, CoulombEwald, CoulombReactionField,
                             LennardJones)
+from ..spatial import kinetic_energy, random_velocities, remove_cm_motion
 from ..system import Exclusions, System, molecule_ids_from_bonds
+from ..units import KB
 from .setup import (_adjacency, _max_partners, _next8, bfs_exclusions,
                     make_dispersion_correction)
 
@@ -296,120 +306,219 @@ def _is_num(s):
         return False
 
 
+#: the columns of atom indices at the front of each bonded row kind, and
+#: the row's width with its parameters
+ROW_ARITY = {"bond": 2, "angle": 3, "ub": 3, "pt": 4, "rb": 4, "ht": 4}
+ROW_WIDTH = {"bond": 4, "angle": 5, "ub": 7, "pt": 7, "rb": 10, "ht": 6}
+
+
+def _molecule_rows(top, mol):
+    """One copy of ``mol`` at atom offset 0: per-atom type, charge and
+    mass, the bonds, the [pairs], the settle rows (O, H1, H2, d_OH, d_HH)
+    and the bonded rows (mollytpu/models/gromacs.py:312-392)."""
+    atype = [a[0] for a in mol.atoms]
+    charge = [a[1] for a in mol.atoms]
+    mass = [a[2] for a in mol.atoms]
+    bonds, pairs, settles = [], list(mol.pairs), []
+    rows = {k: [] for k in ROW_ARITY}
+    for (i, j, func, params) in mol.bonds:
+        if params is None or len(params) < 2:
+            params = top.bond_params(mol.atoms[i][0], mol.atoms[j][0])
+        if params is None:
+            raise ValueError(f"no bond params for {mol.atoms[i][0]}-"
+                             f"{mol.atoms[j][0]}")
+        bonds.append((i, j))
+        rows["bond"].append((i, j, params[1], params[0]))
+    for (i, j, k, func, params) in mol.angles:
+        if params is None or len(params) < 2:
+            params = top.angle_params(mol.atoms[i][0], mol.atoms[j][0],
+                                      mol.atoms[k][0])
+        if params is None:
+            raise ValueError("missing angle params")
+        th0 = math.radians(params[0])
+        if func == 5 and len(params) >= 4:
+            rows["ub"].append((i, j, k, params[1], th0, params[3],
+                               params[2]))
+        else:
+            rows["angle"].append((i, j, k, params[1], th0))
+    for (i, j, k, l, func, params) in mol.dihedrals:
+        atoms4 = (i, j, k, l)
+        if params is None or len(params) == 0:
+            params = top.dihedral_params(
+                mol.atoms[i][0], mol.atoms[j][0], mol.atoms[k][0],
+                mol.atoms[l][0], func)
+            if params is None:
+                raise ValueError(f"missing dihedral params func {func}")
+        else:
+            params = [params] if func in (1, 9, 4) else params
+        if func in (1, 9, 4):
+            for p in (params if isinstance(params, list) else [params]):
+                p = list(p)
+                kk = p[1]
+                if kk != 0.0:
+                    rows["pt"].append(atoms4 + (
+                        p[2] if len(p) > 2 else 1.0, math.radians(p[0]), kk))
+        elif func == 3:
+            rows["rb"].append(atoms4 + (tuple(params) + (0.0,) * 6)[:6])
+        elif func == 2:
+            rows["ht"].append(atoms4 + (params[1] / 2.0,
+                                        math.radians(params[0])))
+    for (ow, doh, dhh) in mol.settles:
+        settles.append((ow, ow + 1, ow + 2, doh, dhh))
+        bonds.append((ow, ow + 1))
+        bonds.append((ow, ow + 2))
+    return atype, charge, mass, bonds, pairs, settles, rows
+
+
+def _pair_array(pairs):
+    return np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+
+
+def _molecule_block(top, mol):
+    """``_molecule_rows`` of one copy with, as arrays: its bond set (sorted,
+    no repeats), its excluded pairs (graph distance 1-2, and 3 unless a
+    [pairs] entry makes the pair a 1-4 one), its 1-4 pairs, and its
+    molecule id per atom and number of molecules (the bond graph's
+    components)."""
+    atype, charge, mass, bonds, pairs, settles, rows = _molecule_rows(top,
+                                                                     mol)
+    n = len(atype)
+    bond_set = sorted(set(bonds))
+    excl, spec_auto = bfs_exclusions(_adjacency(n, bond_set), n)
+    spec = sorted({(min(a, b), max(a, b)) for (a, b) in pairs})
+    spec_set = set(spec)
+    excl = sorted(set(excl) | {p for p in spec_auto if p not in spec_set})
+    mol_ids, n_mol = molecule_ids_from_bonds(n, bond_set, device="cpu")
+    return dict(atype=atype, charge=np.asarray(charge, dtype=np.float64),
+                mass=np.asarray(mass, dtype=np.float64),
+                bonds=_pair_array(bond_set), excl=_pair_array(excl),
+                spec=_pair_array(spec),
+                settles=np.asarray(settles, dtype=np.float64).reshape(-1, 5),
+                rows={k: np.asarray(v, dtype=np.float64).reshape(
+                    -1, ROW_WIDTH[k]) for k, v in rows.items()},
+                mol_ids=mol_ids.numpy().astype(np.int64), n_mol=n_mol)
+
+
+def _tiled(block_rows, count, n_atoms, offset, index_cols):
+    """``count`` copies of one copy's rows, the copies' atom indices (the
+    first ``index_cols`` columns) moved on by ``n_atoms`` each, starting
+    at ``offset``."""
+    shift = offset + n_atoms * np.arange(count, dtype=block_rows.dtype)
+    out = np.repeat(block_rows[None], count, axis=0)
+    out[:, :, :index_cols] += shift[:, None, None]
+    return out.reshape(-1, block_rows.shape[1])
+
+
 def _replicate(top):
-    """Every molecule of [molecules] in order: per-atom type, charge and
-    mass, the bonded rows, the bonds, the [pairs] and the settle
-    triplets (mollytpu/models/gromacs.py:312-392)."""
-    atype, charge, mass = [], [], []
-    bonds_all, pairs_all, settles = [], [], []
-    rows = {k: [] for k in ("bond", "angle", "ub", "pt", "rb", "ht")}
-    offset = 0
+    """Every molecule of [molecules] in order, each molecule type worked
+    out once (``_molecule_block``) and its copies laid out with numpy:
+    per-atom type, charge and mass, the bond set, the excluded and 1-4
+    pairs, the settle rows, the bonded rows, the molecule id per atom and
+    the number of molecules. The result is what working out every copy on
+    its own gives: the molecules share no bond, so each one's exclusions
+    and components are its own."""
+    atype, charge, mass, mol_ids = [], [], [], []
+    parts = {k: [] for k in ("bonds", "excl", "spec", "settles")}
+    rows = {k: [] for k in ROW_ARITY}
+    offset = n_mol = 0
+    blocks = {}
     for mol_name, count in top.molecule_order:
         mol = top.molecules.get(mol_name)
         if mol is None:
             mol = top.synthesize_molecule(mol_name)
-        for _ in range(count):
-            off = offset
-            for (t, q, m, _, _) in mol.atoms:
-                atype.append(t)
-                charge.append(q)
-                mass.append(m)
-            for (i, j, func, params) in mol.bonds:
-                if params is None or len(params) < 2:
-                    params = top.bond_params(mol.atoms[i][0],
-                                             mol.atoms[j][0])
-                if params is None:
-                    raise ValueError(f"no bond params for {mol.atoms[i][0]}-"
-                                     f"{mol.atoms[j][0]}")
-                bonds_all.append((off + i, off + j))
-                rows["bond"].append((off + i, off + j, params[1], params[0]))
-            for (i, j) in mol.pairs:
-                pairs_all.append((off + i, off + j))
-            for (i, j, k, func, params) in mol.angles:
-                if params is None or len(params) < 2:
-                    params = top.angle_params(mol.atoms[i][0],
-                                              mol.atoms[j][0],
-                                              mol.atoms[k][0])
-                if params is None:
-                    raise ValueError("missing angle params")
-                th0 = math.radians(params[0])
-                if func == 5 and len(params) >= 4:
-                    rows["ub"].append((off + i, off + j, off + k, params[1],
-                                       th0, params[3], params[2]))
-                else:
-                    rows["angle"].append((off + i, off + j, off + k,
-                                          params[1], th0))
-            for (i, j, k, l, func, params) in mol.dihedrals:
-                atoms4 = (off + i, off + j, off + k, off + l)
-                if params is None or len(params) == 0:
-                    params = top.dihedral_params(
-                        mol.atoms[i][0], mol.atoms[j][0], mol.atoms[k][0],
-                        mol.atoms[l][0], func)
-                    if params is None:
-                        raise ValueError(f"missing dihedral params func "
-                                         f"{func}")
-                else:
-                    params = [params] if func in (1, 9, 4) else params
-                if func in (1, 9, 4):
-                    for p in (params if isinstance(params, list)
-                              else [params]):
-                        p = list(p)
-                        kk = p[1]
-                        if kk != 0.0:
-                            rows["pt"].append(atoms4 + (
-                                p[2] if len(p) > 2 else 1.0,
-                                math.radians(p[0]), kk))
-                elif func == 3:
-                    rows["rb"].append(atoms4 + (tuple(params)
-                                                + (0.0,) * 6)[:6])
-                elif func == 2:
-                    rows["ht"].append(atoms4 + (params[1] / 2.0,
-                                                math.radians(params[0])))
-            for (ow, doh, dhh) in mol.settles:
-                settles.append((off + ow, off + ow + 1, off + ow + 2, doh,
-                                dhh))
-                bonds_all.append((off + ow, off + ow + 1))
-                bonds_all.append((off + ow, off + ow + 2))
-            offset += len(mol.atoms)
-    return atype, charge, mass, bonds_all, pairs_all, settles, rows
+        if not count:
+            continue
+        if mol_name not in blocks:
+            blocks[mol_name] = _molecule_block(top, mol)
+        blk = blocks[mol_name]
+        na = len(blk["atype"])
+        atype.extend(blk["atype"] * count)
+        charge.append(np.tile(blk["charge"], count))
+        mass.append(np.tile(blk["mass"], count))
+        for k, cols in (("bonds", 2), ("excl", 2), ("spec", 2),
+                        ("settles", 3)):
+            parts[k].append(_tiled(blk[k], count, na, offset, cols))
+        for k, arity in ROW_ARITY.items():
+            rows[k].append(_tiled(blk["rows"][k], count, na, offset, arity))
+        ids = (blk["mol_ids"][None, :] + n_mol
+               + blk["n_mol"] * np.arange(count)[:, None])
+        mol_ids.append(ids.reshape(-1))
+        offset += na * count
+        n_mol += blk["n_mol"] * count
+
+    def cat(arrays, width):
+        return (np.concatenate(arrays) if arrays
+                else np.zeros((0, width)))
+    return dict(atype=atype, charge=cat(charge, 0).reshape(-1),
+                mass=cat(mass, 0).reshape(-1),
+                bonds=cat(parts["bonds"], 2).astype(np.int64),
+                excl=cat(parts["excl"], 2).astype(np.int64),
+                spec=cat(parts["spec"], 2).astype(np.int64),
+                settles=cat(parts["settles"], 5),
+                rows={k: cat(v, ROW_WIDTH[k]) for k, v in rows.items()},
+                mol_ids=cat(mol_ids, 0).reshape(-1).astype(np.int64),
+                n_mol=n_mol)
 
 
 def _gromacs_lists(rows, dtype, device):
     """The bonded lists in the JAX package's order: bonds, angles,
-    Urey-Bradley, periodic, RB and harmonic torsions."""
+    Urey-Bradley, periodic, RB and harmonic torsions, from the (rows,
+    columns) arrays of ``_replicate``."""
     kw = dict(dtype=dtype, device=device)
 
     def cols(name, arity):
         """The rows' atom index columns and their parameter columns."""
-        arr = np.array(rows[name], dtype=np.float64)
+        arr = np.asarray(rows[name], dtype=np.float64)
         return ([arr[:, m].astype(np.int64) for m in range(arity)],
                 arr[:, arity:].T)
     lists = []
-    if rows["bond"]:
+    if len(rows["bond"]):
         (i, j), (k, r0) = cols("bond", 2)
         lists.append(bonded.harmonic_bonds(i, j, k=k, r0=r0, **kw))
-    if rows["angle"]:
+    if len(rows["angle"]):
         (i, j, k), (ka, t0) = cols("angle", 3)
         lists.append(bonded.harmonic_angles(i, j, k, k=ka, theta0=t0, **kw))
-    if rows["ub"]:
+    if len(rows["ub"]):
         # GROMACS gives theta, k_theta, r13, k_UB; the JAX package's reader
         # stores k_UB as r0 and r13 as kbond, and the port mirrors it
         # (ROADMAP Queue 3)
         (i, j, k), (ka, t0, r0, kb) = cols("ub", 3)
         lists.append(bonded.urey_bradleys(i, j, k, kangle=ka, theta0=t0,
                                           kbond=kb, r0=r0, **kw))
-    if rows["pt"]:
+    if len(rows["pt"]):
         (i, j, k, l), (per, phase, kt) = cols("pt", 4)
         lists.append(bonded.periodic_torsions(
             i, j, k, l, periodicity=per, phase=phase, k=kt, **kw))
-    if rows["rb"]:
+    if len(rows["rb"]):
         (i, j, k, l), coeffs = cols("rb", 4)
         lists.append(bonded.rb_torsions(i, j, k, l, coeffs=coeffs.T, **kw))
-    if rows["ht"]:
+    if len(rows["ht"]):
         (i, j, k, l), (kt, t0) = cols("ht", 4)
         lists.append(bonded.harmonic_torsions(i, j, k, l, k=kt, theta0=t0,
                                               **kw))
     return tuple(lists)
+
+
+#: the neighbor_finder choices of system_from_gromacs
+NEIGHBOR_FINDERS = ("cell", "block")
+
+
+def _lorentz_berthelot_values(top, atype, sig_mix):
+    """True where ``sig_mix`` gives Lorentz-Berthelot's value on every type
+    pair present: the same sigma, or an epsilon of zero on either type."""
+    if isinstance(sig_mix, LorentzMixing):
+        return True
+    types = sorted(set(atype))
+    for a in types:
+        for b in types[types.index(a):]:
+            sa, ea = top.atomtypes[a][3], top.atomtypes[a][4]
+            sb, eb = top.atomtypes[b][3], top.atomtypes[b][4]
+            if ea * eb == 0.0:
+                continue
+            if not math.isclose(math.sqrt(sa * sb), 0.5 * (sa + sb),
+                                rel_tol=1e-12, abs_tol=0.0):
+                return False
+    return True
 
 
 def system_from_gromacs(gro_path, top_path, nonbonded_method="cutoff",
@@ -417,41 +526,75 @@ def system_from_gromacs(gro_path, top_path, nonbonded_method="cutoff",
                         neighbor_n_steps=10, solvent_dielectric=78.3,
                         pme_error_tol=0.0005, approximate_pme=True,
                         dtype=torch.float32, device=None, use_settles=False,
-                        dispersion_correction=True, velocities_from_gro=True):
+                        dispersion_correction=True, velocities_from_gro=True,
+                        neighbor_finder="cell", ewald_rtol=None,
+                        fourier_spacing=None, pme_order=5):
     """A System from GROMACS files on ``device`` (the CUDA card unless the
     caller names another), as the JAX package builds it
-    (mollytpu/models/gromacs.py:295-502). nonbonded_method: "cutoff" (LJ
+    (mollytpu/models/gromacs.py:295-502). ``gro_path`` is a .gro file or
+    what ``read_gro`` returns for one (waterbox.tile_gro). nonbonded_method: "cutoff" (LJ
     truncation + reaction field), "pme" (LJ truncation + Ewald real space
     + PME + the exclusion correction) or anything else for plain LJ +
     Coulomb over all pairs; the LJ sigma mixing is geometric under
-    comb-rule 3, else Lorentz. The listed interactions run on a
-    CellListNeighborFinder of radius ``dist_neighbors``."""
+    comb-rule 3, else Lorentz. ``dispersion_correction=False`` is
+    GROMACS's DispCorr = no.
+
+    neighbor_finder: "cell" (the default, as in the JAX package) lists the
+    interactions on a CellListNeighborFinder of radius ``dist_neighbors``
+    for the neighbor-table engine; "block" on the cluster-pair list
+    (BlockPairFinder) for the pair kernel, which takes Lorentz-Berthelot
+    mixing only: a topology whose rule gives another value on a type pair
+    present raises NotImplementedError (comb-rule 3 gives the same value
+    where the sigmas are equal or an epsilon is zero, as in SPC water).
+
+    PME follows OpenMM's rule from ``pme_error_tol`` unless given GROMACS's
+    settings: ``ewald_rtol`` sets alpha by erfc(alpha rc) = ewald_rtol for
+    the real space, PME and the exclusion correction alike;
+    ``fourier_spacing`` (nm) sizes the mesh, rounded up to FFT-smooth
+    sizes; ``pme_order`` is the B-spline order (GROMACS's pme-order, 4 by
+    its default; the port's default 5).
+
+    Molecule types are worked out once and their copies laid out with
+    numpy (``_replicate``), so that a box of many identical molecules
+    builds in seconds."""
+    if neighbor_finder not in NEIGHBOR_FINDERS:
+        raise ValueError(f"neighbor_finder must be one of "
+                         f"{NEIGHBOR_FINDERS}, got {neighbor_finder!r}")
     device = resolve_device(device)
-    names, res_names, res_nums, coords, vels, box = read_gro(gro_path)
+    gro = (read_gro(gro_path) if isinstance(gro_path, (str, os.PathLike))
+           else gro_path)
+    names, res_names, res_nums, coords, vels, box = gro
     top = GromacsTopology(top_path)
-    atype, charge, mass, bonds_all, pairs_all, settles, rows = \
-        _replicate(top)
+    rep = _replicate(top)
+    atype = rep["atype"]
     n = len(atype)
     if n != len(names):
         raise ValueError(f"topology atoms {n} != gro atoms {len(names)}")
+    excl_pairs, spec_pairs = rep["excl"], rep["spec"]
 
-    bond_set = sorted(set(bonds_all))
-    excl_pairs, spec_auto = bfs_exclusions(_adjacency(n, bond_set), n)
-    # [pairs] are the 1-4 set; other 1-4 pairs stay excluded
-    spec_pairs = sorted({(min(a, b), max(a, b)) for (a, b) in pairs_all})
-    spec_set = set(spec_pairs)
-    excl_pairs = sorted(set(excl_pairs)
-                        | {p for p in spec_auto if p not in spec_set})
-
-    sigma = np.array([top.atomtypes[t][3] for t in atype])
-    epsilon = np.array([top.atomtypes[t][4] for t in atype])
+    type_params = {t: top.atomtypes[t] for t in set(atype)}
+    sigma = np.array([type_params[t][3] for t in atype])
+    epsilon = np.array([type_params[t][4] for t in atype])
     tid = {t: i for i, t in enumerate(sorted(set(atype)))}
-    atoms = make_atoms(n=n, mass=mass, charge=charge, sigma=sigma,
-                       epsilon=epsilon, atom_type=[tid[t] for t in atype],
-                       dtype=dtype, device=device)
+    atoms = make_atoms(n=n, mass=rep["mass"], charge=rep["charge"],
+                       sigma=sigma, epsilon=epsilon,
+                       atom_type=[tid[t] for t in atype], dtype=dtype,
+                       device=device)
 
     sig_mix = GeometricMixing() if top.comb_rule == 3 else LorentzMixing()
+    listed = nonbonded_method in ("cutoff", "pme")
+    if listed and neighbor_finder == "block":
+        if not _lorentz_berthelot_values(top, atype, sig_mix):
+            raise NotImplementedError(
+                f"comb-rule {top.comb_rule} gives another LJ sigma than "
+                "Lorentz-Berthelot on a type pair of this topology, and the "
+                "pair kernel, which the cluster-pair list feeds, takes "
+                "Lorentz-Berthelot mixing only: build with "
+                "neighbor_finder=\"cell\"")
+        sig_mix = LorentzMixing()
     rc = float(dist_cutoff)
+    alpha = (None if ewald_rtol is None
+             else ewald_rtol_alpha(rc, float(ewald_rtol)))
     lj = LennardJones(cutoff=DistanceCutoff(rc), use_neighbors=True,
                       weight_special=top.fudge_lj, sigma_mixing=sig_mix)
     if nonbonded_method == "cutoff":
@@ -461,7 +604,8 @@ def system_from_gromacs(gro_path, top_path, nonbonded_method="cutoff",
     elif nonbonded_method == "pme":
         pairwise = (lj, CoulombEwald(
             dist_cutoff=rc, error_tol=pme_error_tol, use_neighbors=True,
-            weight_special=top.fudge_qq, approximate_erfc=approximate_pme))
+            weight_special=top.fudge_qq, approximate_erfc=approximate_pme,
+            alpha=alpha))
     else:
         pairwise = (LennardJones(weight_special=top.fudge_lj,
                                  sigma_mixing=sig_mix),
@@ -473,47 +617,72 @@ def system_from_gromacs(gro_path, top_path, nonbonded_method="cutoff",
         boundary = bnd.triclinic(box, dtype=dtype, device=device)
     general = []
     if nonbonded_method == "pme":
+        mesh = (None if fourier_spacing is None else pme_mesh_dims_spacing(
+            boundary.side_lengths.detach().cpu().numpy(),
+            float(fourier_spacing)))
         general.append(PME.setup(boundary, dist_cutoff=rc,
-                                 error_tol=pme_error_tol, dtype=dtype))
-        all_excl = excl_pairs + spec_pairs
-        if all_excl:
+                                 error_tol=pme_error_tol, order=pme_order,
+                                 dtype=dtype, mesh_dims=mesh, alpha=alpha))
+        all_excl = np.concatenate([excl_pairs, spec_pairs])
+        if len(all_excl):
             general.append(EwaldExclusionCorrection.setup(
-                all_excl, ewald_error_alpha(rc, pme_error_tol),
-                device=device))
-    if dispersion_correction and nonbonded_method in ("cutoff", "pme"):
+                all_excl, general[0].alpha, device=device))
+    if dispersion_correction and listed:
         general.append(make_dispersion_correction(sigma, epsilon, rc))
 
-    finder = (CellListNeighborFinder.setup(boundary, float(dist_neighbors), n,
-                                           n_steps=neighbor_n_steps)
-              if nonbonded_method in ("cutoff", "pme") else None)
+    finder = None
+    if listed and neighbor_finder == "block":
+        finder = BlockPairFinder.setup(boundary, float(dist_neighbors), n,
+                                       atoms, n_steps=neighbor_n_steps)
+    elif listed:
+        finder = CellListNeighborFinder.setup(boundary, float(dist_neighbors),
+                                              n, n_steps=neighbor_n_steps)
     exclusions = Exclusions.build(
         n, excl_pairs, spec_pairs,
         max_excl=_next8(_max_partners(excl_pairs, n)),
         max_special=_next8(_max_partners(spec_pairs, n)), device=device)
-    mol_ids, n_mol = molecule_ids_from_bonds(n, bond_set, device=device)
+    mol_ids = torch.as_tensor(rep["mol_ids"].astype(np.int32), device=device)
     constraints = ()
-    if use_settles and settles:
-        cpairs, cdists = [], []
-        for (o, h1, h2, doh, dhh) in settles:
-            cpairs += [(o, h1), (o, h2), (h1, h2)]
-            cdists += [doh, doh, dhh]
-        constraints = (SHAKERattle.build(cpairs, cdists, dtype=dtype,
-                                         device=device),)
+    settles = rep["settles"]
+    if use_settles and len(settles):
+        constraints = (SHAKERattle.triangles(
+            settles[:, :3].astype(np.int64),
+            settles[:, [3, 3, 4]], dtype=dtype, device=device),)
 
     def t(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    names = np.asarray(names)
     return System(atoms=atoms, coords=t(coords), boundary=boundary,
                   velocities=t(vels) if velocities_from_gro else None,
                   pairwise_inters=pairwise,
-                  specific_lists=_gromacs_lists(rows, dtype, device),
+                  specific_lists=_gromacs_lists(rep["rows"], dtype, device),
                   general_inters=tuple(general), exclusions=exclusions,
                   neighbor_finder=finder, molecule_ids=mol_ids,
-                  n_molecules=n_mol, constraints=constraints,
+                  n_molecules=rep["n_mol"], constraints=constraints,
                   atom_data=AtomData(
-                      atom_name=np.asarray(names),
+                      atom_name=names,
                       residue_name=np.asarray(res_names),
                       residue_number=np.asarray(res_nums),
-                      chain_id=np.asarray(["A"] * n),
+                      chain_id=np.full(n, "A"),
                       element=np.asarray([nm[0] if nm else "?"
-                                          for nm in names]),
-                      hetero_atom=np.asarray([False] * n)))
+                                          for nm in names.tolist()]),
+                      hetero_atom=np.zeros(n, dtype=bool)))
+
+
+def gen_vel_start(sys, temperature, generator):
+    """The start of a GROMACS run with gen-vel = yes and continuation = no:
+    the coordinates put on the constraints (SHAKE from themselves), wrapped
+    into the box; Maxwell-Boltzmann velocities at ``temperature`` from
+    ``generator`` (on the system's device) with the centre-of-mass motion
+    removed and the constraints applied (RATTLE), then scaled to
+    ``temperature`` exactly over the system's degrees of freedom."""
+    m, box = sys.masses, sys.boundary
+    x = sys.coords
+    for c in sys.constraints:
+        x, _ = c.apply_position_constraints(x, x, None, m, box, 1.0)
+    v = remove_cm_motion(m, random_velocities(m, temperature, generator))
+    for c in sys.constraints:
+        v = c.apply_velocity_constraints(x, v, m, box)
+    t_now = 2.0 * kinetic_energy(m, v) / (sys.n_dof * KB)
+    return sys.update(coords=box.wrap(x),
+                      velocities=v * torch.sqrt(temperature / t_now))

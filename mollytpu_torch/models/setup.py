@@ -356,11 +356,11 @@ def bfs_exclusions(adj, n):
 
 
 def _max_partners(pairs, n):
-    cnt = np.zeros(n, dtype=np.int64)
-    for (a, b) in pairs:
-        cnt[a] += 1
-        cnt[b] += 1
-    return int(cnt.max()) if len(pairs) else 1
+    """The most pairs any one atom is in (1 without pairs)."""
+    if not len(pairs):
+        return 1
+    flat = np.asarray(pairs, dtype=np.int64).reshape(-1)
+    return int(np.bincount(flat, minlength=n).max())
 
 
 def _next8(x):

@@ -1,4 +1,5 @@
-"""TIP3P water boxes written as PDB files, the port's test and bench system.
+"""Water boxes: TIP3P (and TIP4P-Ew) lattices written as PDB files, the
+port's test and bench system, and SPC water as GROMACS files.
 
 Waters sit on a lattice in one fixed orientation (H1 at +0.9572 A along
 x, H2 at (-0.2400, +0.9266, 0) A from the oxygen), the geometry of
@@ -16,6 +17,15 @@ TIP4P-Ew at its average3 position from O, H1 and H2 (``TIP4PEW_XML``),
 with a blank element column: both packages' PDB readers then take the
 element from the atom name ("M"), which is neither O nor H, so the rigid
 water triangle and the hydrogen constraints leave the site alone.
+
+``water_box_gromacs`` writes such a TIP3P box as a .gro and a .top.
+``spc_topology`` writes the topology of SPC water, rigid by [ settles ],
+with the parameters of GROMACS's oplsaa.ff/spc.itp. ``SPC_TILE`` is an
+equilibrated periodic box of 1,000 SPC waters (made by
+``data/make_spc_tile.py``), and ``tile_gro`` lays n x n x n copies of such
+a box side by side into one, as ``gmx solvate`` fills a box with copies of
+spc216.gro, in the form ``read_gro`` returns, which ``system_from_gromacs``
+takes in place of a file; ``write_gro`` writes waters as a .gro.
 """
 
 from __future__ import annotations
@@ -44,6 +54,9 @@ TIP4PEW_M_WEIGHT = 0.106676721
 
 #: the water models water_box_pdb writes
 WATER_MODELS = ("tip3p", "tip4pew")
+
+#: an equilibrated periodic box of 1,000 SPC waters at 300 K
+SPC_TILE = os.path.join(_DATA, "spc1000.gro")
 
 
 def _cell_basis(side, angles):
@@ -162,16 +175,107 @@ def water_box_gromacs(pdb_path, gro_path, top_path):
     struct = read_pdb(pdb_path)
     if struct.box is None or struct.box.ndim != 1:
         raise ValueError("water_box_gromacs writes orthorhombic boxes")
-    n = struct.n_atoms // 3
-    lines = ["TIP3P water box", f"{struct.n_atoms:5d}"]
-    for a, (x, y, z) in enumerate(struct.coords):
-        name = ("OW", "HW1", "HW2")[a % 3]
-        lines.append("%5d%-5s%5s%5d%8.3f%8.3f%8.3f" % (
-            (a // 3 + 1) % 100000, "SOL", name, (a + 1) % 100000, x, y, z))
-    lines.append("%10.5f%10.5f%10.5f" % tuple(struct.box))
-    with open(gro_path, "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+    write_gro(gro_path, struct.coords, struct.box, title="TIP3P water box")
     dhh = 2.0 * 0.09572 * math.sin(0.5 * 1.82421813418)
     with open(top_path, "w") as fh:
-        fh.write(_TIP3P_TOP.format(dhh=dhh, n=n))
+        fh.write(_TIP3P_TOP.format(dhh=dhh, n=struct.n_atoms // 3))
     return gro_path, top_path
+
+
+#: SPC water in a GROMACS topology: oplsaa.ff's opls_116 (OW) and opls_117
+#: (HW) and its spc.itp, rigid by [ settles ] (d_OH 0.1 nm, d_HH 0.16330 nm)
+_SPC_TOP = """; SPC water, the parameters of oplsaa.ff/spc.itp
+[ defaults ]
+; nbfunc  comb-rule  gen-pairs  fudgeLJ  fudgeQQ
+1         3          yes        0.5      0.5
+
+[ atomtypes ]
+; name  at.num  mass      charge  ptype  sigma        epsilon
+OW      8       15.99940  -0.82   A      3.16557e-01  6.50194e-01
+HW      1       1.00800   0.41    A      0.00000e+00  0.00000e+00
+
+[ moleculetype ]
+; name  nrexcl
+SOL     2
+
+[ atoms ]
+;  nr  type  resnr  res  atom  cgnr  charge  mass
+   1   OW    1      SOL  OW    1     -0.82   15.99940
+   2   HW    1      SOL  HW1   1     0.41    1.00800
+   3   HW    1      SOL  HW2   1     0.41    1.00800
+
+[ settles ]
+; OW  funct  doh  dhh
+1     1      0.1  0.16330
+
+[ exclusions ]
+1  2  3
+2  1  3
+3  1  2
+
+[ system ]
+SPC water
+
+[ molecules ]
+SOL  {n}
+"""
+
+#: SPC's rigid geometry (nm)
+SPC_DOH, SPC_DHH = 0.1, 0.16330
+
+
+def spc_topology(path, n_waters):
+    """Write the .top of ``n_waters`` SPC waters to ``path``; returns it."""
+    with open(path, "w") as fh:
+        fh.write(_SPC_TOP.format(n=int(n_waters)))
+    return path
+
+
+def write_gro(path, coords, box, title="SPC water", velocities=None):
+    """Write waters (O, H1, H2 per molecule, residue SOL) as a .gro:
+    coordinates (nm) with the format's 3 decimals, velocities (nm/ps) with
+    4 where given, and the orthorhombic box's edges. Returns ``path``."""
+    coords = np.asarray(coords, dtype=np.float64).reshape(-1, 3)
+    n = coords.shape[0]
+    res = (np.arange(n) // 3 + 1) % 100000
+    serial = (np.arange(n) + 1) % 100000
+    names = np.array(["   OW", "  HW1", "  HW2"])[np.arange(n) % 3]
+    fields = [np.char.mod("%5d", res), np.full(n, "SOL  "), names,
+              np.char.mod("%5d", serial)]
+    fields += [np.char.mod("%8.3f", coords[:, k]) for k in range(3)]
+    if velocities is not None:
+        v = np.asarray(velocities, dtype=np.float64).reshape(-1, 3)
+        fields += [np.char.mod("%8.4f", v[:, k]) for k in range(3)]
+    lines = fields[0]
+    for f in fields[1:]:
+        lines = np.char.add(lines, f)
+    with open(path, "w") as fh:
+        fh.write(f"{title}\n{n:5d}\n")
+        fh.write("\n".join(lines.tolist()))
+        fh.write("\n%10.5f%10.5f%10.5f\n" % tuple(np.asarray(box,
+                                                             np.float64)))
+    return path
+
+
+def tile_gro(gro, n):
+    """n x n x n copies of a periodic orthorhombic box laid side by side,
+    from and as ``models.gromacs.read_gro`` gives a .gro (names, residue
+    names, residue numbers, coordinates, velocities, the box's edges): the
+    copy at offset (i, j, k) box before (i, j, k + 1) and so on, each with
+    the box's atoms in their order and its residues numbered on from the
+    copy before. Each copy is the box's own periodic image, so the tiled
+    box is periodic too."""
+    names, res_names, res_nums, coords, vels, box = gro
+    copies = n ** 3
+    box = np.asarray(box, dtype=np.float64).reshape(3)
+    ijk = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                   axis=-1).reshape(-1, 1, 3)
+    coords = (np.asarray(coords, dtype=np.float64).reshape(1, -1, 3)
+              + ijk * box).reshape(-1, 3)
+    edges = n * box
+    nums = np.asarray(res_nums, dtype=np.int64)
+    span = int(nums.max()) if nums.size else 0
+    nums = (nums[None, :] + span * np.arange(copies)[:, None]).reshape(-1)
+    return (list(names) * copies, list(res_names) * copies, nums.tolist(),
+            coords, np.tile(np.asarray(vels, dtype=np.float64), (copies, 1)),
+            edges)

@@ -11,7 +11,11 @@ the kernel reads are packed once per rebuild; between rebuilds only the
 coordinates are gathered.
 
 The gap is a lower bound on the distance of any atom of one cluster to any
-of the other. In an orthorhombic box it is the Cartesian AABB gap under
+of the other. Only cluster pairs whose centers lie in one cell or two
+neighbouring ones of a grid of cluster centers are measured, the grid's
+cells wide enough that every pair with a gap below the radius is among
+them (one cell holding every cluster in a small box), so that the work and
+memory grow with the clusters and not with their square. In an orthorhombic box it is the Cartesian AABB gap under
 per-axis minimum image. In a triclinic box the axes of the minimum image
 are coupled, so a Cartesian gap is no bound; there the AABBs are taken in
 fractional coordinates, and |f_k| w_k <= |dr| along each fractional axis k
@@ -22,6 +26,7 @@ fractional coordinates, and |f_k| w_k <= |dr| along each fractional axis k
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -45,9 +50,8 @@ class BlockPairs:
     bits: torch.Tensor      # (n_pad, 4) int32 excl w0, w1, spec w0, w1 of
                             # the slot's atom (system.Exclusions bitmaps)
     pairs: torch.Tensor     # (P, 2) int32 cluster pairs (I, J), I <= J,
-                            # sorted by I then J
-    gap: torch.Tensor       # (C, C) AABB gaps at this rebuild; pairs with
-                            # gap >= the list radius are the unlisted ones
+                            # sorted by I then J: those whose AABB gap at
+                            # this rebuild is below the list radius
     coords_built: torch.Tensor  # (N, 3) wrapped coordinates at this rebuild
     list_radius: float = 0.0
     step_built: int = 0
@@ -139,15 +143,15 @@ class BlockPairFinder:
         """Serpentine cell order, then position along the last axis within
         the cell in the direction the cell column is traversed."""
         frac = torch.clamp(boundary.fractional(wrapped), 0.0, 1.0 - 1e-7)
-        dims = torch.tensor(self.sort_dims, dtype=torch.int64,
-                            device=wrapped.device)
-        q = torch.minimum((frac * dims.to(frac.dtype)).to(torch.int64),
-                          dims - 1)
-        rank = q[:, 0]
+        dims = self.sort_dims
+        # the grid as Python ints: no host-to-device copy
+        q = [torch.clamp((frac[:, k] * float(dims[k])).to(torch.int64),
+                         max=dims[k] - 1) for k in range(3)]
+        rank = q[0]
         last_flip = torch.zeros_like(rank, dtype=torch.bool)
         for k in (1, 2):
             flip = (rank & 1) == 1
-            qk = torch.where(flip, dims[k] - 1 - q[:, k], q[:, k])
+            qk = torch.where(flip, dims[k] - 1 - q[k], q[k])
             last_flip = flip
             rank = rank * dims[k] + qk
         zq = torch.clamp((frac[:, 2] * 1024.0).to(torch.int64), max=1023)
@@ -168,9 +172,18 @@ class BlockPairFinder:
 
         # per-cluster AABBs; padding rows repeat a real atom of the cluster
         # so they never stretch a box
-        gap = _aabb_gaps(wrapped[src].view(-1, CLUSTER, 3), boundary)
-        near = gap < self.dist_cutoff
-        pairs = torch.nonzero(torch.triu(near)).to(torch.int32).contiguous()
+        centers, exts = _cluster_boxes(wrapped[src].view(-1, CLUSTER, 3),
+                                       boundary)
+        n_cl = centers.shape[0]
+        blocks, near = [], []
+        for rows, cand, gap in _candidate_gaps(centers, exts, boundary,
+                                               self.dist_cutoff):
+            blocks.append(cand)
+            near.append(gap < self.dist_cutoff)
+        ci, cj = _pairs_of(blocks, near)
+        keys = torch.sort(ci * n_cl + cj)[0]
+        pairs = torch.stack([keys // n_cl, keys % n_cl], dim=1).to(
+            torch.int32).contiguous()
 
         stat = self.atom_static[src].to(coords.dtype)
         stat = torch.where(real[:, None], stat, torch.zeros_like(stat))
@@ -183,29 +196,126 @@ class BlockPairFinder:
         bits = bits4[ids].contiguous()
         return BlockPairs(ids=ids.to(torch.int32).contiguous(), src=src,
                           pos4=pos4, lj2=lj2, bits=bits, pairs=pairs,
-                          gap=gap, coords_built=wrapped,
+                          coords_built=wrapped,
                           list_radius=self.dist_cutoff,
                           step_built=int(step_n))
 
 
-def _aabb_gaps(x, boundary):
-    """(C, C) minimum-image gaps between the AABBs of clusters x (C, 32, 3):
-    a lower bound on the distance of any atom of one to any of the other."""
-    if getattr(boundary, "basis", None) is not None:
-        f = boundary.fractional(x)
-        lo, hi = f.amin(dim=1), f.amax(dim=1)
-        centers, exts = 0.5 * (lo + hi), 0.5 * (hi - lo)
-        dc = centers[None, :, :] - centers[:, None, :]
-        dc = dc - torch.round(dc)
-        widths = torch.tensor(boundary.perp_widths(), dtype=x.dtype,
-                              device=x.device)
-        return (torch.clamp(dc.abs() - (exts[None, :, :] + exts[:, None, :]),
-                            min=0.0) * widths).amax(dim=2)
+#: candidate cluster pairs whose gaps are worked out at a time (each block
+#: costs ~40 launches; at 512,000 waters about 2 blocks, a few GB)
+BLOCK_CANDIDATES = 1 << 26
+
+
+def _triclinic(boundary):
+    return getattr(boundary, "basis", None) is not None
+
+
+def _cluster_boxes(x, boundary):
+    """(centers, half extents), each (C, 3), of the AABBs of clusters x
+    (C, 32, 3): Cartesian in an orthorhombic box, fractional in a
+    triclinic one."""
+    if _triclinic(boundary):
+        x = boundary.fractional(x)
     lo, hi = x.amin(dim=1), x.amax(dim=1)
-    centers, exts = 0.5 * (lo + hi), 0.5 * (hi - lo)
-    dc = boundary.displacement(centers[:, None, :], centers[None, :, :])
+    return 0.5 * (lo + hi), 0.5 * (hi - lo)
+
+
+def _pair_gaps(centers, exts, boundary, ci, cj):
+    """Minimum-image gaps between the AABBs of clusters ci and cj: a lower
+    bound on the distance of any atom of one to any of the other."""
+    if _triclinic(boundary):
+        dc = centers[cj] - centers[ci]
+        dc = dc - torch.round(dc)
+        widths = torch.tensor(boundary.perp_widths(), dtype=centers.dtype,
+                              device=centers.device)
+        return (torch.clamp(dc.abs() - (exts[cj] + exts[ci]), min=0.0)
+                * widths).amax(dim=-1)
+    dc = boundary.displacement(centers[ci], centers[cj])
     return torch.linalg.vector_norm(torch.clamp(
-        dc.abs() - (exts[None, :, :] + exts[:, None, :]), min=0.0), dim=2)
+        dc.abs() - (exts[cj] + exts[ci]), min=0.0), dim=-1)
+
+
+def _cluster_grid(centers, exts, boundary, radius):
+    """The cells along each axis of a grid of cluster centers in which
+    every cluster pair with a gap below ``radius`` lies in one cell or two
+    neighbouring ones (1 along an axis with fewer than 3 such cells), and
+    each center's fractional coordinates. Along fractional axis k of
+    perpendicular width w_k, centers two cells apart are more than 1 / n_k
+    apart, so their gap is above (1 / n_k - 2 e_k) w_k, e_k the largest
+    fractional half extent: n_k = floor(1 / (radius / w_k + 2 e_k))."""
+    widths = boundary.perp_widths()
+    if _triclinic(boundary):
+        frac, efrac = centers, exts
+    else:
+        sides = torch.tensor(widths, dtype=centers.dtype,
+                             device=centers.device)
+        frac, efrac = centers / sides, exts / sides
+    e_max = efrac.amax(dim=0).tolist()
+    dims = []
+    for w, e in zip(widths, e_max):
+        n = (int(1.0 / (radius / w + 2.0 * e))
+             if math.isfinite(w) and radius / w + 2.0 * e > 0 else 1)
+        dims.append(n if n >= 3 else 1)
+    return dims, frac - torch.floor(frac)
+
+
+@functools.lru_cache(maxsize=16)
+def _stencil_cells(dims, device):
+    """(cells, 27) ids of each cell of a ``dims`` grid and of its
+    neighbours (27 in every direction; one along an axis of one cell),
+    built once per grid and device: a rebuild's grid is mostly the last
+    one's, and building it is ~270 small launches."""
+    offs = [range(-1, 2) if n > 1 else range(1) for n in dims]
+    cells = torch.arange(dims[0] * dims[1] * dims[2], device=device)
+    cx, cy, cz = (cells // (dims[1] * dims[2]), (cells // dims[2]) % dims[1],
+                  cells % dims[2])
+    return torch.stack([
+        (((cx + a) % dims[0]) * dims[1] + (cy + b) % dims[1]) * dims[2]
+        + (cz + c) % dims[2]
+        for a in offs[0] for b in offs[1] for c in offs[2]], dim=1)
+
+
+def _candidate_gaps(centers, exts, boundary, radius, grid=None,
+                    block=BLOCK_CANDIDATES):
+    """Yields (rows, cand, gaps) over blocks of row clusters, in order:
+    ``cand`` (rows, width) the clusters of each row's own cell and of the
+    neighbouring cells of ``_cluster_grid`` (``grid``, or worked out here;
+    every cluster where the grid is one cell), the number of clusters in
+    empty slots; ``gaps`` their AABB gaps, inf in empty slots and for a
+    candidate below its row (each pair once, ci <= cj). Every pair whose
+    gap is below ``radius`` is among them. Nothing is read on the host
+    past the grid's shape."""
+    n_cl, dev = centers.shape[0], centers.device
+    dims, frac = grid or _cluster_grid(centers, exts, boundary, radius)
+    c3 = [torch.clamp((frac[:, k] * float(dims[k])).to(torch.int64),
+                      max=dims[k] - 1) for k in range(3)]
+    cid = (c3[0] * dims[1] + c3[1]) * dims[2] + c3[2]
+    n_cells = dims[0] * dims[1] * dims[2]
+    counts = torch.bincount(cid, minlength=n_cells)
+    cap = int(counts.max())
+    order = torch.argsort(cid, stable=True)
+    slot = torch.arange(n_cl, device=dev) - (torch.cumsum(counts, 0)
+                                             - counts)[cid[order]]
+    table = torch.full((n_cells, cap), n_cl, dtype=torch.int64, device=dev)
+    table[cid[order], slot] = order
+    around = _stencil_cells(tuple(dims), dev)
+    width = around.shape[1] * cap
+    step = max(1, block // width)
+    for s in range(0, n_cl, step):
+        rows = torch.arange(s, min(n_cl, s + step), device=dev)
+        cand = table[around[cid[rows]]].reshape(rows.shape[0], width)
+        ci = rows[:, None]
+        gap = _pair_gaps(centers, exts, boundary, ci,
+                         torch.clamp(cand, max=n_cl - 1))
+        yield rows, cand, torch.where((cand < n_cl) & (cand >= ci), gap,
+                                      torch.full_like(gap, float("inf")))
+
+
+def _pairs_of(cands, near):
+    """(ci, cj) of the slots ``near`` marks in the blocks' ``cand``, which
+    hold every row cluster in order: one host read."""
+    ci, slot = torch.nonzero(torch.cat(near), as_tuple=True)
+    return ci, torch.cat(cands)[ci, slot]
 
 
 def unlisted_min_distance(blockpairs, coords, boundary, cutoff):
@@ -222,16 +332,29 @@ def unlisted_min_distance(blockpairs, coords, boundary, cutoff):
     cont = blockpairs.coords_built + boundary.displacement(
         blockpairs.coords_built, coords)
     x = cont[blockpairs.src].view(-1, CLUSTER, 3)
-    gap = _aabb_gaps(x, boundary)
-    unlisted = blockpairs.gap >= blockpairs.list_radius
-    inf = torch.full_like(gap, float("inf"))
-    gap = torch.where(unlisted, gap, inf)
-    near = gap < cutoff
-    bound = torch.where(near, inf, gap).amin()
-    cand = torch.nonzero(torch.triu(near))
-    if cand.shape[0] == 0:
+    centers, exts = _cluster_boxes(x, boundary)
+    n_cl = centers.shape[0]
+    pairs = blockpairs.pairs.to(torch.int64)
+    listed = pairs[:, 0] * n_cl + pairs[:, 1]          # sorted ascending
+    inf = torch.full((), float("inf"), dtype=coords.dtype,
+                     device=coords.device)
+    grid = _cluster_grid(centers, exts, boundary, cutoff)
+    # pairs outside the grid's neighbouring cells lie beyond the cutoff
+    bound = inf if grid[0] == [1, 1, 1] else inf.new_full((), cutoff)
+    blocks, near = [], []
+    for rows, cand, gap in _candidate_gaps(centers, exts, boundary, cutoff,
+                                           grid):
+        key = rows[:, None] * n_cl + cand
+        pos = torch.clamp(torch.searchsorted(listed, key),
+                          max=listed.numel() - 1)
+        gap = torch.where(listed[pos] == key, inf, gap)
+        close = gap < cutoff
+        bound = torch.minimum(bound, torch.where(close, inf, gap).amin())
+        blocks.append(cand)
+        near.append(close)
+    ci, cj = _pairs_of(blocks, near)
+    if ci.shape[0] == 0:
         return bound
-    ci, cj = cand.unbind(dim=1)
     # the kernel's own minimum image: the distance the kernel would see
     d = torch.linalg.vector_norm(mic_displacement(
         boundary, x[ci][:, :, None, :], x[cj][:, None, :, :]), dim=-1)

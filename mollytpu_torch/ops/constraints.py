@@ -17,10 +17,23 @@ layout; the sums are the same).
 ("hbonds", "allbonds", "hangles", rigid water) and ``build_constrainers``
 the solvers: all on SHAKE / RATTLE, or with ``algorithm="lincs"`` the
 closed triangles on SHAKE and the rest on LINCS (ops/lincs.py).
+``SHAKERattle.triangles`` builds rigid waters' solver without the graph
+walk.
+
+On a CUDA card a TRIANGLE bucket in an orthorhombic box (rigid water)
+is solved by ``csrc/rigid_triangles.cu``, one thread per triangle running
+the same Newton iterations and closed-form solves in one launch a call
+(``TRIANGLE_LAUNCHES`` counts them); every other bucket, box and device
+takes the PyTorch solve, which is the kernel's twin.
+
+``SWEEPS`` counts SHAKE / RATTLE's calls and the sweeps they ran (Newton
+iterations of a cluster solve, one closed-form solve of a velocity
+cluster, the global Jacobi sweeps), on the host.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from collections import Counter, defaultdict
@@ -28,11 +41,56 @@ from collections import Counter, defaultdict
 import numpy as np
 import torch
 
+from . import native
+
 #: supported in-cluster topologies, ((slot_i, slot_j), ...) per constraint
 SINGLE = ((0, 1),)
 PATH2 = ((0, 1), (0, 2))
 STAR3 = ((0, 1), (0, 2), (0, 3))
 TRIANGLE = ((0, 1), (0, 2), (1, 2))
+
+#: SHAKE / RATTLE calls and the sweeps they ran, counted on the host
+SWEEPS = {"position_calls": 0, "position_sweeps": 0, "velocity_calls": 0,
+          "velocity_sweeps": 0}
+
+
+def _count(kind, sweeps):
+    SWEEPS[kind + "_calls"] += 1
+    SWEEPS[kind + "_sweeps"] += sweeps
+
+
+#: launches of csrc/rigid_triangles.cu's kernels, counted on the host
+TRIANGLE_LAUNCHES = 0
+
+_SIG = {"triangle_shake_launch": [ctypes.c_void_p] * 8 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "triangle_rattle_launch": [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]}
+
+
+def _on_kernel(bucket, x, boundary):
+    """Whether ``bucket`` is solved by the rigid-triangle kernel: a
+    TRIANGLE bucket of float32 or float64 coordinates on a CUDA card in an
+    orthorhombic box."""
+    return (bucket.pattern == TRIANGLE and x.is_cuda
+            and x.dtype in (torch.float32, torch.float64)
+            and getattr(boundary, "basis", None) is None)
+
+
+def _triangle_launch(fn, *args, x):
+    """Launch ``fn`` of csrc/rigid_triangles.cu on the current stream of
+    x's device; tensors go by their data pointers (None stays null)."""
+    global TRIANGLE_LAUNCHES
+    lib = native.load("rigid_triangles", _SIG)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(x.device):
+        err = getattr(lib, fn)(*ptrs, int(x.dtype == torch.float64),
+                               torch.cuda.current_stream(x.device)
+                               .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+    TRIANGLE_LAUNCHES += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +238,30 @@ class SHAKERattle:
                        pattern=pat) for pat, at, dd in buckets or ()),
                    n_iters=n_iters, vel_iters=vel_iters, omega=omega)
 
+    @classmethod
+    def triangles(cls, atoms, dists, dtype=torch.float32, device=None):
+        """The solver ``build`` makes for disjoint rigid triangles, without
+        its walk of the constraint graph: ``atoms`` (T, 3) each triangle's
+        atoms in ascending order, ``dists`` (T, 3) the distances of its
+        pairs (0, 1), (0, 2) and (1, 2), the order ``build`` gives them for
+        the pairs listed triangle by triangle in that order."""
+        atoms = np.asarray(atoms, dtype=np.int64).reshape(-1, 3)
+        dists = np.asarray(dists, dtype=np.float64).reshape(-1, 3)
+        if not (np.all(np.diff(atoms, axis=1) > 0)
+                and np.unique(atoms).size == atoms.size):
+            raise ValueError("triangles need disjoint triangles of atoms "
+                             "in ascending order")
+        pairs = atoms[:, [0, 1, 0, 2, 1, 2]].reshape(-1, 3, 2)
+        return cls(torch.as_tensor(pairs[..., 0].reshape(-1), device=device),
+                   torch.as_tensor(pairs[..., 1].reshape(-1), device=device),
+                   torch.as_tensor(dists.reshape(-1), dtype=dtype,
+                                   device=device),
+                   clusters=(ClusterBucket(
+                       atoms=torch.as_tensor(atoms, device=device),
+                       dists=torch.as_tensor(dists, dtype=dtype,
+                                             device=device),
+                       pattern=TRIANGLE),) if len(atoms) else ())
+
     @staticmethod
     def _inv_masses(masses):
         positive = masses > 0
@@ -194,6 +276,8 @@ class SHAKERattle:
         dx / dt. Returns (coords, vels)."""
         if self.n_constraints == 0:
             return coords_new, vels
+        _count("position", self.newton_iters if self.clusters
+               else self.n_iters)
         inv_m = self._inv_masses(masses)
         if not self.clusters:
             out = self._sweep_positions(coords_prev, coords_new, inv_m,
@@ -203,6 +287,16 @@ class SHAKERattle:
             return out, vels
         out = coords_new.clone()
         for b in self.clusters:
+            if _on_kernel(b, coords_new, boundary):
+                box_a, box_b = boundary.mic_tensors(coords_new.dtype)
+                _triangle_launch(
+                    "triangle_shake_launch", coords_prev.contiguous(),
+                    coords_new.contiguous(), out, b.atoms,
+                    b.dists.to(coords_new.dtype).contiguous(),
+                    masses.to(coords_new.dtype).contiguous(), box_a, box_b,
+                    int(b.atoms.shape[0]), int(self.newton_iters),
+                    x=coords_new)
+                continue
             pat, mc = b.pattern, len(b.pattern)
             x0 = coords_prev[b.atoms]                      # (C, MA, 3)
             x_in = coords_new[b.atoms]
@@ -246,11 +340,20 @@ class SHAKERattle:
         projection, solved exactly per cluster)."""
         if self.n_constraints == 0:
             return vels
+        _count("velocity", 1 if self.clusters else self.vel_iters)
         inv_m = self._inv_masses(masses)
         if not self.clusters:
             return self._sweep_velocities(coords, vels, inv_m, boundary)
         out = vels.clone()
         for b in self.clusters:
+            if _on_kernel(b, coords, boundary):
+                box_a, box_b = boundary.mic_tensors(coords.dtype)
+                _triangle_launch(
+                    "triangle_rattle_launch", coords.contiguous(),
+                    vels.contiguous(), out, b.atoms,
+                    masses.to(coords.dtype).contiguous(), box_a, box_b,
+                    int(b.atoms.shape[0]), x=coords)
+                continue
             pat, mc = b.pattern, len(b.pattern)
             xc = coords[b.atoms]
             v_in = vels[b.atoms]

@@ -17,8 +17,18 @@ influence function depends on the box alone and is cached on the box
 object, as its minimum-image row is: a box moved by a barostat is a new
 object and gets its own.
 
+Two rules set the splitting parameter alpha and the mesh. OpenMM's, the
+default: alpha = sqrt(-ln(2 tol)) / rc and the mesh from the same tolerance
+(``ewald_error_alpha``, ``pme_mesh_dims``). GROMACS's: alpha from
+erfc(alpha rc) = ewald-rtol (``ewald_rtol_alpha``) and the mesh from
+fourierspacing (``pme_mesh_dims_spacing``); ``PME.setup`` takes the
+resulting ``alpha`` and ``mesh_dims``, and the same alpha goes to the real
+space (``CoulombEwald(alpha=...)``) and the exclusion correction.
+
 Sign conventions: energies in kJ/mol; virial W_ab = -dE/d(strain_ab),
 matching the pair kernel's -(dU/dr / r) dr (x) dr.
+
+``EVALUATIONS`` counts PME's force evaluations by mesh, on the host.
 """
 
 from __future__ import annotations
@@ -32,14 +42,36 @@ import torch
 
 from ..boundary import _cached
 from ..free_energy.alchemy import scaled_charge
+from ..tracing import span
 from ..units import COULOMB_CONST
 from .bonded import ewald_exclusions
 from .general import GeneralInteraction
+
+#: mesh dims -> PME force evaluations on that mesh, counted on the host
+EVALUATIONS = {}
 
 
 def ewald_error_alpha(dist_cutoff, error_tol=0.0005):
     """alpha = sqrt(-log(2 tol)) / rc (OpenMM convention)."""
     return math.sqrt(-math.log(2.0 * error_tol)) / dist_cutoff
+
+
+def ewald_rtol_alpha(dist_cutoff, ewald_rtol=1e-5):
+    """alpha with erfc(alpha rc) = ewald_rtol (GROMACS's ewald-rtol rule,
+    calc_ewaldcoeff_q): doubled from 5 until erfc(alpha rc) falls below
+    the tolerance, then bisected 60 more times."""
+    beta, i = 5.0, 0
+    while math.erfc(beta * dist_cutoff) > ewald_rtol:
+        i += 1
+        beta *= 2.0
+    lo, hi = 0.0, beta
+    for _ in range(i + 60):
+        beta = 0.5 * (lo + hi)
+        if math.erfc(beta * dist_cutoff) > ewald_rtol:
+            lo = beta
+        else:
+            hi = beta
+    return beta
 
 
 def _smooth_size(n):
@@ -62,6 +94,16 @@ def pme_mesh_dims(side_lengths, alpha, error_tol, smooth=True):
     for L in np.asarray(side_lengths, dtype=np.float64):
         s = int(math.ceil(2.0 * alpha * float(L) / (3.0 * error_tol ** 0.2)))
         s = max(s, 6)
+        dims.append(_smooth_size(s) if smooth else s)
+    return tuple(dims)
+
+
+def pme_mesh_dims_spacing(side_lengths, fourier_spacing, smooth=True):
+    """ceil(L / fourierspacing) per side, min 6, optionally rounded up to
+    FFT-smooth sizes (GROMACS sizes the mesh from its fourierspacing)."""
+    dims = []
+    for L in np.asarray(side_lengths, dtype=np.float64):
+        s = max(int(math.ceil(float(L) / fourier_spacing - 1e-9)), 6)
         dims.append(_smooth_size(s) if smooth else s)
     return tuple(dims)
 
@@ -246,10 +288,13 @@ class PME:
     @classmethod
     def setup(cls, boundary, dist_cutoff=1.0, error_tol=0.0005, order=5,
               excl_pairs=None, epsilon_r=1.0, dtype=torch.float32,
-              scheduler=None, mesh_dims=None, smooth_dims=True):
+              scheduler=None, mesh_dims=None, smooth_dims=True, alpha=None):
         """The mesh is sized from ``boundary.side_lengths``, the basis
-        diagonal of a triclinic box, as in the JAX package."""
-        alpha = ewald_error_alpha(dist_cutoff, error_tol)
+        diagonal of a triclinic box, as in the JAX package. ``alpha`` and
+        ``mesh_dims``, when given, replace the OpenMM rule's values from
+        ``error_tol`` (GROMACS's: ewald_rtol_alpha, pme_mesh_dims_spacing)."""
+        if alpha is None:
+            alpha = ewald_error_alpha(dist_cutoff, error_tol)
         sides = boundary.side_lengths.detach().cpu().numpy()
         if mesh_dims is None:
             mesh_dims = pme_mesh_dims(sides, alpha, error_tol,
@@ -322,18 +367,25 @@ class PME:
     def _recip(self, coords, boundary, q, needs_virial=False):
         """(E_recip, convolved potential grid, stencil cache, virial)."""
         dtype = coords.dtype
-        grid, cache = self._spread(coords, boundary, q)
+        with span("pme.spread"):
+            grid, cache = self._spread(coords, boundary, q)
+        with span("pme.solve"):
+            return self._solve(grid, cache, boundary, dtype, needs_virial)
+
+    def _solve(self, grid, cache, boundary, dtype, needs_virial):
+        """The FFT, the influence function and the inverse FFT of
+        ``_recip``."""
         ke = self._ke
         cgrid = torch.fft.fftn(grid)
         eterm, mh, coeff = self._influence(boundary, dtype)
         ek = eterm * (cgrid.real ** 2 + cgrid.imag ** 2)
         e_recip = 0.5 * ke * torch.sum(ek)
-        vir = torch.zeros((3, 3), dtype=dtype, device=coords.device)
+        vir = torch.zeros((3, 3), dtype=dtype, device=grid.device)
         if needs_virial:
             mm = torch.einsum("xyz,xyza,xyzb->ab", 0.5 * ke * ek * coeff,
                               mh, mh)
             vir = e_recip * torch.eye(3, dtype=dtype,
-                                      device=coords.device) - mm
+                                      device=grid.device) - mm
         ktot = self.mesh_dims[0] * self.mesh_dims[1] * self.mesh_dims[2]
         phi = (torch.fft.ifftn(cgrid * eterm) * ktot).real.to(dtype)
         return e_recip, phi, cache, vir
@@ -348,22 +400,11 @@ class PME:
         return e_recip + e_self + e_charge + e_excl
 
     def force_virial(self, coords, boundary, atoms, needs_virial=False):
+        EVALUATIONS[self.mesh_dims] = EVALUATIONS.get(self.mesh_dims, 0) + 1
         q = _effective_charges(atoms, self.scheduler, coords.dtype)
-        _, phi, (flat, theta, dtheta, inv), vir = self._recip(
-            coords, boundary, q, needs_virial)
-        ph = phi.reshape(-1)[flat]                          # (N, o, o, o)
-        tx, ty, tz = theta.unbind(dim=1)
-        dx, dy, dz = dtheta.unbind(dim=1)
-        K = self.mesh_dims
-        du = torch.stack([
-            torch.einsum("nxyz,nx,ny,nz->n", ph, dx, ty, tz) * K[0],
-            torch.einsum("nxyz,nx,ny,nz->n", ph, tx, dy, tz) * K[1],
-            torch.einsum("nxyz,nx,ny,nz->n", ph, tx, ty, dz) * K[2]], dim=-1)
-        # chain rule through the fractional coordinates u = x @ inv:
-        # dE/dx = dE/du @ inv.T, as elementwise products
-        du = du * q[:, None] * self._ke
-        forces = -(du[:, 0:1] * inv[:, 0] + du[:, 1:2] * inv[:, 1]
-                   + du[:, 2:3] * inv[:, 2])
+        _, phi, cache, vir = self._recip(coords, boundary, q, needs_virial)
+        with span("pme.gather"):
+            forces = self._gather(phi, cache, q)
         f_ex, v_ex = _exclusion_force_virial(
             q, coords, boundary, self.alpha, self._ke, self.excl_i,
             self.excl_j, needs_virial)
@@ -375,6 +416,24 @@ class PME:
             vir = vir + v_ex + e_charge * torch.eye(
                 3, dtype=coords.dtype, device=coords.device)
         return forces, vir
+
+    def _gather(self, phi, cache, q):
+        """The forces of the convolved grid ``phi`` on the charges, from
+        the stencil cache of ``_spread``."""
+        flat, theta, dtheta, inv = cache
+        ph = phi.reshape(-1)[flat]                          # (N, o, o, o)
+        tx, ty, tz = theta.unbind(dim=1)
+        dx, dy, dz = dtheta.unbind(dim=1)
+        K = self.mesh_dims
+        du = torch.stack([
+            torch.einsum("nxyz,nx,ny,nz->n", ph, dx, ty, tz) * K[0],
+            torch.einsum("nxyz,nx,ny,nz->n", ph, tx, dy, tz) * K[1],
+            torch.einsum("nxyz,nx,ny,nz->n", ph, tx, ty, dz) * K[2]], dim=-1)
+        # chain rule through the fractional coordinates u = x @ inv:
+        # dE/dx = dE/du @ inv.T, as elementwise products
+        du = du * q[:, None] * self._ke
+        return -(du[:, 0:1] * inv[:, 0] + du[:, 1:2] * inv[:, 1]
+                 + du[:, 2:3] * inv[:, 2])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -129,9 +129,10 @@ class _IntegratorBase:
             if kinetic_tensor is None and needs_virial:
                 kinetic_tensor = kinetic_energy_tensor(sys.masses,
                                                        sys.velocities)
-            sys, aux = apply_couplers(self.coupling, sys, aux, self.dt,
-                                      step_n, generator, kinetic_tensor,
-                                      aux["virial"], neighbors, draws)
+            with span("md.couple"):
+                sys, aux = apply_couplers(self.coupling, sys, aux, self.dt,
+                                          step_n, generator, kinetic_tensor,
+                                          aux["virial"], neighbors, draws)
             if forces_invalidated_at(self.coupling, step_n):
                 aux = {**aux, **_recompute(sys, neighbors, step_n,
                                            needs_virial)}

@@ -20,18 +20,26 @@ from .spatial import n_dof as calc_n_dof
 
 def _pad_tables(n_atoms, pairs_i, pairs_j, width):
     """Build (N, width) per-atom partner tables from sparse symmetric pairs;
-    unfilled slots hold the sentinel n_atoms."""
+    unfilled slots hold the sentinel n_atoms. Each atom's partners fill its
+    row in the order of the pairs, (a, b) giving b to a and then a to b."""
     table = np.full((n_atoms, width), n_atoms, dtype=np.int32)
-    fill = np.zeros(n_atoms, dtype=np.int64)
-    for a, b in zip(np.asarray(pairs_i), np.asarray(pairs_j)):
-        for x, y in ((a, b), (b, a)):
-            if fill[x] >= width:
-                raise ValueError(
-                    f"atom {x} has more than {width} excluded/special partners; "
-                    "increase table width"
-                )
-            table[x, fill[x]] = y
-            fill[x] += 1
+    a = np.asarray(pairs_i, dtype=np.int64).reshape(-1)
+    b = np.asarray(pairs_j, dtype=np.int64).reshape(-1)
+    if a.size == 0:
+        return table
+    rows = np.stack([a, b], axis=1).reshape(-1)    # a0, b0, a1, b1, ...
+    partners = np.stack([b, a], axis=1).reshape(-1)
+    order = np.argsort(rows, kind="stable")
+    counts = np.bincount(rows, minlength=n_atoms)
+    slot = np.empty_like(order)
+    slot[order] = np.arange(rows.size) - np.repeat(
+        np.cumsum(counts) - counts, counts)
+    over = slot >= width
+    if over.any():
+        raise ValueError(
+            f"atom {int(rows[np.argmax(over)])} has more than {width} "
+            "excluded/special partners; increase table width")
+    table[rows, slot] = partners
     return table
 
 
@@ -47,20 +55,18 @@ def _bitmap_tables(n_atoms, pairs_i, pairs_j):
     for k - EXCL_WINDOW in [-32, 31]. Pairs with |j - i| > 31 go to the far
     list, which the pair kernel's caller corrects after the kernel."""
     bits = np.zeros((n_atoms + 1, 2), dtype=np.uint32)
-    far = []
-    for a, b in zip(np.asarray(pairs_i), np.asarray(pairs_j)):
-        a, b = int(a), int(b)
-        # symmetric rule |b - a| <= 31: both directions representable, so a
-        # pair is either fully in-window or fully in the far list
-        if abs(b - a) <= EXCL_WINDOW - 1:
-            for x, y in ((a, b), (b, a)):
-                d = y - x + EXCL_WINDOW
-                bits[x, d // 32] |= np.uint32(1) << np.uint32(d % 32)
-        else:
-            far.append((min(a, b), max(a, b)))
-    far_arr = (np.asarray(far, dtype=np.int32).reshape(-1, 2)
-               if far else np.zeros((0, 2), np.int32))
-    return bits.view(np.int32), far_arr
+    a = np.asarray(pairs_i, dtype=np.int64).reshape(-1)
+    b = np.asarray(pairs_j, dtype=np.int64).reshape(-1)
+    # symmetric rule |b - a| <= 31: both directions representable, so a
+    # pair is either fully in-window or fully in the far list
+    near = np.abs(b - a) <= EXCL_WINDOW - 1
+    for x, y in ((a[near], b[near]), (b[near], a[near])):
+        d = y - x + EXCL_WINDOW
+        np.bitwise_or.at(bits, (x, d // 32),
+                         np.left_shift(np.uint32(1), (d % 32).astype(
+                             np.uint32)))
+    far = np.stack([np.minimum(a, b), np.maximum(a, b)], axis=1)[~near]
+    return bits.view(np.int32), far.astype(np.int32).reshape(-1, 2)
 
 
 def _t(x, device=None):

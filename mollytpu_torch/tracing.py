@@ -21,7 +21,8 @@ from torch.profiler import record_function
 #: every span name, root first
 SPANS = ("md.chunk", "md.step", "neighbors.find", "neighbors.check",
          "md.finish", "forces", "forces.pairs", "forces.bonded",
-         "forces.general", "md.constraints")
+         "forces.general", "md.constraints", "forces.pme", "pme.spread",
+         "pme.solve", "pme.gather", "forces.excl", "md.couple")
 
 _OFF = contextlib.nullcontext()
 _on = False

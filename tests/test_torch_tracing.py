@@ -151,8 +151,12 @@ def test_shake_and_pme_emit_constraints_and_a_general_span(tmp_path,
     monkeypatch.setattr(tracing, "record_function", noted)
     _, spans = spans_of(lambda: pt.run_chunk(sim, sys, nb, aux, 0, 2))
     names = {n for n, _, _ in spans}
-    assert {"md.constraints", "forces.general", "forces.pairs"} <= names
-    assert ("forces.general", "PME") in entered
+    assert {"md.constraints", "forces.general", "forces.pairs",
+            "forces.pme", "pme.spread", "pme.solve", "pme.gather",
+            "forces.excl"} <= names
+    assert ("forces.pme", "PME") in entered
+    assert ("forces.excl", "EwaldExclusionCorrection") in entered
+    assert ("forces.general", "LJDispersionCorrection") in entered
     assert ("forces.pairs", "neighbor") in entered
     assert ("md.chunk", "step0=0,n=2") in entered
     assert {n for n, _ in entered} == names
