@@ -23,6 +23,21 @@ import harness  # noqa: E402
 
 CELL = "gmx-water-1536000.nvt"
 SEED = 2 ** 31 + 23
+#: readers of the water cell's spans, and the LJ cell's reader of each
+SPAN_READERS = {name: name.replace(".water", ".lj") for name in (
+    "find_ms.water", "stale_check_ms.water", "pairs_ms.water",
+    "integrate_self_ms.water", "host_syncs_per_step.water")}
+
+
+@pytest.fixture(autouse=True)
+def this_benchmark_first(monkeypatch):
+    """The cell's modules come from this benchmark/, also where another
+    test has put a copy of it on sys.path."""
+    monkeypatch.setattr(sys, "path", [BENCH] + [p for p in sys.path
+                                                if p != BENCH])
+    for name in [n for n in sys.modules
+                 if n == "reference" or n.startswith("reference.")]:
+        monkeypatch.delitem(sys.modules, name)
 
 
 def tiny_spec():
@@ -54,10 +69,46 @@ def test_the_cell_loads_with_its_metrics():
         "device_idle_pct.water", "launches_per_step.water",
         "host_syncs_per_step.water", "pairs_ms.water",
         "pair_kernel_roofline_pct.water", "pme_ms.water",
-        "constraints_ms.water", "find_ms.water"}
+        "constraints_ms.water", "find_ms.water", "stale_check_ms.water",
+        "rebuild_ms.water", "integrate_self_ms.water"}
     for m in spec["per_layer"]:
         assert m["moves"] == "timesteps_per_s"
         assert callable(harness.load_module("metrics", m["name"]).read)
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_READERS))
+def test_a_span_reader_reads_as_the_lj_cells(name):
+    """Each reader of the water cell's spans is the LJ cell's reader of the
+    same span: both give None without spans, and the same number from a
+    reduction that has them."""
+    import spans
+
+    class Run:
+        def __init__(self, reduction):
+            self.reduction = reduction
+
+        def on_card(self):
+            pass
+
+        def once(self, key, fn):
+            return self.reduction
+
+    def read(metric, run):
+        return harness.load_module("metrics", metric).read(run)
+
+    assert read(name, Run(None)) is None
+    red = spans.SpanReduction(
+        count={"md.chunk": 1, "md.step": 2, "forces": 2, "forces.pairs": 2,
+               "neighbors.find": 1, "neighbors.check": 1},
+        host_us={}, device=[
+            (0.0, 10.0, ("md.chunk", "md.step", "forces", "forces.pairs")),
+            (10.0, 13.0, ("md.chunk", "md.step")),
+            (20.0, 30.0, ("md.chunk", "neighbors.find")),
+            (40.0, 45.0, ("md.chunk", "neighbors.check"))],
+        launches=[], syncs=[("md.chunk",), ("md.chunk", "neighbors.find")],
+        self_us={}, idle={}, busy_us=28.0)
+    got = read(name, Run(red))
+    assert got is not None and got == read(SPAN_READERS[name], Run(red))
 
 
 def test_program_passes_its_checks():

@@ -35,6 +35,8 @@ Phases, each printing one line or more before the next starts:
    differences); then the launch counts set to 0,
    one 100-step warm-up chunk and 100-step timed chunks, the counts read;
    gates: every force evaluation launched the path's kernel instance,
+   every SHAKE / RATTLE of the rigid waters launched the rigid-triangle
+   kernel (csrc/rigid_triangles.cu; three a Langevin step),
    coordinates finite, constraints held, temperature sane, no stale list
    (no atom pair the list left out came inside the cutoff by any rebuild),
    and the f32 forces against a float64 evaluation through the plain twins;
@@ -246,6 +248,21 @@ Phases, each printing one line or more before the next starts:
    end frame and on in.lj at the benchmark cell's 256,000 atoms melted
    100 steps, in f32 and f64, each with the kernel's device ms, the
    whole find's, the twin's and the bound of the table's bytes.
+15. the rigid-triangle kernel (csrc/rigid_triangles.cu), which every
+   SHAKE / RATTLE of rigid waters on the card launches. Over each main
+   path with the phases after it, TIP4P-Ew-PME, GROMACS-PME and
+   FEP-water with the free-energy phases, constraints.TRIANGLE_LAUNCHES
+   is set to 0 before and read after (gate: one launch per call and
+   TRIANGLE bucket). Then Triangle-kernel: SHAKE and RATTLE against the
+   twin (the PyTorch solve) on the same card tensors, on the PME cube's
+   and the PME dodecahedron's start frames (f32) and on GROMACS's water
+   benchmark, 512,000 SPC waters laid out from the committed tile as the
+   benchmark builds it (f32 and f64): the largest differences in float32
+   ulps (gated in f32), each kernel's device ms, the whole call's, the
+   twin's and the bound of its bytes; and on each frame the cluster-pair
+   list's grid search against measuring every cluster pair (the same
+   pairs, gated) and, on the two small frames, the stale-list check
+   against every unlisted atom pair after random moves (gated).
 
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
@@ -261,7 +278,9 @@ probe phase; LJ-bench, MC-LJ, Gradients, CellTiles-PME, CellTiles-LJ and
 Mesh launch no pair kernel and have no entry of it; the Tuner's K1a
 launches time candidates and are printed), then the cell-list kernel on
 each Cell-kernel frame (its launches those of the five phases of 14, by
-phase in launches_by_path); the last is
+phase in launches_by_path), then each rigid-triangle kernel on each
+Triangle-kernel frame (its launches those of the paths of 15, by path in
+launches_by_path); the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -555,6 +574,29 @@ LJ_CADENCES = (20, 10)
 #: CELL_MELT NVE steps at the cell's rebuild every CELL_EVERY, in f32 and
 #: on the same frame in f64
 CELL_BIG, CELL_MELT, CELL_EVERY = 40, 100, 5
+#: the rigid-triangle kernel (csrc/rigid_triangles.cu) against its twin
+#: (SHAKERattle's PyTorch solve, constraints._on_kernel off) on the same
+#: card tensors: every atom of a frame moved by up to TRI_MOVE nm for a
+#: step's SHAKE from the frame, standard-normal velocities for a RATTLE at
+#: the moved frame. Gates, in units in the last place (ulps) of the
+#: frame's largest float32 coordinate (positions; over DT for SHAKE's
+#: velocities) or velocity (RATTLE): the kernel contracts products and
+#: sums into FMAs and the twin rounds each, and the triclinic minimum image
+#: is a matmul on the twin's side
+TRI_MOVE, TRI_ULPS_X, TRI_ULPS_V = 0.004, 4, 32
+#: Langevin's constraint solves per step: RATTLE after the kick and after
+#: the O step, SHAKE after the drift (one launch each per TRIANGLE bucket)
+TRI_PER_STEP = 3
+#: GROMACS's water benchmark as the benchmark builds it: the SPC tile laid
+#: out GMX_TILES^3 times (512,000 waters, 1,536,000 atoms), PME by
+#: GROMACS's rules (ewald-rtol, fourierspacing, pme-order), a cluster-pair
+#: list of radius GMX_RLIST around the GMX_RC cutoff
+GMX_TILES, GMX_RC, GMX_RLIST = 8, 1.0, 1.2
+GMX_RTOL, GMX_SPACING, GMX_ORDER = 1e-5, 0.12, 4
+#: the cluster-pair list's grid search against measuring every cluster
+#: pair (rows at a time), and the stale-list check against every unlisted
+#: atom pair after every atom moved by GRID_MOVE nm x a standard normal
+GRID_ROWS, GRID_MOVE = 512, 0.1
 #: in.lj's gates: the lattice's pair energy per atom against the numpy sum
 #: (f32, f64 on the card); f32 forces and energy against float64 on the
 #: frame after 100 steps; the f32 NVE drift at most twice the f64 run's
@@ -1366,6 +1408,7 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
     ``after_chunk(system, aux)`` after the warm-up and each timed chunk."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import constraints
     from mollytpu_torch.ops import pair_kernel as pk
     dev = system.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1374,6 +1417,7 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
     sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
 
     pk.reset_launch_counts()
+    tri0, n_tri = constraints.TRIANGLE_LAUNCHES, triangle_buckets(system)
     t0 = time.perf_counter()
     system, nb, aux = pt.simulate(system, sim, CHUNK, generator=gen)
     torch.cuda.synchronize()
@@ -1402,6 +1446,13 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
         raise RuntimeError(
             f"{label}: pair kernel launched {launches} times ({own} of "
             f"instance {family}) for {n_evals} force evaluations")
+    tri = constraints.TRIANGLE_LAUNCHES - tri0
+    print(f"{label}: {tri} rigid-triangle kernel launches for {step} steps "
+          f"({tri / step:g} a step, {n_tri} TRIANGLE bucket(s))", flush=True)
+    if tri != TRI_PER_STEP * n_tri * step:
+        raise RuntimeError(f"{label}: the rigid-triangle kernel launched "
+                           f"{tri} times in {step} steps, "
+                           f"{TRI_PER_STEP * n_tri * step} expected")
     temp, viol = check_state(label, system)
     ms = 1e3 * elapsed / (n_chunks * CHUNK)
     ns_day = pt.units.ps_per_step_to_ns_per_day(DT, ms * 1e-3)
@@ -4797,6 +4848,281 @@ def tuner_phase(system):
     return dict(cfg=cfg, wall=wall, launches=launches)
 
 
+def triangle_buckets(system):
+    """The TRIANGLE buckets of ``system``'s constraint solvers: the
+    rigid-triangle kernel's launches per constraint call on the card."""
+    from mollytpu_torch.ops import constraints
+    return sum(b.pattern == constraints.TRIANGLE
+               for c in system.constraints for b in getattr(c, "clusters", ()))
+
+
+@contextlib.contextmanager
+def triangle_solves(label):
+    """Over the block, with constraints.TRIANGLE_LAUNCHES set to 0 first,
+    counts SHAKE / RATTLE calls on card tensors by solvers with a TRIANGLE
+    bucket, and the launches each should make (``shake``, ``rattle``: one
+    per bucket). Gates after it: the kernel launched that often, and there
+    was a call. Yields the counts (``launches`` is filled in at the
+    end)."""
+    from mollytpu_torch.ops import constraints
+    cls = constraints.SHAKERattle
+    names = ("apply_position_constraints", "apply_velocity_constraints")
+    real = {name: getattr(cls, name) for name in names}
+    counts = {"calls": 0, "shake": 0, "rattle": 0}
+
+    def counting(name, kind):
+        def call(self, coords, *args, **kw):
+            n = sum(b.pattern == constraints.TRIANGLE for b in self.clusters)
+            if coords.is_cuda and n and self.n_constraints:
+                counts["calls"] += 1
+                counts[kind] += n
+            return real[name](self, coords, *args, **kw)
+        return call
+
+    constraints.TRIANGLE_LAUNCHES = 0
+    for name, kind in zip(names, ("shake", "rattle")):
+        setattr(cls, name, counting(name, kind))
+    try:
+        yield counts
+    finally:
+        for name in names:
+            setattr(cls, name, real[name])
+    counts["launches"] = constraints.TRIANGLE_LAUNCHES
+    print(f"{label}: rigid-triangle kernel launches over the phase "
+          f"{counts['launches']} for {counts['calls']} SHAKE / RATTLE calls "
+          f"on the card ({counts['shake']} SHAKE, {counts['rattle']} "
+          "RATTLE)", flush=True)
+    if (counts["launches"] != counts["shake"] + counts["rattle"]
+            or not counts["calls"]):
+        raise RuntimeError(f"{label}: a SHAKE / RATTLE call on the card did "
+                           "not launch the rigid-triangle kernel once per "
+                           "TRIANGLE bucket")
+
+
+def _ulp32(x):
+    """The float32 unit in the last place of the largest |x|."""
+    import numpy as np
+    return float(np.spacing(np.float32(float(x.abs().max()))))
+
+
+def triangle_kernel_check(label, system, dtype):
+    """The rigid-triangle kernel on ``system``'s frame (cast to ``dtype``)
+    against its twin on the same card tensors: SHAKE from the frame to the
+    frame moved by up to TRI_MOVE nm, RATTLE of standard-normal velocities
+    at the moved frame; one launch each (gated), the largest differences
+    within TRI_ULPS_X / TRI_ULPS_V float32 ulps (gated where dtype is
+    float32; float64 prints them). Times: each kernel's device ms
+    (torch.profiler over 25 calls), the whole call's (CUDA events around
+    25 back-to-back calls), the twin's (median of 25), and the bound of
+    the bytes each kernel moves: per triangle, SHAKE reads 18 coordinates,
+    3 distances, 3 masses and 3 int64 atom ids and writes 9 coordinates;
+    RATTLE reads 9 coordinates, 9 velocities, 3 masses and the ids and
+    writes 9 velocities."""
+    import torch
+    from mollytpu_torch.ops import constraints
+    (c,) = system.constraints
+    box, dev = system.boundary, system.coords.device
+    x = system.coords.to(dtype)
+    m = system.masses.to(dtype)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    moved = x + TRI_MOVE * (2 * torch.rand(x.shape, generator=g, dtype=dtype,
+                                           device=dev) - 1)
+    vels = torch.randn(x.shape, generator=g, dtype=dtype, device=dev)
+
+    def shake():
+        return c.apply_position_constraints(x, moved, vels, m, box, DT)
+
+    def rattle():
+        return c.apply_velocity_constraints(moved, vels, m, box)
+
+    def twin(fn):
+        real = constraints._on_kernel
+        constraints._on_kernel = lambda *a: False
+        try:
+            return fn()
+        finally:
+            constraints._on_kernel = real
+
+    before = constraints.TRIANGLE_LAUNCHES
+    (xs, vs), v_r = shake(), rattle()
+    launches = constraints.TRIANGLE_LAUNCHES - before
+    (xs_t, vs_t), v_r_t = twin(shake), twin(rattle)
+    ulp_x, ulp_v = _ulp32(moved), _ulp32(vels)
+    err = {"SHAKE x": float((xs - xs_t).abs().max()),
+           "SHAKE v": float((vs - vs_t).abs().max()),
+           "RATTLE v": float((v_r - v_r_t).abs().max())}
+    ulps = {"SHAKE x": err["SHAKE x"] / ulp_x,
+            "SHAKE v": err["SHAKE v"] * DT / ulp_x,
+            "RATTLE v": err["RATTLE v"] / ulp_v}
+    viol = float(c.max_violation(xs, box))
+    n_tri = int(c.clusters[0].atoms.shape[0])
+    size, ids = torch.finfo(dtype).bits // 8, 24
+    bytes_ = {"shake": n_tri * ((18 + 3 + 3 + 9) * size + ids),
+              "rattle": n_tri * ((9 + 9 + 3 + 9) * size + ids)}
+    out = {}
+    for name, fn in (("shake", shake), ("rattle", rattle)):
+        kernel_ms, calls = profiled(fn, 25,
+                                    kernel=f"triangle_{name}_kernel")
+        out[name] = dict(ms=kernel_ms, call_ms=burst_ms(fn), calls=calls,
+                         plain_ms=_time(lambda: twin(fn)),
+                         bound_ms=1e3 * bytes_[name] / HBM_BYTES_PER_S,
+                         bound_by="bytes")
+        if not kernel_ms > 0.0:
+            raise RuntimeError(f"{label}: the profiler saw no "
+                               f"triangle_{name}_kernel")
+    print(f"{label}: rigid-triangle kernel against its twin on the same card "
+          f"tensors, {n_tri:,} triangles, {str(dtype)[6:]}: " + ", ".join(
+              f"{k} max|diff| {e:.3e} ({ulps[k]:.2f} f32 ulps)"
+              for k, e in err.items())
+          + f"; {launches} launches for one SHAKE and one RATTLE; max "
+          f"violation after SHAKE {viol:.3e}; " + "; ".join(
+              f"triangle_{k}_kernel {r['ms']:.4f} ms, the whole call "
+              f"{r['call_ms']:.4f} ms ({r['calls']:g} device calls), the twin "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({bytes_[k] / 1e6:.1f} MB over 3.35 TB/s)"
+              for k, r in out.items()), flush=True)
+    if launches != 2:
+        raise RuntimeError(f"{label}: {launches} rigid-triangle kernel "
+                           "launches for one SHAKE and one RATTLE")
+    if dtype == torch.float32 and (
+            max(ulps["SHAKE x"], ulps["SHAKE v"]) > TRI_ULPS_X
+            or ulps["RATTLE v"] > TRI_ULPS_V):
+        raise RuntimeError(f"{label}: the rigid-triangle kernel differs "
+                           f"from its twin by {ulps} float32 ulps")
+    out["shake"]["max_abs_err"] = err["SHAKE x"]
+    out["rattle"]["max_abs_err"] = err["RATTLE v"]
+    return out
+
+
+def cluster_list_check(label, system, move):
+    """The cluster-pair list's search over a grid of cluster centers
+    against measuring every cluster pair (GRID_ROWS rows at a time) on
+    ``system``'s frame: the same pairs, in the same order (gated); with
+    ``move``, the stale-list check after every atom moved by GRID_MOVE nm x
+    a standard normal against the closest unlisted atom pair found atom by
+    atom over every unlisted cluster pair whose boxes come within the
+    cutoff (gated equal, or both at least the cutoff)."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import blockpairs
+    from mollytpu_torch.sim import simulate
+    box, f = system.boundary, system.neighbor_finder
+    radius, cutoff = f.dist_cutoff, simulate.list_cutoff(system)
+    t0 = time.perf_counter()
+    nb = pt.find_neighbors(f, system.coords, box, system.exclusions, 0)
+    torch.cuda.synchronize()
+    find_s = time.perf_counter() - t0
+    cl = blockpairs.CLUSTER
+    x = box.wrap(system.coords)[nb.src].view(-1, cl, 3)
+    centers, exts = blockpairs._cluster_boxes(x, box)
+    dims, _ = blockpairs._cluster_grid(centers, exts, box, radius)
+    c = centers.shape[0]
+    cj_all = torch.arange(c, device=x.device)
+    every, unlisted = [], []
+    for r0 in range(0, c, GRID_ROWS):
+        ci = torch.arange(r0, min(c, r0 + GRID_ROWS), device=x.device)
+        ii, jj = ci[:, None].expand(-1, c), cj_all[None, :].expand(
+            ci.shape[0], -1)
+        upper = jj >= ii
+        gap = blockpairs._pair_gaps(centers, exts, box, ii, jj)
+        near = (gap < radius) & upper
+        every.append(torch.stack([ii[near], jj[near]], dim=1))
+        if move:
+            unlisted.append(torch.stack([ii[upper & ~near],
+                                         jj[upper & ~near]], dim=1))
+    every = torch.cat(every).to(torch.int32)
+    same = every.shape == nb.pairs.shape and torch.equal(every, nb.pairs)
+    line = (f"{label}: the cluster-pair list's grid search (grid {dims}, "
+            f"{c:,} clusters, radius {radius} nm) against every cluster "
+            f"pair: {nb.pairs.shape[0]:,} pairs listed, "
+            f"{every.shape[0]:,} by every pair, "
+            f"{'the same' if same else 'DIFFERENT'}; the find "
+            f"{find_s:.3f} s")
+    closest = brute = None
+    if move:
+        g = torch.Generator(device=x.device).manual_seed(SEED)
+        moved = system.coords + GRID_MOVE * torch.randn(
+            system.coords.shape, generator=g, dtype=system.coords.dtype,
+            device=x.device)
+        closest = float(blockpairs.unlisted_min_distance(nb, moved, box,
+                                                         cutoff))
+        cont = nb.coords_built + box.displacement(nb.coords_built, moved)
+        xm = cont[nb.src].view(-1, cl, 3)
+        c_now, e_now = blockpairs._cluster_boxes(xm, box)
+        un = torch.cat(unlisted)
+        un = un[blockpairs._pair_gaps(c_now, e_now, box, un[:, 0],
+                                      un[:, 1]) < cutoff]
+        ids = nb.ids.view(-1, cl)
+        brute = math.inf
+        for r0 in range(0, un.shape[0], GRID_ROWS):
+            ui, uj = un[r0:r0 + GRID_ROWS].unbind(dim=1)
+            dd = torch.linalg.vector_norm(pt.boundary.mic_displacement(
+                box, xm[ui][:, :, None, :], xm[uj][:, None, :, :]), dim=-1)
+            real = (ids[ui] < system.n_atoms)[:, :, None] & \
+                (ids[uj] < system.n_atoms)[:, None, :]
+            brute = min(brute, float(torch.where(real, dd, math.inf).amin()))
+        line += (f"; after moves of {GRID_MOVE} nm x N(0, 1) the stale check "
+                 f"reads {closest:.6f} nm, every unlisted atom pair "
+                 f"{brute:.6f} nm (cutoff {cutoff} nm, {un.shape[0]:,} "
+                 "unlisted cluster pairs within it)")
+    print(line, flush=True)
+    if not same:
+        raise RuntimeError(f"{label}: the grid search lists other cluster "
+                           "pairs than measuring every pair")
+    if move and not (closest == brute if brute < cutoff
+                     else closest >= cutoff):
+        raise RuntimeError(f"{label}: the stale-list check reads {closest} "
+                           f"nm, every unlisted atom pair {brute} nm")
+
+
+def gmx_water_box(dev, workdir):
+    """GROMACS's water benchmark as benchmark/systems/gmx_water.py builds
+    it, without velocities: 512,000 SPC waters from the committed tile."""
+    import torch
+    from mollytpu_torch.models import gromacs, waterbox
+    gro = waterbox.tile_gro(gromacs.read_gro(waterbox.SPC_TILE), GMX_TILES)
+    top = waterbox.spc_topology(os.path.join(workdir, "spc-big.top"),
+                                len(gro[0]) // 3)
+    return gromacs.system_from_gromacs(
+        gro, top, nonbonded_method="pme", dist_cutoff=GMX_RC,
+        dist_neighbors=GMX_RLIST, device=dev, dtype=torch.float32,
+        use_settles=True, dispersion_correction=False,
+        velocities_from_gro=False, neighbor_finder="block",
+        ewald_rtol=GMX_RTOL, fourier_spacing=GMX_SPACING,
+        pme_order=GMX_ORDER)
+
+
+def triangle_kernel_phase(dev, workdir):
+    """Triangle-kernel: triangle_kernel_check and cluster_list_check on
+    the PME cube's and the PME dodecahedron's start frames (N_WATERS TIP3P
+    waters, f32; the dodecahedron triclinic) and on GROMACS's water
+    benchmark (512,000 SPC waters, f32 and f64; the list without moves).
+    Returns {frame: {"shake": ..., "rattle": ...}} for the kernels line."""
+    import torch
+    out = {}
+    for tag, angles in (("cube", CUBE), ("dodecahedron", DODECAHEDRON)):
+        system = water_system(dev, torch.float32, workdir, "pme", angles)
+        frame = f"the PME {tag}'s start frame, {N_WATERS:,} TIP3P waters"
+        out[f"{frame}, f32"] = triangle_kernel_check(
+            f"Triangle-kernel ({frame})", system, torch.float32)
+        cluster_list_check(f"Triangle-kernel ({frame})", system, move=True)
+        del system
+    t0 = time.perf_counter()
+    big = gmx_water_box(dev, workdir)
+    torch.cuda.synchronize()
+    frame = (f"GROMACS's water benchmark, {big.n_atoms // 3:,} SPC waters "
+             "from the tile")
+    print(f"Triangle-kernel: {frame} built in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        out[f"{frame}, {str(dtype)[6:].replace('float', 'f')}"] = \
+            triangle_kernel_check(f"Triangle-kernel ({frame})", big, dtype)
+    cluster_list_check(f"Triangle-kernel ({frame})", big, move=False)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # the Mesh phase runs under torch.use_deterministic_algorithms, which
@@ -4810,84 +5136,92 @@ def main():
     small_modes(dev)
     small_alch_modes(dev)
     stats, runs, probes, pme_eval, more, finds = {}, {}, [], {}, {}, {}
+    triangles = {}
     with tempfile.TemporaryDirectory() as workdir:
         for label, method, angles, n_chunks, family in MAIN_PATHS:
-            t0 = time.perf_counter()
-            system = water_system(dev, torch.float32, workdir, method, angles)
-            torch.cuda.synchronize()
-            print(f"{label}: {describe(system)}; setup "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            stats[family] = compare(f"{label} water{system.n_atoms}", system,
-                                    timing=True)
-            if stats[family]["family"] != family:
-                raise RuntimeError(f"{label} runs instance "
-                                   f"{stats[family]['family']}")
-            if label == "PME":
-                probes += probe_phase(label, system, stats[family])
-            if label == "RF-ortho":
-                other_modes(label, system, OTHER_MODES)
-            runs[label] = main_path(label, system, n_chunks, family)
-            if label == "PME":
-                pme_eval["cube"] = pme_evaluation_times(
-                    label, runs[label]["system"])
-                npt, npt_energy = npt_phase(system, runs[label], line)
-                bonded = bonded_phase(runs[label]["system"])
-                runs["MTS-PME"] = mts_path(runs[label], line)
-                t_remd = t_remd_phase(runs[label]["system"],
-                                      runs[label]["ms"])
-                calc = calculator_phase(runs[label]["system"])
-                tiles_pme = celltiles_pme_phase(system, line)
-                mesh = mesh_phase(tiles_pme.pop("system"))
-                tuner = tuner_phase(runs[label]["system"])
-            if label == "RF-ortho":
-                components(label, runs[label])
-            if label == "PME-dodecahedron":
-                run = runs[label]
-                steps_without_sync(label, run, run["step"], CADENCE)
-                pme_eval["dodecahedron"] = pme_evaluation_times(
-                    label, run["system"])
-                components(label, run)
-                production = production_phase(run, workdir)
-                more[label] = production["launches"] + integrators_phase(run)
-                muller_brown_phase(dev)
-            if label == "PME":
-                pme_system, pme_end = system, runs[label]["system"]
-            runs[label] = {k: runs[label][k]
-                           for k in ("launches", "ms", "ns_day")}
-            del system
+            with triangle_solves(label) as triangles[label]:
+                t0 = time.perf_counter()
+                system = water_system(dev, torch.float32, workdir, method,
+                                      angles)
+                torch.cuda.synchronize()
+                print(f"{label}: {describe(system)}; setup "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                stats[family] = compare(f"{label} water{system.n_atoms}",
+                                        system, timing=True)
+                if stats[family]["family"] != family:
+                    raise RuntimeError(f"{label} runs instance "
+                                       f"{stats[family]['family']}")
+                if label == "PME":
+                    probes += probe_phase(label, system, stats[family])
+                if label == "RF-ortho":
+                    other_modes(label, system, OTHER_MODES)
+                runs[label] = main_path(label, system, n_chunks, family)
+                if label == "PME":
+                    pme_eval["cube"] = pme_evaluation_times(
+                        label, runs[label]["system"])
+                    npt, npt_energy = npt_phase(system, runs[label], line)
+                    bonded = bonded_phase(runs[label]["system"])
+                    runs["MTS-PME"] = mts_path(runs[label], line)
+                    t_remd = t_remd_phase(runs[label]["system"],
+                                          runs[label]["ms"])
+                    calc = calculator_phase(runs[label]["system"])
+                    tiles_pme = celltiles_pme_phase(system, line)
+                    mesh = mesh_phase(tiles_pme.pop("system"))
+                    tuner = tuner_phase(runs[label]["system"])
+                if label == "RF-ortho":
+                    components(label, runs[label])
+                if label == "PME-dodecahedron":
+                    run = runs[label]
+                    steps_without_sync(label, run, run["step"], CADENCE)
+                    pme_eval["dodecahedron"] = pme_evaluation_times(
+                        label, run["system"])
+                    components(label, run)
+                    production = production_phase(run, workdir)
+                    more[label] = (production["launches"]
+                                   + integrators_phase(run))
+                    muller_brown_phase(dev)
+                if label == "PME":
+                    pme_system, pme_end = system, runs[label]["system"]
+                runs[label] = {k: runs[label][k]
+                               for k in ("launches", "ms", "ns_day")}
+                del system
         runs["Bonded-PME"] = bonded_pme_path(dev, workdir)
         more["PME"] = (runs["Bonded-PME"]["launches"]
                        + runs["MTS-PME"]["launches"])
-        tip4p = tip4p_path(dev, workdir, line, runs["PME"])
+        with triangle_solves("TIP4P-Ew-PME") as triangles["TIP4P-Ew-PME"]:
+            tip4p = tip4p_path(dev, workdir, line, runs["PME"])
         lincs = lincs_pme_path(dev, workdir, line)
         for label, r in (("TIP4P-Ew-PME", tip4p), ("LINCS-PME", lincs)):
             runs[label] = {k: r[k] for k in ("launches", "ms", "ns_day")}
-        with cell_finds("GROMACS-PME") as finds["GROMACS-PME"]:
+        with cell_finds("GROMACS-PME") as finds["GROMACS-PME"], \
+                triangle_solves("GROMACS-PME") as triangles["GROMACS-PME"]:
             gmx = gromacs_path(dev, workdir, line)
         setup_options_phase(dev, workdir)
 
-        t0 = time.perf_counter()
-        fep, mask = fep_system(pme_system)
-        print(f"FEP-water: {describe(fep)}; setup "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        lambda1_check(pme_system, fep, mask)
-        fep_timed = pt.set_lambda(fep, FEP_TIMED, atom_mask=mask)
-        stats[FEP_FAMILY] = compare(
-            f"FEP-water lambda={FEP_TIMED} water{fep.n_atoms}", fep_timed,
-            timing=True)
-        if stats[FEP_FAMILY]["family"] != FEP_FAMILY:
-            raise RuntimeError(f"FEP-water runs instance "
-                               f"{stats[FEP_FAMILY]['family']}")
-        probes += probe_phase(f"FEP-water lambda={FEP_TIMED}", fep_timed,
-                              stats[FEP_FAMILY])
-        timed, ham, energies = fep_path(fep, mask)
-        fep_mbar(energies)
-        components(f"FEP-water lambda={FEP_TIMED}", timed, ham, FEP_LAMS)
-        runs["FEP-water"] = {k: timed[k] for k in ("launches", "ms",
-                                                   "ns_day")}
-        fe = free_energy_phases(pme_end, timed["system"], mask,
-                                runs["PME"]["ms"])
-        h_remd = h_remd_phase(timed["system"], mask)
+        with triangle_solves("FEP-water and the free-energy phases") as \
+                triangles["FEP-water"]:
+            t0 = time.perf_counter()
+            fep, mask = fep_system(pme_system)
+            print(f"FEP-water: {describe(fep)}; setup "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            lambda1_check(pme_system, fep, mask)
+            fep_timed = pt.set_lambda(fep, FEP_TIMED, atom_mask=mask)
+            stats[FEP_FAMILY] = compare(
+                f"FEP-water lambda={FEP_TIMED} water{fep.n_atoms}", fep_timed,
+                timing=True)
+            if stats[FEP_FAMILY]["family"] != FEP_FAMILY:
+                raise RuntimeError(f"FEP-water runs instance "
+                                   f"{stats[FEP_FAMILY]['family']}")
+            probes += probe_phase(f"FEP-water lambda={FEP_TIMED}", fep_timed,
+                                  stats[FEP_FAMILY])
+            timed, ham, energies = fep_path(fep, mask)
+            fep_mbar(energies)
+            components(f"FEP-water lambda={FEP_TIMED}", timed, ham, FEP_LAMS)
+            runs["FEP-water"] = {k: timed[k] for k in ("launches", "ms",
+                                                       "ns_day")}
+            fe = free_energy_phases(pme_end, timed["system"], mask,
+                                    runs["PME"]["ms"])
+            h_remd = h_remd_phase(timed["system"], mask)
     with cell_finds("LJ-bench") as finds["LJ-bench"]:
         lj = lj_bench_path(dev, line)
     with cell_finds("CellTiles-LJ") as finds["CellTiles-LJ"]:
@@ -4899,6 +5233,8 @@ def main():
     cell_kernel = cell_kernel_phase(dev, lj["end"])
     forms_phase(dev)
     dpd_card_phase(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        triangle_kernel = triangle_kernel_phase(dev, workdir)
     paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
     paths.append(("FEP-water", FEP_FAMILY))
     print(f"card: {line}; " + "; ".join(
@@ -5031,6 +5367,19 @@ def main():
         **{k: r[k] for k in ("max_abs_err", "ms", "find_ms", "plain_ms",
                              "bound_ms", "bound_by")},
         "library_ms": None} for frame, r in cell_kernel.items()]
+    kernels += [{
+        "name": f"triangle_{kind}_kernel (SHAKERattle's TRIANGLE bucket, "
+                f"{'SHAKE' if kind == 'shake' else 'RATTLE'}) on {frame}",
+        "route": "cuda", "source": "mollytpu_torch/csrc/rigid_triangles.cu",
+        "replaces": "none: XLA, mollytpu/ops/constraints.py:33-611",
+        "launches": sum(t[kind] for t in triangles.values()),
+        "launches_by_path": {label: t[kind]
+                             for label, t in triangles.items()},
+        **{k: r[kind][k] for k in ("max_abs_err", "ms", "call_ms",
+                                   "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None}
+        for frame, r in triangle_kernel.items() for kind in ("shake",
+                                                             "rattle")]
     print(f"chip_smoke.py: the whole run took "
           f"{time.perf_counter() - t_start:.1f} s (the kernels' build "
           "included)", flush=True)

@@ -23,9 +23,13 @@
 // Rounding: the same operations as the PyTorch solve in the same order
 // where it is written term by term (the cofactor solve, the Newton
 // update); dot products and the moves' sums are accumulated in the order
-// the PyTorch code adds them. The minimum image is PyTorch's for an
-// orthorhombic box: d - rint(d / a) * b per axis (a the side, b the side or
-// 0 on an open axis, boundary.mic_tensors).
+// the PyTorch code adds them. The minimum image is the box's displacement
+// (boundary.mic_tensors gives a and b): in an orthorhombic box d -
+// rint(d / a) * b per axis (a the side, b the side or 0 on an open axis);
+// in a triclinic one the fractional rounding f = d inv, d' = (f - rint(f))
+// basis (a = inv, b = basis, row-major 3 x 3), which is the shortest image
+// for a triangle's sides, far shorter than half the box's smallest width
+// (so also where the box searches the 27 images, approx_images=False).
 
 #include <cuda_runtime.h>
 
@@ -50,16 +54,28 @@ __device__ __forceinline__ T dot(const V3<T>& a, const V3<T>& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z;
 }
 
-// x_i - x_j by the minimum image of an orthorhombic box
-template <typename T>
+// x_i - x_j by the minimum image: of an orthorhombic box (a, b (3,)) or of
+// a triclinic one (kTri: a the basis's inverse, b the basis, row-major)
+template <typename T, bool kTri>
 __device__ __forceinline__ V3<T> mic(const V3<T>& xi, const V3<T>& xj,
                                      const T* __restrict__ a,
                                      const T* __restrict__ b) {
   V3<T> d{xi.x - xj.x, xi.y - xj.y, xi.z - xj.z};
-  d.x -= rint(d.x / a[0]) * b[0];
-  d.y -= rint(d.y / a[1]) * b[1];
-  d.z -= rint(d.z / a[2]) * b[2];
-  return d;
+  if (!kTri) {
+    d.x -= rint(d.x / a[0]) * b[0];
+    d.y -= rint(d.y / a[1]) * b[1];
+    d.z -= rint(d.z / a[2]) * b[2];
+    return d;
+  }
+  T f[3];
+  #pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    f[k] = d.x * a[k] + d.y * a[3 + k] + d.z * a[6 + k];
+    f[k] -= rint(f[k]);
+  }
+  return {f[0] * b[0] + f[1] * b[3] + f[2] * b[6],
+          f[0] * b[1] + f[1] * b[4] + f[2] * b[7],
+          f[0] * b[2] + f[1] * b[5] + f[2] * b[8]};
 }
 
 template <typename T>
@@ -100,7 +116,7 @@ __device__ __forceinline__ T inv_mass(const T* __restrict__ m, int64_t i) {
   return mi > T(0) ? T(1) / mi : T(0);
 }
 
-template <typename T>
+template <typename T, bool kTri>
 __global__ void triangle_shake_kernel(
     const T* __restrict__ x0, const T* __restrict__ x1, T* __restrict__ out,
     const int64_t* __restrict__ atoms, const T* __restrict__ dists,
@@ -124,8 +140,8 @@ __global__ void triangle_shake_kernel(
   T cst[3][3];
   #pragma unroll
   for (int s = 0; s < 3; ++s) {
-    rref[s] = mic(p0[pi(s)], p0[pj(s)], box_a, box_b);
-    drs[s] = mic(p1[pi(s)], p1[pj(s)], box_a, box_b);
+    rref[s] = mic<T, kTri>(p0[pi(s)], p0[pj(s)], box_a, box_b);
+    drs[s] = mic<T, kTri>(p1[pi(s)], p1[pj(s)], box_a, box_b);
   }
   #pragma unroll
   for (int s = 0; s < 3; ++s)
@@ -180,7 +196,7 @@ __global__ void triangle_shake_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kTri>
 __global__ void triangle_rattle_kernel(
     const T* __restrict__ x, const T* __restrict__ v_in,
     T* __restrict__ v_out, const int64_t* __restrict__ atoms,
@@ -203,7 +219,7 @@ __global__ void triangle_rattle_kernel(
   T r[3], C[3][3], ks[3];
   #pragma unroll
   for (int s = 0; s < 3; ++s) {
-    drs[s] = mic(p[pi(s)], p[pj(s)], box_a, box_b);
+    drs[s] = mic<T, kTri>(p[pi(s)], p[pj(s)], box_a, box_b);
     const V3<T> dv{v[pi(s)].x - v[pj(s)].x, v[pi(s)].y - v[pj(s)].y,
                    v[pi(s)].z - v[pj(s)].z};
     r[s] = dot(dv, drs[s]);
@@ -235,51 +251,58 @@ __global__ void triangle_rattle_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kTri>
 int shake(const void* x0, const void* x1, void* out, const void* atoms,
           const void* dists, const void* masses, const void* box_a,
           const void* box_b, int64_t n_tri, int iters, cudaStream_t s) {
   const int64_t blocks = (n_tri + kThreads - 1) / kThreads;
-  triangle_shake_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const T*>(x0), static_cast<const T*>(x1),
-      static_cast<T*>(out), static_cast<const int64_t*>(atoms),
-      static_cast<const T*>(dists), static_cast<const T*>(masses),
-      static_cast<const T*>(box_a), static_cast<const T*>(box_b), n_tri,
-      iters);
+  triangle_shake_kernel<T, kTri>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          static_cast<const T*>(x0), static_cast<const T*>(x1),
+          static_cast<T*>(out), static_cast<const int64_t*>(atoms),
+          static_cast<const T*>(dists), static_cast<const T*>(masses),
+          static_cast<const T*>(box_a), static_cast<const T*>(box_b), n_tri,
+          iters);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kTri>
 int rattle(const void* x, const void* v_in, void* v_out, const void* atoms,
            const void* masses, const void* box_a, const void* box_b,
            int64_t n_tri, cudaStream_t s) {
   const int64_t blocks = (n_tri + kThreads - 1) / kThreads;
-  triangle_rattle_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(v_in),
-      static_cast<T*>(v_out), static_cast<const int64_t*>(atoms),
-      static_cast<const T*>(masses), static_cast<const T*>(box_a),
-      static_cast<const T*>(box_b), n_tri);
+  triangle_rattle_kernel<T, kTri>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(v_in),
+          static_cast<T*>(v_out), static_cast<const int64_t*>(atoms),
+          static_cast<const T*>(masses), static_cast<const T*>(box_a),
+          static_cast<const T*>(box_b), n_tri);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x0, x1, out (N, 3), atoms (n_tri, 3) int64, dists (n_tri, 3), masses
-// (N,), box_a and box_b (3,), all of one float type (f64 != 0: double);
-// out holds x1 on entry. Returns a cudaError_t.
+// (N,), box_a and box_b (3,) of an orthorhombic box or (3, 3) of a
+// triclinic one (tri != 0), all of one float type (f64 != 0: double); out
+// holds x1 on entry. Returns a cudaError_t.
 extern "C" int triangle_shake_launch(const void* x0, const void* x1,
                                      void* out, const void* atoms,
                                      const void* dists, const void* masses,
                                      const void* box_a, const void* box_b,
-                                     int64_t n_tri, int iters, int f64,
-                                     void* stream) {
+                                     int64_t n_tri, int iters, int tri,
+                                     int f64, void* stream) {
   if (n_tri <= 0 || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? shake<double>(x0, x1, out, atoms, dists, masses, box_a, box_b,
-                             n_tri, iters, s)
-             : shake<float>(x0, x1, out, atoms, dists, masses, box_a, box_b,
-                            n_tri, iters, s);
+  if (f64)
+    return tri ? shake<double, true>(x0, x1, out, atoms, dists, masses, box_a,
+                                     box_b, n_tri, iters, s)
+               : shake<double, false>(x0, x1, out, atoms, dists, masses,
+                                      box_a, box_b, n_tri, iters, s);
+  return tri ? shake<float, true>(x0, x1, out, atoms, dists, masses, box_a,
+                                  box_b, n_tri, iters, s)
+             : shake<float, false>(x0, x1, out, atoms, dists, masses, box_a,
+                                   box_b, n_tri, iters, s);
 }
 
 // x, v_in, v_out (N, 3), the rest as triangle_shake_launch; v_out holds
@@ -288,11 +311,16 @@ extern "C" int triangle_rattle_launch(const void* x, const void* v_in,
                                       void* v_out, const void* atoms,
                                       const void* masses, const void* box_a,
                                       const void* box_b, int64_t n_tri,
-                                      int f64, void* stream) {
+                                      int tri, int f64, void* stream) {
   if (n_tri <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? rattle<double>(x, v_in, v_out, atoms, masses, box_a, box_b,
-                              n_tri, s)
-             : rattle<float>(x, v_in, v_out, atoms, masses, box_a, box_b,
-                             n_tri, s);
+  if (f64)
+    return tri ? rattle<double, true>(x, v_in, v_out, atoms, masses, box_a,
+                                      box_b, n_tri, s)
+               : rattle<double, false>(x, v_in, v_out, atoms, masses, box_a,
+                                       box_b, n_tri, s);
+  return tri ? rattle<float, true>(x, v_in, v_out, atoms, masses, box_a,
+                                   box_b, n_tri, s)
+             : rattle<float, false>(x, v_in, v_out, atoms, masses, box_a,
+                                    box_b, n_tri, s);
 }

@@ -275,8 +275,7 @@ def _stencil_cells(dims, device):
         for a in offs[0] for b in offs[1] for c in offs[2]], dim=1)
 
 
-def _candidate_gaps(centers, exts, boundary, radius, grid=None,
-                    block=BLOCK_CANDIDATES):
+def _candidate_gaps(centers, exts, boundary, radius, grid=None):
     """Yields (rows, cand, gaps) over blocks of row clusters, in order:
     ``cand`` (rows, width) the clusters of each row's own cell and of the
     neighbouring cells of ``_cluster_grid`` (``grid``, or worked out here;
@@ -284,7 +283,7 @@ def _candidate_gaps(centers, exts, boundary, radius, grid=None,
     empty slots; ``gaps`` their AABB gaps, inf in empty slots and for a
     candidate below its row (each pair once, ci <= cj). Every pair whose
     gap is below ``radius`` is among them. Nothing is read on the host
-    past the grid's shape."""
+    past the grid's shape and the count of its fullest cell."""
     n_cl, dev = centers.shape[0], centers.device
     dims, frac = grid or _cluster_grid(centers, exts, boundary, radius)
     c3 = [torch.clamp((frac[:, k] * float(dims[k])).to(torch.int64),
@@ -300,7 +299,7 @@ def _candidate_gaps(centers, exts, boundary, radius, grid=None,
     table[cid[order], slot] = order
     around = _stencil_cells(tuple(dims), dev)
     width = around.shape[1] * cap
-    step = max(1, block // width)
+    step = max(1, BLOCK_CANDIDATES // width)
     for s in range(0, n_cl, step):
         rows = torch.arange(s, min(n_cl, s + step), device=dev)
         cand = table[around[cid[rows]]].reshape(rows.shape[0], width)

@@ -20,11 +20,12 @@ closed triangles on SHAKE and the rest on LINCS (ops/lincs.py).
 ``SHAKERattle.triangles`` builds rigid waters' solver without the graph
 walk.
 
-On a CUDA card a TRIANGLE bucket in an orthorhombic box (rigid water)
-is solved by ``csrc/rigid_triangles.cu``, one thread per triangle running
-the same Newton iterations and closed-form solves in one launch a call
-(``TRIANGLE_LAUNCHES`` counts them); every other bucket, box and device
-takes the PyTorch solve, which is the kernel's twin.
+On a CUDA card a TRIANGLE bucket (rigid water), in any box, is solved by
+``csrc/rigid_triangles.cu``, one thread per triangle running the same
+Newton iterations and closed-form solves in one launch a call
+(``TRIANGLE_LAUNCHES`` counts them); coordinates on the card in another
+type than float32 or float64 raise. Every other bucket, and every bucket
+on the CPU, takes the PyTorch solve, which is the kernel's twin.
 
 ``SWEEPS`` counts SHAKE / RATTLE's calls and the sweeps they ran (Newton
 iterations of a cluster solve, one closed-form solve of a velocity
@@ -63,29 +64,32 @@ def _count(kind, sweeps):
 TRIANGLE_LAUNCHES = 0
 
 _SIG = {"triangle_shake_launch": [ctypes.c_void_p] * 8 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p],
         "triangle_rattle_launch": [ctypes.c_void_p] * 7 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]}
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
-def _on_kernel(bucket, x, boundary):
+def _on_kernel(bucket, x):
     """Whether ``bucket`` is solved by the rigid-triangle kernel: a
-    TRIANGLE bucket of float32 or float64 coordinates on a CUDA card in an
-    orthorhombic box."""
-    return (bucket.pattern == TRIANGLE and x.is_cuda
-            and x.dtype in (torch.float32, torch.float64)
-            and getattr(boundary, "basis", None) is None)
+    TRIANGLE bucket of coordinates on a CUDA card."""
+    return bucket.pattern == TRIANGLE and x.is_cuda
 
 
-def _triangle_launch(fn, *args, x):
+def _triangle_launch(fn, *args, x, boundary):
     """Launch ``fn`` of csrc/rigid_triangles.cu on the current stream of
-    x's device; tensors go by their data pointers (None stays null)."""
+    x's device in ``boundary``'s box (the args hold its ``mic_tensors``);
+    tensors go by their data pointers (None stays null)."""
     global TRIANGLE_LAUNCHES
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError("the rigid-triangle kernel takes float32 or float64 "
+                        f"coordinates, not {x.dtype}")
     lib = native.load("rigid_triangles", _SIG)
+    tri = int(getattr(boundary, "basis", None) is not None)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
     with torch.cuda.device(x.device):
-        err = getattr(lib, fn)(*ptrs, int(x.dtype == torch.float64),
+        err = getattr(lib, fn)(*ptrs, tri, int(x.dtype == torch.float64),
                                torch.cuda.current_stream(x.device)
                                .cuda_stream)
     if err != 0:
@@ -287,7 +291,7 @@ class SHAKERattle:
             return out, vels
         out = coords_new.clone()
         for b in self.clusters:
-            if _on_kernel(b, coords_new, boundary):
+            if _on_kernel(b, coords_new):
                 box_a, box_b = boundary.mic_tensors(coords_new.dtype)
                 _triangle_launch(
                     "triangle_shake_launch", coords_prev.contiguous(),
@@ -295,7 +299,7 @@ class SHAKERattle:
                     b.dists.to(coords_new.dtype).contiguous(),
                     masses.to(coords_new.dtype).contiguous(), box_a, box_b,
                     int(b.atoms.shape[0]), int(self.newton_iters),
-                    x=coords_new)
+                    x=coords_new, boundary=boundary)
                 continue
             pat, mc = b.pattern, len(b.pattern)
             x0 = coords_prev[b.atoms]                      # (C, MA, 3)
@@ -346,13 +350,13 @@ class SHAKERattle:
             return self._sweep_velocities(coords, vels, inv_m, boundary)
         out = vels.clone()
         for b in self.clusters:
-            if _on_kernel(b, coords, boundary):
+            if _on_kernel(b, coords):
                 box_a, box_b = boundary.mic_tensors(coords.dtype)
                 _triangle_launch(
                     "triangle_rattle_launch", coords.contiguous(),
                     vels.contiguous(), out, b.atoms,
                     masses.to(coords.dtype).contiguous(), box_a, box_b,
-                    int(b.atoms.shape[0]), x=coords)
+                    int(b.atoms.shape[0]), x=coords, boundary=boundary)
                 continue
             pat, mc = b.pattern, len(b.pattern)
             xc = coords[b.atoms]

@@ -2,8 +2,8 @@
 twin (SHAKERattle's cluster solve) on the same card tensors: the
 committed SPC tile (1,000 rigid waters) with every atom moved by up to
 0.004 nm, a step's SHAKE from the tile and a RATTLE at the moved frame,
-in float32 and float64; one launch per call, and no launch in a triclinic
-box, which the twin solves. Every test needs a CUDA card and skips
+in float32 and float64, in the tile's cube and in a skewed triclinic box;
+one launch per call. Every test needs a CUDA card and skips
 without one (the kernel has no CPU mode). It imports neither JAX nor the
 JAX package, so it runs on a card host without them:
 
@@ -67,10 +67,12 @@ def both(monkeypatch, call):
     return got, want, launches
 
 
+@pytest.mark.parametrize("triclinic", [False, True],
+                         ids=["cube", "triclinic"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_shake_matches_the_twin(dtype, tmp_path, monkeypatch):
+def test_shake_matches_the_twin(dtype, triclinic, tmp_path, monkeypatch):
     dev = card()
-    s, moved, vels = tile_on(dev, dtype, tmp_path)
+    s, moved, vels = tile_on(dev, dtype, tmp_path, triclinic)
     (c,) = s.constraints
     (x, v), (x_t, v_t), launches = both(monkeypatch, lambda: (
         c.apply_position_constraints(s.coords, moved, vels, s.masses,
@@ -81,10 +83,12 @@ def test_shake_matches_the_twin(dtype, tmp_path, monkeypatch):
     assert float(c.max_violation(x, s.boundary)) < 50 * TOL[dtype]
 
 
+@pytest.mark.parametrize("triclinic", [False, True],
+                         ids=["cube", "triclinic"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_rattle_matches_the_twin(dtype, tmp_path, monkeypatch):
+def test_rattle_matches_the_twin(dtype, triclinic, tmp_path, monkeypatch):
     dev = card()
-    s, moved, vels = tile_on(dev, dtype, tmp_path)
+    s, moved, vels = tile_on(dev, dtype, tmp_path, triclinic)
     (c,) = s.constraints
     v, v_t, launches = both(monkeypatch, lambda: (
         c.apply_velocity_constraints(moved, vels, s.masses, s.boundary)))
@@ -92,12 +96,10 @@ def test_rattle_matches_the_twin(dtype, tmp_path, monkeypatch):
     assert float((v - v_t).abs().max()) < 10 * TOL[dtype]
 
 
-def test_triclinic_box_takes_the_twin(tmp_path, monkeypatch):
+def test_half_precision_on_the_card_raises(tmp_path):
     dev = card()
-    s, moved, vels = tile_on(dev, torch.float32, tmp_path, triclinic=True)
+    s, moved, vels = tile_on(dev, torch.float32, tmp_path)
     (c,) = s.constraints
-    before = constraints.TRIANGLE_LAUNCHES
-    c.apply_position_constraints(s.coords, moved, vels, s.masses,
-                                 s.boundary, 0.002)
-    c.apply_velocity_constraints(moved, vels, s.masses, s.boundary)
-    assert constraints.TRIANGLE_LAUNCHES == before
+    with pytest.raises(TypeError, match="float32 or float64"):
+        c.apply_velocity_constraints(moved.half(), vels.half(),
+                                     s.masses.half(), s.boundary)
