@@ -263,6 +263,24 @@ Phases, each printing one line or more before the next starts:
    list's grid search against measuring every cluster pair (the same
    pairs, gated) and, on the two small frames, the stale-list check
    against every unlisted atom pair after random moves (gated).
+16. the Lennard-Jones table kernel (csrc/lj_table.cu), which every
+   neighbor_forces call on the card that its dispatch rule admits
+   launches (a LennardJones alone, DistanceCutoff, Lorentz and geometric
+   mixing, an orthorhombic or triclinic box, no gradient tracked). Its build is
+   checked for spills before LJ-bench. Over LJ-bench, MC-LJ, Gradients
+   and DPD, nonbonded.TABLE_LAUNCHES is set to 0 before each and read
+   after it; the neighbor_forces calls on the card are counted as the
+   rule admits or refuses them. Launch counts, gated: one per admitted
+   call and none per refused one on every phase; LJ-bench: every force
+   evaluation admitted (one launch each) and no autograd-engine call on
+   the card; MC-LJ (energies only) and DPD (velocity-dependent): none
+   admitted, no launch; Gradients: the gradient passes track epsilon and
+   reach the engine, the central difference's passes (no gradient)
+   launch the kernel. Then Table-kernel, on the Cell-kernel phase's
+   frames: the kernel against the engine on the same card tensors
+   (forces-only and with the virial, gated at TOL_TABLE), its device ms
+   (torch.profiler), the whole call's, the engine's and the bound of its
+   bytes.
 
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
@@ -280,7 +298,9 @@ launches time candidates and are printed), then the cell-list kernel on
 each Cell-kernel frame (its launches those of the five phases of 14, by
 phase in launches_by_path), then each rigid-triangle kernel on each
 Triangle-kernel frame (its launches those of the paths of 15, by path in
-launches_by_path); the last is
+launches_by_path), then the table kernel on each Table-kernel frame (its
+launches those of the four phases of 16, by phase in launches_by_path);
+the last is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -574,6 +594,13 @@ LJ_CADENCES = (20, 10)
 #: CELL_MELT NVE steps at the cell's rebuild every CELL_EVERY, in f32 and
 #: on the same frame in f64
 CELL_BIG, CELL_MELT, CELL_EVERY = 40, 100, 5
+#: the Lennard-Jones table kernel (csrc/lj_table.cu) against the autograd
+#: engine (neighbor_forces_plain) on the same card tensors, forces and
+#: virial: max|dF| over rms|F| and max|dV| over max|V| (the reasons are in
+#: tests/test_torch_lj_table_cuda.py, whose limits these are), on the
+#: frames of the cell-list kernel's phase
+TOL_TABLE = {"float32": 2e-5, "float64": 1e-12}
+TABLE_INSTANCES = 8
 #: the rigid-triangle kernel (csrc/rigid_triangles.cu) against its twin
 #: (SHAKERattle's PyTorch solve, constraints._on_kernel off) on the same
 #: card tensors: every atom of a frame moved by up to TRI_MOVE nm for a
@@ -3110,11 +3137,9 @@ def cell_kernel_check(label, system):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
 
 
-def cell_kernel_phase(dev, lj_end):
-    """Cell-kernel: cell_kernel_check on LJ-bench's end frame (f32), on
-    in.lj at CELL_BIG^3 fcc cells after CELL_MELT NVE steps at a rebuild
-    every CELL_EVERY (f32), and on that frame in float64. Returns
-    {frame: the kernels-line numbers}."""
+def big_lj_frames(dev):
+    """in.lj at CELL_BIG^3 fcc cells after CELL_MELT NVE steps at a rebuild
+    every CELL_EVERY (f32), and that frame in float64."""
     import torch
     import mollytpu_torch as pt
     from mollytpu_torch.models import ljbench
@@ -3131,8 +3156,17 @@ def cell_kernel_phase(dev, lj_end):
     big64 = big64.update(coords=big.coords.double())
     del nb
     torch.cuda.empty_cache()
-    print(f"Cell-kernel: in.lj at {big.n_atoms} atoms melted {CELL_MELT} "
-          f"steps; {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"in.lj at {big.n_atoms} atoms melted {CELL_MELT} steps; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return big, big64
+
+
+def cell_kernel_phase(lj_end, frames):
+    """Cell-kernel: cell_kernel_check on LJ-bench's end frame (f32), on
+    in.lj at CELL_BIG^3 fcc cells after CELL_MELT NVE steps (f32), and on
+    that frame in float64 (``frames``, as big_lj_frames gives them).
+    Returns {frame: the kernels-line numbers}."""
+    big, big64 = frames
     out = {}
     for frame, system in (
             (f"LJ-bench's end frame, {lj_end.n_atoms:,} atoms, f32", lj_end),
@@ -3141,6 +3175,166 @@ def cell_kernel_phase(dev, lj_end):
             (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
              "f64", big64)):
         out[frame] = cell_kernel_check(f"Cell-kernel ({frame})", system)
+    return out
+
+
+@contextlib.contextmanager
+def table_calls(label, kernel):
+    """Over the block, with nonbonded.TABLE_LAUNCHES set to 0 first, counts
+    the neighbor_forces calls on card coordinates that the dispatch rule
+    admits (lj_table_admits) and refuses, and the autograd engine's
+    calls on card coordinates. Gates after it: every admitted call
+    launched the table kernel once and no refused one launched it; with
+    ``kernel`` True every call was admitted and the engine never ran on
+    the card, with False none was admitted (None: either). Yields the
+    counts."""
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import nonbonded
+    real = (nonbonded.neighbor_forces, nonbonded.neighbor_forces_plain)
+    counts = {"admitted": 0, "refused": 0, "engine": 0}
+
+    def forces(inters, atoms, coords, boundary, neighbors, *args, **kw):
+        if coords.is_cuda:
+            counts["admitted" if nonbonded.lj_table_admits(
+                inters, atoms, coords, boundary, neighbors)
+                else "refused"] += 1
+        return real[0](inters, atoms, coords, boundary, neighbors, *args,
+                       **kw)
+
+    def engine(inters, atoms, coords, *args, **kw):
+        counts["engine"] += int(coords.is_cuda)
+        return real[1](inters, atoms, coords, *args, **kw)
+
+    nonbonded.TABLE_LAUNCHES = 0
+    nonbonded.neighbor_forces = pt.neighbor_forces = forces
+    nonbonded.neighbor_forces_plain = engine
+    try:
+        yield counts
+    finally:
+        nonbonded.neighbor_forces = pt.neighbor_forces = real[0]
+        nonbonded.neighbor_forces_plain = real[1]
+    counts["launches"] = nonbonded.TABLE_LAUNCHES
+    print(f"{label}: table-kernel launches over the phase "
+          f"{counts['launches']} for {counts['admitted']} admitted "
+          f"neighbor_forces calls on the card ({counts['refused']} refused, "
+          f"{counts['engine']} autograd-engine calls on the card)",
+          flush=True)
+    ok = counts["launches"] == counts["admitted"]
+    if kernel is True:
+        ok = ok and counts["admitted"] > 0 and not (counts["refused"]
+                                                    or counts["engine"])
+    elif kernel is False:
+        ok = ok and counts["admitted"] == 0
+    if not ok:
+        raise RuntimeError(f"{label}: the table kernel's launches do not "
+                           "follow the dispatch rule")
+
+
+def table_build():
+    """Build csrc/lj_table.cu; print each instance's registers and spills
+    from ptxas's log (a spill fails the run)."""
+    from mollytpu_torch.ops import native
+    path, secs, log = native.build("lj_table")
+    inst, regs_of, spills = None, {}, []
+    for ln in log.splitlines():
+        m = re.search(r"lj_table_kernelI([fd])Lb([01])ELb([01])E", ln)
+        if "Compiling entry function" in ln and m:
+            inst = m.groups()
+        elif "spill" in ln and inst and re.search(r"[1-9]\d* bytes spill",
+                                                  ln):
+            spills.append(inst)
+        elif "registers" in ln and inst:
+            regs = re.search(r"Used (\d+) registers", ln)
+            regs_of[inst] = regs.group(1) if regs else ln.strip()
+    built = f"built in {secs:.1f} s" if secs else "up to date"
+    print(f"{os.path.relpath(path)}: {built}; registers (type, triclinic, "
+          "virial): " + ", ".join(f"{t} {b} {v}: {r}" for (t, b, v), r in
+                                  sorted(regs_of.items())), flush=True)
+    if len(regs_of) != TABLE_INSTANCES or spills:
+        raise RuntimeError(f"lj_table: {len(regs_of)} instances in the ptxas "
+                           f"log ({TABLE_INSTANCES} expected), spills in "
+                           f"{spills}")
+
+
+def table_kernel_check(label, system):
+    """The table kernel on ``system``'s frame against the autograd engine
+    on the same card tensors, forces-only and with the virial (gated at
+    TOL_TABLE). Times: the kernel's device ms per call (torch.profiler
+    over 25 forces-only calls), the whole call's (CUDA events around 25
+    back-to-back calls), the engine's
+    (median of 25) and the bound of the bytes: the live table slots and
+    the sentinel that ends each row, the coordinates, sigma, epsilon and
+    lambda read once and the forces written once."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.ops import nonbonded
+    x, box, atoms = system.coords, system.boundary, system.atoms
+    inters = system.pairwise_inters
+    nb = pt.find_neighbors(system.neighbor_finder, x, box, system.exclusions)
+    if not nonbonded.lj_table_admits(inters, atoms, x, box, nb):
+        raise RuntimeError(f"{label}: the dispatch rule refuses the frame")
+    errs = {}
+    for virial in (False, True):
+        f, v = nonbonded.neighbor_forces(inters, atoms, x, box, nb,
+                                         needs_virial=virial)
+        f0, v0 = nonbonded.neighbor_forces_plain(inters, atoms, x, box, nb,
+                                                 needs_virial=virial)
+        rms = float(f0.double().pow(2).sum(dim=1).mean().sqrt())
+        errs["forces" if not virial else "forces (virial call)"] = float(
+            (f.double() - f0.double()).abs().max()) / rms
+        if virial:
+            errs["virial"] = float((v.double() - v0.double()).abs().max()) \
+                / float(v0.double().abs().max())
+    del f, v, f0, v0
+
+    def kernel():
+        return nonbonded.lj_table_forces(inters[0], atoms, x, box, nb)
+
+    def engine():
+        return nonbonded.neighbor_forces_plain(inters, atoms, x, box, nb)
+
+    call_ms = burst_ms(kernel)
+    kernel_ms, calls = profiled(kernel, 25, kernel="lj_table_kernel")
+    engine_ms = _time(engine)
+    torch.cuda.empty_cache()
+    n = system.n_atoms
+    live = int((nb.idx < n).sum())
+    size = x.element_size()
+    n_bytes = 4 * (live + n) + n * size * (3 + 2 + (atoms.lam is not None)
+                                           + 3)
+    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    tol = TOL_TABLE[str(x.dtype).split(".")[-1]]
+    print(f"{label}: table kernel against the autograd engine on the same "
+          "card tensors: " + ", ".join(f"{k} {e:.3e}" for k, e in
+                                       errs.items())
+          + f" (limit {tol:g}); {live} live slots of {nb.idx.numel()} (K "
+          f"{nb.idx.shape[1]}); lj_table_kernel {kernel_ms:.4f} ms; the "
+          f"whole call {call_ms:.4f} ms ({calls:g} device calls), the "
+          f"engine {engine_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB over 3.35 TB/s)", flush=True)
+    if not max(errs.values()) <= tol:
+        raise RuntimeError(f"{label}: the table kernel disagrees with the "
+                           "engine")
+    if not kernel_ms > 0.0:
+        raise RuntimeError(f"{label}: the profiler saw no lj_table_kernel")
+    return dict(max_abs_err=max(errs.values()), ms=kernel_ms,
+                call_ms=call_ms, plain_ms=engine_ms, bound_ms=bound_ms,
+                bound_by="bytes")
+
+
+def table_kernel_phase(lj_end, frames):
+    """Table-kernel: table_kernel_check on LJ-bench's end frame (f32) and
+    on the Cell-kernel phase's in.lj at 256,000 atoms (f32 and f64).
+    Returns {frame: the kernels-line numbers}."""
+    big, big64 = frames
+    out = {}
+    for frame, system in (
+            (f"LJ-bench's end frame, {lj_end.n_atoms:,} atoms, f32", lj_end),
+            (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
+             "f32", big),
+            (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
+             "f64", big64)):
+        out[frame] = table_kernel_check(f"Table-kernel ({frame})", system)
     return out
 
 
@@ -5222,17 +5416,30 @@ def main():
             fe = free_energy_phases(pme_end, timed["system"], mask,
                                     runs["PME"]["ms"])
             h_remd = h_remd_phase(timed["system"], mask)
-    with cell_finds("LJ-bench") as finds["LJ-bench"]:
+    table_build()
+    tables = {}
+    with cell_finds("LJ-bench") as finds["LJ-bench"], \
+            table_calls("LJ-bench", True) as tables["LJ-bench"]:
         lj = lj_bench_path(dev, line)
     with cell_finds("CellTiles-LJ") as finds["CellTiles-LJ"]:
         tiles_lj = celltiles_lj_phase(dev, line, lj["cadence"])
-    with cell_finds("MC-LJ") as finds["MC-LJ"]:
+    with cell_finds("MC-LJ") as finds["MC-LJ"], \
+            table_calls("MC-LJ", False) as tables["MC-LJ"]:
         mc = mc_lj_phase(lj["end"])
-    with cell_finds("Gradients") as finds["Gradients"]:
+    # the gradient passes track epsilon and stay on the engine; the central
+    # difference's passes, under no_grad, take the kernel
+    with cell_finds("Gradients") as finds["Gradients"], \
+            table_calls("Gradients", None) as tables["Gradients"]:
         grads = gradient_phase(lj["liquid64"], pme_end)
-    cell_kernel = cell_kernel_phase(dev, lj["end"])
+    if not tables["Gradients"]["refused"]:
+        raise RuntimeError("Gradients: no gradient pass reached the engine")
+    big_frames = big_lj_frames(dev)
+    cell_kernel = cell_kernel_phase(lj["end"], big_frames)
+    table_kernel = table_kernel_phase(lj["end"], big_frames)
+    del big_frames
     forms_phase(dev)
-    dpd_card_phase(dev)
+    with table_calls("DPD", False) as tables["DPD"]:
+        dpd_card_phase(dev)
     with tempfile.TemporaryDirectory() as workdir:
         triangle_kernel = triangle_kernel_phase(dev, workdir)
     paths = [(label, family) for label, _, _, _, family in MAIN_PATHS]
@@ -5367,6 +5574,17 @@ def main():
         **{k: r[k] for k in ("max_abs_err", "ms", "find_ms", "plain_ms",
                              "bound_ms", "bound_by")},
         "library_ms": None} for frame, r in cell_kernel.items()]
+    kernels += [{
+        "name": f"lj_table_kernel (neighbor_forces, Lennard-Jones on the "
+                f"neighbor table) on {frame}", "route": "cuda",
+        "source": "mollytpu_torch/csrc/lj_table.cu",
+        "replaces": "none: XLA, mollytpu/ops/nonbonded.py neighbor_forces",
+        "launches": sum(t["launches"] for t in tables.values()),
+        "launches_by_path": {label: t["launches"]
+                             for label, t in tables.items()},
+        **{k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                             "bound_ms", "bound_by")},
+        "library_ms": None} for frame, r in table_kernel.items()]
     kernels += [{
         "name": f"triangle_{kind}_kernel (SHAKERattle's TRIANGLE bucket, "
                 f"{'SHAKE' if kind == 'shake' else 'RATTLE'}) on {frame}",

@@ -11,13 +11,32 @@ with dr_ij = x_j - x_i (minimum image), and the virial is
 -sum (dU/dr / r) dr (x) dr over pairs. Velocity-dependent interactions
 (DPD) give their pair force through ``force_vec``. Plain PyTorch: the JAX
 engines are XLA, not Pallas.
+
+``neighbor_forces`` dispatches on what it is given: on a CUDA card, a
+LennardJones alone with a DistanceCutoff, Lorentz and geometric mixing,
+in an Orthorhombic or Triclinic box, on float32 or float64 inputs that
+track no gradient (``lj_table_admits``), runs the hand-written kernel
+csrc/lj_table.cu in one launch, counted in ``TABLE_LAUNCHES``; every
+other call runs the autograd engine, ``neighbor_forces_plain``, which is
+also the kernel's twin. There is no fallback between the two.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..boundary import Orthorhombic, Triclinic
 from ..config import atom_tensors, tracks_grad
+from . import native
+from .cutoffs import DistanceCutoff
+from .mixing import GeometricMixing, LorentzMixing
+from .pairwise import LennardJones
+
+#: launches of the Lennard-Jones table kernel (one per neighbor_forces
+#: call it takes) since import
+TABLE_LAUNCHES = 0
 
 
 class _PairView:
@@ -184,10 +203,116 @@ def neighbor_energy(inters, atoms, coords, boundary, neighbors):
     return torch.where(live, e, 0.0).sum()
 
 
+class _TableSpec(ctypes.Structure):
+    """The launcher's spec, field for field csrc/lj_table.cu's
+    TableSpec."""
+
+    _fields_ = [("cutoff", ctypes.c_double),
+                ("weight_special", ctypes.c_double)] + [
+        (name, ctypes.c_int) for name in ("n_atoms", "k_max", "f64",
+                                          "virial", "triclinic")]
+
+
+_TABLE_SIG = {"lj_table_launch": [ctypes.c_void_p] * 12}
+
+
+def lj_table_admits(inters, atoms, coords, boundary, neighbors):
+    """Whether csrc/lj_table.cu computes neighbor_forces on these inputs
+    when they are on a CUDA card: the interactions are one LennardJones
+    (exactly that class) with a DistanceCutoff, LorentzMixing sigma and
+    GeometricMixing epsilon, the box is Orthorhombic (open axes included)
+    or Triclinic with its tensors on the coordinates' device, the table
+    has a column, the coordinates are float32 or float64 and sigma,
+    epsilon and lambda of their type and device, and neither the
+    coordinates, the box nor an atom parameter tracks a gradient."""
+    if neighbors is None or len(inters) != 1 or neighbors.idx.shape[1] == 0:
+        return False
+    (lj,) = inters
+    if (type(lj) is not LennardJones
+            or type(lj.cutoff) is not DistanceCutoff
+            or type(lj.sigma_mixing) is not LorentzMixing
+            or type(lj.epsilon_mixing) is not GeometricMixing
+            or type(boundary) not in (Orthorhombic, Triclinic)
+            or coords.dtype not in (torch.float32, torch.float64)):
+        return False
+    if any(t is not None and (t.dtype != coords.dtype
+                              or t.device != coords.device)
+           for t in (atoms.sigma, atoms.epsilon, atoms.lam)):
+        return False
+    box = ((boundary.basis, boundary.inv) if type(boundary) is Triclinic
+           else (boundary.side_lengths,))
+    if any(t.device != coords.device for t in box):
+        return False
+    return not tracks_grad(coords, *box, *atom_tensors(atoms))
+
+
 def neighbor_forces(inters, atoms, coords, boundary, neighbors,
                     velocities=None, step_n=0, needs_virial=False):
     """Forces (N, 3) and virial (3, 3) over the neighbor table: each listed
-    pair's force goes to its row atom and, scattered, to the other."""
+    pair's force goes to its row atom and, by its reaction, to the other.
+    On the table kernel for CUDA inputs that ``lj_table_admits``, else by
+    ``neighbor_forces_plain``."""
+    if coords.is_cuda and lj_table_admits(inters, atoms, coords, boundary,
+                                          neighbors):
+        return lj_table_forces(inters[0], atoms, coords, boundary, neighbors,
+                               needs_virial)
+    return neighbor_forces_plain(inters, atoms, coords, boundary, neighbors,
+                                 velocities, step_n, needs_virial)
+
+
+def lj_table_forces(lj, atoms, coords, boundary, neighbors,
+                    needs_virial=False):
+    """Forces and virial of ``lj`` over the table by csrc/lj_table.cu, on
+    the current stream of the coordinates' card, with no host read:
+    (forces (N, 3), virial (3, 3)), views of one zeroed buffer the kernel
+    adds to (the virial stays 0 without ``needs_virial``). In float32 the
+    buffer's force rows are padded to 4 (one vector atomic add a pair), so
+    the forces are a strided view."""
+    global TABLE_LAUNCHES
+    n = coords.shape[0]
+    dev, dtype = coords.device, coords.dtype
+    if n >= 2 ** 31 - 1:
+        raise ValueError(f"the table kernel takes fewer than 2^31 - 1 atoms, "
+                         f"got {n}")
+    if neighbors.idx.shape[0] != n:
+        raise ValueError(f"the table has {neighbors.idx.shape[0]} rows for "
+                         f"{n} atoms")
+    idx = neighbors.idx.to(torch.int32).contiguous()
+    weighted = float(lj.weight_special) != 1.0
+    special = neighbors.special.contiguous() if weighted else None
+    box_a, box_b = boundary.mic_tensors(dtype)
+    coords = coords.detach().contiguous()
+    sigma, epsilon, lam = (None if t is None else t.detach().contiguous()
+                           for t in (atoms.sigma, atoms.epsilon, atoms.lam))
+    width = 3 if dtype == torch.float64 else 4
+    out = torch.zeros((width * n + 9,), dtype=dtype, device=dev)
+    spec = _TableSpec(cutoff=float(lj.cutoff.dist_cutoff),
+                      weight_special=float(lj.weight_special), n_atoms=n,
+                      k_max=int(idx.shape[1]),
+                      f64=int(dtype == torch.float64),
+                      virial=int(bool(needs_virial)),
+                      triclinic=int(type(boundary) is Triclinic))
+    lib = native.load("lj_table", _TABLE_SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the launcher launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        err = lib.lj_table_launch(
+            ctypes.addressof(spec), coords.data_ptr(), box_a.data_ptr(),
+            box_b.data_ptr(), sigma.data_ptr(), epsilon.data_ptr(),
+            lam.data_ptr() if lam is not None else None, idx.data_ptr(),
+            special.data_ptr() if weighted else None, out.data_ptr(),
+            out[width * n:].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"lj_table kernel launch failed: CUDA error {err}")
+    TABLE_LAUNCHES += 1
+    return out[:width * n].view(n, width)[:, :3], out[width * n:].view(3, 3)
+
+
+def neighbor_forces_plain(inters, atoms, coords, boundary, neighbors,
+                          velocities=None, step_n=0, needs_virial=False):
+    """neighbor_forces by the autograd engine, for every interaction on any
+    device: each listed pair's force goes to its row atom and, scattered,
+    to the other."""
     n = coords.shape[0]
     forces = torch.zeros_like(coords)
     vir = torch.zeros((3, 3), dtype=coords.dtype, device=coords.device)
