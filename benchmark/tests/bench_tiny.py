@@ -12,7 +12,7 @@ if BENCH not in sys.path:
 
 import harness  # noqa: E402
 
-CELLS = ("lj-bench-256000.nve",)
+CELLS = ("lj-bench-2048000.nve",)
 SEED = 2 ** 31 + 11
 
 

@@ -61,6 +61,36 @@ def test_benchmark_json_keeps_the_contract():
     assert len(json.dumps(bench)) < 64 * 1024
 
 
+def test_the_lj_cell_is_in_lj_at_its_own_scale():
+    """The LJ configurations are in.lj's fcc lattice whole (4 atoms a
+    cell), every configuration keeps a cell, and the metrics list only
+    cells that exist: the host-bound 256,000-atom cell reports its rate
+    and its layers under metrics of its own (``.lj256k``), not under
+    timesteps_per_s's bound, which the card-bound cells set."""
+    bench = harness.load_benchmark()
+    cfgs = [json.load(open(os.path.join(harness.REPO, c["file"])))
+            for c in bench["configs"]]
+    lj = [cfg for cfg in cfgs if cfg["builder"] == "lj_fcc"]
+    assert len(lj) == 2
+    for cfg in lj:
+        assert cfg["n_atoms"] == 4 * cfg["lj"]["n_cells"] ** 3
+    cells = {w["name"] for w in bench["workloads"]}
+    assert {c["name"] for c in bench["configs"]} == {
+        w["config"] for w in bench["workloads"]}
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        listed = set(m.get("workloads", ()))
+        assert listed <= cells, m
+        if m["name"] == "timesteps_per_s" or m["name"].endswith(".lj"):
+            assert listed and "lj-bench-256000.nve" not in listed, m
+        if m["name"].endswith(".lj256k"):
+            assert listed == {"lj-bench-256000.nve"}, m
+    spec = harness.cell_spec(bench, "lj-bench-256000.nve")
+    assert {m["name"] for m in spec["end_to_end"]} == {
+        "timesteps_per_s.lj256k", "setup_s"}
+    assert {m["moves"] for m in spec["per_layer"]} == {
+        "timesteps_per_s.lj256k"}
+
+
 def test_a_new_cell_is_new_files_only(tmp_path):
     """Copy the benchmark, add a cell with its own traffic, protocol,
     limits and per-layer metric, touch no copied file, and find it all."""
@@ -76,19 +106,19 @@ def test_a_new_cell_is_new_files_only(tmp_path):
                 "md-copy.py")
     (root / "metrics" / "chunk_count.py").write_text(
         "def read(run):\n    return run.window['chunks']\n")
-    (root / "workloads" / "lj-bench-256000.nve-long.json").write_text(
+    (root / "workloads" / "lj-bench-2048000.nve-long.json").write_text(
         json.dumps({"limits": {"e_start": 1, "f_end": 1, "x_chunk": 1}}))
-    bench["workloads"].append({"name": "lj-bench-256000.nve-long",
-                               "config": "lj-bench-256000",
+    bench["workloads"].append({"name": "lj-bench-2048000.nve-long",
+                               "config": "lj-bench-2048000",
                                "traffic": "nve-long", "chips": 1,
                                "why": "a test"})
     e2e = {m["name"]: m for m in bench["end_to_end"]}
-    e2e["timesteps_per_s"]["workloads"].append("lj-bench-256000.nve-long")
+    e2e["timesteps_per_s"]["workloads"].append("lj-bench-2048000.nve-long")
     bench["per_layer"].append({"name": "chunk_count", "unit": "chunks",
                                "better": "higher", "source": "host_clock",
                                "layer": "loop", "moves": "timesteps_per_s",
-                               "workloads": ["lj-bench-256000.nve-long"]})
-    spec = harness.cell_spec(bench, "lj-bench-256000.nve-long",
+                               "workloads": ["lj-bench-2048000.nve-long"]})
+    spec = harness.cell_spec(bench, "lj-bench-2048000.nve-long",
                              root=str(root))
     assert spec["traffic"]["chunk_steps"] == 50
     assert [m["name"] for m in spec["end_to_end"]] == ["timesteps_per_s",

@@ -11,7 +11,12 @@ import harness
 import spans
 
 METRICS = ("find_ms.lj", "stale_check_ms.lj", "pairs_ms.lj",
-           "integrate_self_ms.lj", "host_syncs_per_step.lj")
+           "integrate_self_ms.lj", "host_syncs_per_step.lj",
+           "host_step_ms.lj256k")
+#: the span readers of the LJ cell, each with a twin for the 256,000-atom
+#: cell (``.lj256k``)
+TWINS = ("find_ms", "stale_check_ms", "pairs_ms", "integrate_self_ms",
+         "host_syncs_per_step")
 HOST, OTHER = 7, 99
 
 
@@ -145,6 +150,19 @@ def test_the_readers_read_the_reduction():
     assert _read("pairs_ms.lj", run) == pytest.approx(0.020 / 2)
     assert _read("integrate_self_ms.lj", run) == pytest.approx(0.015 / 2)
     assert _read("host_syncs_per_step.lj", run) == pytest.approx(3 / 2)
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_a_256000_atom_cell_reader_reads_as_the_lj_cells(name):
+    run = FakeRun(_reduce())
+    assert _read(name + ".lj256k", run) == _read(name + ".lj", run)
+    assert _read(name + ".lj256k", FakeRun(None)) is None
+
+
+def test_host_step_ms_is_the_host_time_of_a_step():
+    # the two md.step spans last 60 and 6 us on the host
+    run = FakeRun(_reduce())
+    assert _read("host_step_ms.lj256k", run) == pytest.approx(0.066 / 2)
 
 
 @pytest.mark.parametrize("name", METRICS)
