@@ -240,9 +240,10 @@ Phases, each printing one line or more before the next starts:
 
 14. the cell-list kernel (csrc/cell_neighbors.cu), which every
    CellListNeighborFinder.find on the card launches. Over GROMACS-PME,
-   LJ-bench, CellTiles-LJ, MC-LJ and Gradients, neighbors.FIND_LAUNCHES
-   is set to 0 before each and read after it (gates: one launch per find
-   on the card, no call of the twin find_plain there). After Gradients,
+   LJ-bench, CellTiles-LJ, MC-LJ and Gradients,
+   native.LAUNCHES["cell_neighbors"] is set to 0 before each and read
+   after it (gates: one launch per find on the card, no call of the twin
+   find_plain there). After Gradients,
    Cell-kernel: the kernel against find_plain on the same card tensors
    (idx, special and overflow element for element; gated) on LJ-bench's
    end frame and on in.lj at the benchmark cell's 256,000 atoms melted
@@ -251,10 +252,11 @@ Phases, each printing one line or more before the next starts:
 15. the rigid-triangle kernel (csrc/rigid_triangles.cu), which every
    SHAKE / RATTLE of rigid waters on the card launches. Over each main
    path with the phases after it, TIP4P-Ew-PME, GROMACS-PME and
-   FEP-water with the free-energy phases, constraints.TRIANGLE_LAUNCHES
-   is set to 0 before and read after (gate: one launch per call and
-   TRIANGLE bucket). Then Triangle-kernel: SHAKE and RATTLE against the
-   twin (the PyTorch solve) on the same card tensors, on the PME cube's
+   FEP-water with the free-energy phases,
+   native.LAUNCHES["rigid_triangles"] is set to 0 before and read after
+   (gate: one launch per call and TRIANGLE bucket). Then Triangle-kernel:
+   SHAKE and RATTLE against the twin (the PyTorch solve) on the same card
+   tensors, on the PME cube's
    and the PME dodecahedron's start frames (f32) and on GROMACS's water
    benchmark, 512,000 SPC waters laid out from the committed tile as the
    benchmark builds it (f32 and f64): the largest differences in float32
@@ -268,7 +270,7 @@ Phases, each printing one line or more before the next starts:
    launches (a LennardJones alone, DistanceCutoff, Lorentz and geometric
    mixing, an orthorhombic or triclinic box, no gradient tracked). Its build is
    checked for spills before LJ-bench. Over LJ-bench, MC-LJ, Gradients
-   and DPD, nonbonded.TABLE_LAUNCHES is set to 0 before each and read
+   and DPD, native.LAUNCHES["lj_table"] is set to 0 before each and read
    after it; the neighbor_forces calls on the card are counted as the
    rule admits or refuses them. Launch counts, gated: one per admitted
    call and none per refused one on every phase; LJ-bench: every force
@@ -1435,7 +1437,7 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
     ``after_chunk(system, aux)`` after the warm-up and each timed chunk."""
     import torch
     import mollytpu_torch as pt
-    from mollytpu_torch.ops import constraints
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     dev = system.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1444,7 +1446,7 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
     sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
 
     pk.reset_launch_counts()
-    tri0, n_tri = constraints.TRIANGLE_LAUNCHES, triangle_buckets(system)
+    tri0, n_tri = native.LAUNCHES["rigid_triangles"], triangle_buckets(system)
     t0 = time.perf_counter()
     system, nb, aux = pt.simulate(system, sim, CHUNK, generator=gen)
     torch.cuda.synchronize()
@@ -1466,14 +1468,14 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
         step += CHUNK
         if after_chunk is not None:
             after_chunk(system, aux)
-    launches = pk.LAUNCHES
+    launches = native.LAUNCHES["pair_nonbonded"]
     own = pk.INSTANCE_LAUNCHES[family]
     n_evals = 1 + step            # init_aux + one per step
     if launches != n_evals or own != n_evals:
         raise RuntimeError(
             f"{label}: pair kernel launched {launches} times ({own} of "
             f"instance {family}) for {n_evals} force evaluations")
-    tri = constraints.TRIANGLE_LAUNCHES - tri0
+    tri = native.LAUNCHES["rigid_triangles"] - tri0
     print(f"{label}: {tri} rigid-triangle kernel launches for {step} steps "
           f"({tri / step:g} a step, {n_tri} TRIANGLE bucket(s))", flush=True)
     if tri != TRI_PER_STEP * n_tri * step:
@@ -1499,13 +1501,14 @@ def main_path(label, system, n_chunks, family, after_chunk=None):
 def uncounted():
     """Pair-kernel launches inside are not counted: the checks of a kernel
     against its twin in the middle of a main path."""
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
-    saved = (pk.LAUNCHES, pk.INSTANCE_LAUNCHES.copy(),
+    saved = (native.LAUNCHES["pair_nonbonded"], pk.INSTANCE_LAUNCHES.copy(),
              pk.ENERGY_LAUNCHES.copy())
     try:
         yield
     finally:
-        pk.LAUNCHES = saved[0]
+        native.LAUNCHES["pair_nonbonded"] = saved[0]
         for counter, old in zip((pk.INSTANCE_LAUNCHES, pk.ENERGY_LAUNCHES),
                                 saved[1:]):
             counter.clear()
@@ -1525,6 +1528,7 @@ def minimize_phase(system):
     launched the kernel, the list is not stale (the minimizer raises)."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     nb = system.neighbor_finder.find(system.coords, system.boundary,
                                      system.exclusions)
@@ -1537,7 +1541,7 @@ def minimize_phase(system):
         system, nb)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = pk.LAUNCHES
+    launches = native.LAUNCHES["pair_nonbonded"]
     f1, _ = pt.forces_virial(out, nb)
     f_max = float(torch.linalg.vector_norm(f1, dim=1).max())
     e0, e1 = float(info["energy_initial"]), float(info["energy_final"])
@@ -1603,6 +1607,7 @@ def npt_mc(run, line):
     path's state, stale-list and float64 gates."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "NPT-PME (MC)"
     system, nb, gen, step = (run[k] for k in ("system", "nb", "gen", "step"))
@@ -1645,7 +1650,8 @@ def npt_mc(run, line):
     n_steps = step - first
     attempts = sum(1 for s in range(first, step) if s % MC_EVERY == 0)
     state = {k: int(v) for k, v in aux["mc_baro"].items() if k != "scale"}
-    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[NPT_FAMILY]
+    launches = native.LAUNCHES["pair_nonbonded"]
+    own = pk.INSTANCE_LAUNCHES[NPT_FAMILY]
     energy = pk.ENERGY_LAUNCHES[NPT_FAMILY]
     want = 1 + n_steps + 3 * attempts
     if (state["attempted"] != attempts or launches != want or own != want
@@ -1696,6 +1702,7 @@ def npt_crescale(run, line):
     package) rigid water reads ~+13 kbar and the box expands."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "NPT-PME (C-rescale)"
     system, nb, gen, first = (run[k] for k in ("system", "nb", "gen",
@@ -1728,7 +1735,8 @@ def npt_crescale(run, line):
     n_steps = step - first
     ms = 1e3 * (time.perf_counter() - t0) / n_steps
     moves = sum(1 for s in range(first, step) if s % CRESCALE_EVERY == 0)
-    launches, energy = pk.LAUNCHES, pk.ENERGY_LAUNCHES[NPT_FAMILY]
+    launches = native.LAUNCHES["pair_nonbonded"]
+    energy = pk.ENERGY_LAUNCHES[NPT_FAMILY]
     if (launches != 1 + n_steps + moves
             or pk.INSTANCE_LAUNCHES[NPT_FAMILY] != launches
             or energy != 2 * moves):
@@ -2033,6 +2041,7 @@ def mts_path(run, line):
     interval stepped without a host sync."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "MTS-PME"
     system, nb, gen, step = (run[k] for k in ("system", "nb", "gen", "step"))
@@ -2066,7 +2075,8 @@ def mts_path(run, line):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     outer = MTS_WARMUP + MTS_STEPS
-    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[BONDED_FAMILY]
+    launches = native.LAUNCHES["pair_nonbonded"]
+    own = pk.INSTANCE_LAUNCHES[BONDED_FAMILY]
     if (launches != 1 + 2 * outer or own != launches
             or pk.ENERGY_LAUNCHES[BONDED_FAMILY]
             or pme_calls[0] != 1 + outer):
@@ -2289,6 +2299,7 @@ def fep_path(fep, mask):
     FEP_TIMED, MBAR on the card against the CPU, finite free energies."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     dev = fep.device
     sim = pt.Langevin(dt=DT, temperature=TEMP, friction=FRICTION)
@@ -2334,7 +2345,8 @@ def fep_path(fep, mask):
                 DT, ms * 1e-3), sample_ms=1e3 * t_samples / len(samples),
                 system=system, nb=nb, aux=aux, sim=sim, gen=gen, step=step)
     wall = time.perf_counter() - t_start
-    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[FEP_FAMILY]
+    launches = native.LAUNCHES["pair_nonbonded"]
+    own = pk.INSTANCE_LAUNCHES[FEP_FAMILY]
     if launches != n_force + n_energy or own != launches:
         raise RuntimeError(
             f"FEP-water: pair kernel launched {launches} times ({own} of "
@@ -2495,8 +2507,9 @@ def count_launches(label, family, n_force, n_energy):
     """The phase's pair-kernel launches since the counts were set to 0:
     exactly one per force evaluation and one per lambda of each energy
     sweep, all of instance ``family``, the sweeps' with energy."""
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
-    n = pk.LAUNCHES
+    n = native.LAUNCHES["pair_nonbonded"]
     if (n != n_force + n_energy or pk.INSTANCE_LAUNCHES[family] != n
             or pk.ENERGY_LAUNCHES[family] != n_energy):
         raise RuntimeError(
@@ -3048,13 +3061,13 @@ def lj_components(label, system, nb, aux, cadence):
 
 @contextlib.contextmanager
 def cell_finds(label):
-    """Over the block, with neighbors.FIND_LAUNCHES set to 0 first, counts
-    the cell finder's finds on card tensors and its twin's (find_plain)
-    calls on card tensors. Gates after it: every such find launched the
-    cell-list kernel once, and none took the twin. Yields the counts
-    (``launches`` is filled in at the end)."""
+    """Over the block, with native.LAUNCHES["cell_neighbors"] set to 0
+    first, counts the cell finder's finds on card tensors and its twin's
+    (find_plain) calls on card tensors. Gates after it: every such find
+    launched the cell-list kernel once, and none took the twin. Yields the
+    counts (``launches`` is filled in at the end)."""
     import mollytpu_torch as pt
-    from mollytpu_torch.ops import neighbors
+    from mollytpu_torch.ops import native
     cls = pt.CellListNeighborFinder
     real = {name: getattr(cls, name) for name in ("find", "find_plain")}
     counts = {"finds": 0, "twin": 0}
@@ -3065,14 +3078,14 @@ def cell_finds(label):
             return real[name](self, coords, *args, **kw)
         return call
 
-    neighbors.FIND_LAUNCHES = 0
+    native.LAUNCHES["cell_neighbors"] = 0
     cls.find = counting("find", "finds")
     cls.find_plain = counting("find_plain", "twin")
     try:
         yield counts
     finally:
         cls.find, cls.find_plain = real["find"], real["find_plain"]
-    counts["launches"] = neighbors.FIND_LAUNCHES
+    counts["launches"] = native.LAUNCHES["cell_neighbors"]
     print(f"{label}: cell-list kernel launches over the phase "
           f"{counts['launches']} for {counts['finds']} finds on the card, "
           f"{counts['twin']} twin calls on the card", flush=True)
@@ -3180,15 +3193,16 @@ def cell_kernel_phase(lj_end, frames):
 
 @contextlib.contextmanager
 def table_calls(label, kernel):
-    """Over the block, with nonbonded.TABLE_LAUNCHES set to 0 first, counts
-    the neighbor_forces calls on card coordinates that the dispatch rule
-    admits (lj_table_admits) and refuses, and the autograd engine's
+    """Over the block, with native.LAUNCHES["lj_table"] set to 0 first,
+    counts the neighbor_forces calls on card coordinates that the dispatch
+    rule admits (lj_table_admits) and refuses, and the autograd engine's
     calls on card coordinates. Gates after it: every admitted call
     launched the table kernel once and no refused one launched it; with
     ``kernel`` True every call was admitted and the engine never ran on
     the card, with False none was admitted (None: either). Yields the
     counts."""
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import nonbonded
     real = (nonbonded.neighbor_forces, nonbonded.neighbor_forces_plain)
     counts = {"admitted": 0, "refused": 0, "engine": 0}
@@ -3205,7 +3219,7 @@ def table_calls(label, kernel):
         counts["engine"] += int(coords.is_cuda)
         return real[1](inters, atoms, coords, *args, **kw)
 
-    nonbonded.TABLE_LAUNCHES = 0
+    native.LAUNCHES["lj_table"] = 0
     nonbonded.neighbor_forces = pt.neighbor_forces = forces
     nonbonded.neighbor_forces_plain = engine
     try:
@@ -3213,7 +3227,7 @@ def table_calls(label, kernel):
     finally:
         nonbonded.neighbor_forces = pt.neighbor_forces = real[0]
         nonbonded.neighbor_forces_plain = real[1]
-    counts["launches"] = nonbonded.TABLE_LAUNCHES
+    counts["launches"] = native.LAUNCHES["lj_table"]
     print(f"{label}: table-kernel launches over the phase "
           f"{counts['launches']} for {counts['admitted']} admitted "
           f"neighbor_forces calls on the card ({counts['refused']} refused, "
@@ -3348,6 +3362,7 @@ def lj_bench_path(dev, line):
     import torch
     import mollytpu_torch as pt
     from mollytpu_torch.models import ljbench
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "LJ-bench"
     t0 = time.perf_counter()
@@ -3361,7 +3376,7 @@ def lj_bench_path(dev, line):
           f"{f.cell_capacity}, {f.max_neighbors} neighbors per row "
           f"(Poisson mean + 6 sigma); setup "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    k1 = (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES))
+    k1 = (native.LAUNCHES["pair_nonbonded"], dict(pk.INSTANCE_LAUNCHES))
     ref = lattice_energy()
     e0 = {}
     for name, s in (("f32", sys32), ("f64", sys64)):
@@ -3429,7 +3444,7 @@ def lj_bench_path(dev, line):
                                       LJ_RUN + LJ_WARMUP, LJ_TIMED)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / LJ_TIMED
-    if (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES)) != k1:
+    if (native.LAUNCHES["pair_nonbonded"], dict(pk.INSTANCE_LAUNCHES)) != k1:
         raise RuntimeError(f"{label}: the pair kernel was launched")
     n = system.n_atoms
     per_s = 1e3 / ms
@@ -3660,6 +3675,7 @@ def production_phase(run, workdir):
     import numpy as np
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "PME-dodecahedron production"
     sim, system, nb, aux, gen, step = (run[k] for k in (
@@ -3695,7 +3711,8 @@ def production_phase(run, workdir):
     want = PROD_STEPS + 2 * n_fast + refresh
     want_energy = n_virial + 2 * n_fast + refresh
     family = "coul3-triclinic"
-    launches, own = pk.LAUNCHES, pk.INSTANCE_LAUNCHES[family]
+    launches = native.LAUNCHES["pair_nonbonded"]
+    own = pk.INSTANCE_LAUNCHES[family]
     energy = pk.ENERGY_LAUNCHES[family]
     if launches != want or own != want or energy != want_energy:
         raise RuntimeError(
@@ -3772,6 +3789,7 @@ def resume_check(label, sim, system, nb, aux, gen, step, workdir):
     coordinates within TOL_RESUME. Returns the pair-kernel launches."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     path = os.path.join(workdir, "production.npz")
     pt.save_checkpoint(path, system, step, gen, aux=aux)
@@ -3786,14 +3804,15 @@ def resume_check(label, sim, system, nb, aux, gen, step, workdir):
     back, _, _ = pt.simulate(loaded, sim, RESUME_STEPS, generator=gen2,
                              aux=extra["aux"], init_step=step_n)
     dx = float((back.coords - full.coords).abs().max())
-    if pk.LAUNCHES != 2 * RESUME_STEPS or not dx <= TOL_RESUME:
+    launches = native.LAUNCHES["pair_nonbonded"]
+    if launches != 2 * RESUME_STEPS or not dx <= TOL_RESUME:
         raise RuntimeError(f"{label}: resumed coordinates {dx} nm from the "
-                           f"uninterrupted run's, {pk.LAUNCHES} launches")
+                           f"uninterrupted run's, {launches} launches")
     print(f"{label}: checkpoint at step {step}, generator state identical "
           f"after the load ({state.numel()} bytes); {RESUME_STEPS} resumed "
           f"steps within {dx:.3e} nm of {RESUME_STEPS} uninterrupted ones",
           flush=True)
-    return pk.LAUNCHES
+    return native.LAUNCHES["pair_nonbonded"]
 
 
 def integrators_phase(run):
@@ -3803,6 +3822,7 @@ def integrators_phase(run):
     ms/step on the host clock. Returns the launches."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     system, gen, step = run["system"], run["gen"], run["step"]
     sims = {
@@ -3826,8 +3846,9 @@ def integrators_phase(run):
         ms = 1e3 * (time.perf_counter() - t0) / INTEGRATOR_STEPS
         want = 1 + INTEGRATOR_STEPS
         own = pk.INSTANCE_LAUNCHES["coul3-triclinic"]
-        if pk.LAUNCHES != want or own != want:
-            raise RuntimeError(f"integrators phase, {name}: {pk.LAUNCHES} "
+        launches = native.LAUNCHES["pair_nonbonded"]
+        if launches != want or own != want:
+            raise RuntimeError(f"integrators phase, {name}: {launches} "
                                f"pair-kernel launches for {want} force "
                                "evaluations")
         temp, viol = check_state(f"integrators phase, {name}", out)
@@ -3835,7 +3856,7 @@ def integrators_phase(run):
                  if "nh_zeta" in aux else "")
         print(f"integrators phase, {name}: {INTEGRATOR_STEPS} steps, "
               f"{ms:.4f} ms/step (setup of the list and first forces "
-              f"included), {pk.LAUNCHES} launches; T {temp:.2f} K, "
+              f"included), {launches} launches; T {temp:.2f} K, "
               f"constraint violation {viol:.3e} nm{extra}", flush=True)
         total += own
     return total
@@ -4004,7 +4025,7 @@ def gromacs_path(dev, workdir, line):
     system_from_pdb's on the same coordinates; GMX_STEPS Langevin steps."""
     import torch
     import mollytpu_torch as pt
-    from mollytpu_torch.ops import pair_kernel as pk
+    from mollytpu_torch.ops import native
     label = "GROMACS-PME"
     t0 = time.perf_counter()
     pdb = pt.water_box_pdb(os.path.join(workdir, "water-gmx.pdb"), N_WATERS,
@@ -4027,7 +4048,7 @@ def gromacs_path(dev, workdir, line):
     x, box = system.coords, system.boundary
     nb_g = system.neighbor_finder.find(x, box, system.exclusions)
     nb_p = own.neighbor_finder.find(x, box, own.exclusions)
-    launches0 = pk.LAUNCHES
+    launches0 = native.LAUNCHES["pair_nonbonded"]
     f_g = pt.forces_virial(system.update(general_inters=()), nb_g)[0]
     with uncounted():
         f_p = pt.forces_virial(own.update(general_inters=()), nb_p)[0]
@@ -4067,7 +4088,7 @@ def gromacs_path(dev, workdir, line):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / GMX_STEPS
     temp, viol = check_state(label, out)
-    if pk.LAUNCHES != launches0:
+    if native.LAUNCHES["pair_nonbonded"] != launches0:
         raise RuntimeError(f"{label}: the pair kernel was launched")
     cadence = system.neighbor_finder.n_steps
     print(f"{label}: {GMX_STEPS} steps (list radius "
@@ -4487,6 +4508,7 @@ def mc_lj_phase(end):
     table not stale at the end (MetropolisMonteCarlo raises)."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     from mollytpu_torch.sim.simulate import list_check, list_cutoff
     label = "MC-LJ"
@@ -4496,7 +4518,7 @@ def mc_lj_phase(end):
     mc = pt.MetropolisMonteCarlo(
         temperature=temp, trial_move=pt.random_normal_translation(MC_SHIFT))
     gen = torch.Generator(device=end.device).manual_seed(SEED + 800)
-    k1 = (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES))
+    k1 = (native.LAUNCHES["pair_nonbonded"], dict(pk.INSTANCE_LAUNCHES))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, info = mc.simulate(end, MC_MOVES, generator=gen, neighbors=nb)
@@ -4517,7 +4539,7 @@ def mc_lj_phase(end):
     print(line, flush=True)
     if not (0.05 < rate <= 1.0) or rel > TOL_MC_ENERGY:
         raise RuntimeError(line)
-    if (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES)) != k1:
+    if (native.LAUNCHES["pair_nonbonded"], dict(pk.INSTANCE_LAUNCHES)) != k1:
         raise RuntimeError(f"{label}: the pair kernel was launched")
     return dict(ms=1e3 * wall / MC_MOVES, rate=rate)
 
@@ -4533,7 +4555,7 @@ def gradient_phase(start64, pme_end):
     import torch
     import mollytpu_torch as pt
     from mollytpu_torch.models import ljbench
-    from mollytpu_torch.ops import pair_kernel as pk
+    from mollytpu_torch.ops import native
     label = "Gradients"
     sim = ljbench.lj_bench_integrator()
     n = start64.n_atoms
@@ -4582,7 +4604,7 @@ def gradient_phase(start64, pme_end):
     nb = pt.find_neighbors(pme_end.neighbor_finder, pme_end.coords,
                            pme_end.boundary, pme_end.exclusions)
     x = pme_end.coords.clone().requires_grad_(True)
-    k1 = pk.LAUNCHES
+    k1 = native.LAUNCHES["pair_nonbonded"]
     try:
         pt.forces(pme_end.update(coords=x), nb)
     except NotImplementedError as err:
@@ -4591,7 +4613,7 @@ def gradient_phase(start64, pme_end):
     else:
         raise RuntimeError(f"{label}: a gradient through the pair kernel "
                            "did not raise")
-    if pk.LAUNCHES != k1:
+    if native.LAUNCHES["pair_nonbonded"] != k1:
         raise RuntimeError(f"{label}: the refused call launched the kernel")
     return dict(peaks=peaks, rel=rel, secs=secs)
 
@@ -4749,6 +4771,7 @@ def celltiles_pme_phase(system, line):
     of the run."""
     import torch
     import mollytpu_torch as pt
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "CellTiles-PME"
     ts = tile_system(system, LIST_RADIUS, CADENCE)
@@ -4841,9 +4864,10 @@ def celltiles_pme_phase(system, line):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / TILE_STEPS
     run_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    if pk.LAUNCHES:
+    launches = native.LAUNCHES["pair_nonbonded"]
+    if launches:
         raise RuntimeError(f"{label}: the pair kernel was launched "
-                           f"{pk.LAUNCHES} times")
+                           f"{launches} times")
     temp, viol = check_state(label, ts)
     step = TILE_WARMUP + TILE_STEPS
     print(f"card: {line}; {label}: {step} Langevin steps, rebuild every "
@@ -4872,6 +4896,7 @@ def celltiles_lj_phase(dev, line, cadence):
     import torch
     import mollytpu_torch as pt
     from mollytpu_torch.models import ljbench
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "CellTiles-LJ"
     cells = ljbench.lj_bench_system(LJ_CELLS, torch.float32, dev, SEED)
@@ -4880,7 +4905,7 @@ def celltiles_lj_phase(dev, line, cadence):
     tiled = tile_system(cells, ljbench.CUTOFF + ljbench.SKIN, cadence)
     n = tiled.n_atoms
     slots = describe_tiles(label, tiled.neighbor_finder, n)
-    k1 = (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES))
+    k1 = (native.LAUNCHES["pair_nonbonded"], dict(pk.INSTANCE_LAUNCHES))
     tiles = tiled.neighbor_finder.find(tiled.coords, tiled.boundary,
                                        tiled.exclusions)
     e0 = float(pt.potential_energy(tiled, tiles)) / n / ljbench.EPSILON
@@ -4915,7 +4940,7 @@ def celltiles_lj_phase(dev, line, cadence):
     end, nb_t, ms, drift = nve(tiled)
     run_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     _, _, ms_cell, drift_cell = nve(cells)
-    if (pk.LAUNCHES, dict(pk.INSTANCE_LAUNCHES)) != k1:
+    if (native.LAUNCHES["pair_nonbonded"], dict(pk.INSTANCE_LAUNCHES)) != k1:
         raise RuntimeError(f"{label}: the pair kernel was launched")
     temp = float(pt.temperature(end.masses, end.velocities, end.n_dof))
     if not bool(torch.isfinite(end.coords).all()) or not temp < 1000.0:
@@ -4999,6 +5024,7 @@ def tuner_phase(system):
     (the in-process cache cleared; a second timing would raise)."""
     import torch
     from mollytpu_torch.ops import autotune
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import pair_kernel as pk
     label = "Tuner"
     saved = os.environ.get("MOLLYTPU_CACHE_DIR")
@@ -5015,7 +5041,7 @@ def tuner_phase(system):
             cfg = autotune.tune_launch(*args, verbose=True, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = pk.LAUNCHES
+            launches = native.LAUNCHES["pair_nonbonded"]
             autotune._MEM_CACHE.clear()
 
             def timed_again(skin, cadence):
@@ -5052,13 +5078,14 @@ def triangle_buckets(system):
 
 @contextlib.contextmanager
 def triangle_solves(label):
-    """Over the block, with constraints.TRIANGLE_LAUNCHES set to 0 first,
+    """Over the block, with native.LAUNCHES["rigid_triangles"] set to 0 first,
     counts SHAKE / RATTLE calls on card tensors by solvers with a TRIANGLE
     bucket, and the launches each should make (``shake``, ``rattle``: one
     per bucket). Gates after it: the kernel launched that often, and there
     was a call. Yields the counts (``launches`` is filled in at the
     end)."""
     from mollytpu_torch.ops import constraints
+    from mollytpu_torch.ops import native
     cls = constraints.SHAKERattle
     names = ("apply_position_constraints", "apply_velocity_constraints")
     real = {name: getattr(cls, name) for name in names}
@@ -5073,7 +5100,7 @@ def triangle_solves(label):
             return real[name](self, coords, *args, **kw)
         return call
 
-    constraints.TRIANGLE_LAUNCHES = 0
+    native.LAUNCHES["rigid_triangles"] = 0
     for name, kind in zip(names, ("shake", "rattle")):
         setattr(cls, name, counting(name, kind))
     try:
@@ -5081,7 +5108,7 @@ def triangle_solves(label):
     finally:
         for name in names:
             setattr(cls, name, real[name])
-    counts["launches"] = constraints.TRIANGLE_LAUNCHES
+    counts["launches"] = native.LAUNCHES["rigid_triangles"]
     print(f"{label}: rigid-triangle kernel launches over the phase "
           f"{counts['launches']} for {counts['calls']} SHAKE / RATTLE calls "
           f"on the card ({counts['shake']} SHAKE, {counts['rattle']} "
@@ -5114,6 +5141,7 @@ def triangle_kernel_check(label, system, dtype):
     writes 9 velocities."""
     import torch
     from mollytpu_torch.ops import constraints
+    from mollytpu_torch.ops import native
     (c,) = system.constraints
     box, dev = system.boundary, system.coords.device
     x = system.coords.to(dtype)
@@ -5137,9 +5165,9 @@ def triangle_kernel_check(label, system, dtype):
         finally:
             constraints._on_kernel = real
 
-    before = constraints.TRIANGLE_LAUNCHES
+    before = native.LAUNCHES["rigid_triangles"]
     (xs, vs), v_r = shake(), rattle()
-    launches = constraints.TRIANGLE_LAUNCHES - before
+    launches = native.LAUNCHES["rigid_triangles"] - before
     (xs_t, vs_t), v_r_t = twin(shake), twin(rattle)
     ulp_x, ulp_v = _ulp32(moved), _ulp32(vels)
     err = {"SHAKE x": float((xs - xs_t).abs().max()),

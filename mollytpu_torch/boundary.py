@@ -331,6 +331,19 @@ def mic(row, dx, dy, dz):
     return dx, dy, dz
 
 
+def pair_geometry(coords, boundary, js=None):
+    """Per-component minimum image dr[d][i, c] = x_j - x_i by the box's
+    ``mic_parts``, and r^2 = dx^2 + dy^2 + dz^2 in that order, over all j
+    (js None: (N, N)) or the table columns js (N, K) of each row atom."""
+    comps = [coords[:, k] for k in range(coords.shape[1])]
+    if js is None:
+        diffs = tuple(c[None, :] - c[:, None] for c in comps)
+    else:
+        diffs = tuple(c[js] - c[:, None] for c in comps)
+    drs = boundary.mic_parts(diffs)
+    return drs, drs[0] * drs[0] + drs[1] * drs[1] + drs[2] * drs[2]
+
+
 def mic_displacement(boundary, xi, xj):
     """The pair kernel's minimum-image vector from xi to xj, (..., 3)."""
     dr = xj - xi

@@ -37,12 +37,10 @@
 //   excess over K goes to an atomicMax, the cell's excess over its capacity
 //   to an atomicAdd.
 // - Rounding follows the twin's PyTorch ops one by one: x_j - x_i, then
-//   d - rint(d / safe) * mult per axis in an orthorhombic box (true
-//   division, half-to-even), or the fractional-rounding form of
-//   Triclinic.mic_parts, then (dx dx + dy dy) + dz dz, each operation
-//   rounded on its own (the _rn intrinsics: no FMA contraction), against
-//   the squared cutoff rounded to the working type. So a pair at the
-//   cutoff lands on the twin's side, and the tables agree element for
+//   the box's mic_parts (mic.cuh), then (dx dx + dy dy) + dz dz, each
+//   operation rounded on its own (the _rn intrinsics: no FMA contraction),
+//   against the squared cutoff rounded to the working type. So a pair at
+//   the cutoff lands on the twin's side, and the tables agree element for
 //   element. The one shortcut gives the same bits: an axis with |d| below
 //   a quarter of the side skips its division, whose quotient would round
 //   to 0 (most pairs in a box many cells wide).
@@ -55,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mic.cuh"
 
 namespace {
 
@@ -79,60 +79,11 @@ struct FindSpec {
   int spec_w;    // 1-4 table width, 0: no 1-4 test
 };
 
-// each operation rounded on its own, as PyTorch's elementwise ops round
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float rnd(float a) { return rintf(a); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ double rnd(double a) { return rint(a); }
-
 __device__ __forceinline__ bool member(const int* __restrict__ row, int w,
                                        int j) {
   for (int k = 0; k < w; ++k)
     if (__ldg(row + k) == j) return true;
   return false;
-}
-
-// d - rint(d / safe) * mult; where |d| < safe / 4 (``quarter``) the
-// quotient rounds below 1/2, so rint gives 0 and the result is d: the
-// division, the costliest step of the candidate test, runs only for the
-// pairs that may cross the box
-template <typename T>
-__device__ __forceinline__ T mic_axis(T d, T safe, T mult, T quarter) {
-  if (fabs(d) < quarter) return d;
-  return sub(d, mul(rnd(div(d, safe)), mult));
-}
-
-// minimum image of (dx, dy, dz) as the box's mic_parts computes it; box
-// holds (safe, mult, safe / 4) of an orthorhombic box, (inv, basis) of a
-// triclinic one (row-major 3 x 3)
-template <typename T, bool kTri>
-__device__ __forceinline__ void mic(T& dx, T& dy, T& dz, const T* box) {
-  if (!kTri) {
-    dx = mic_axis(dx, box[0], box[3], box[6]);
-    dy = mic_axis(dy, box[1], box[4], box[7]);
-    dz = mic_axis(dz, box[2], box[5], box[8]);
-  } else {
-    const T* a = box;
-    const T* b = box + 9;
-    T f[3];
-    for (int k = 0; k < 3; ++k) {
-      f[k] = add(add(mul(dx, a[k]), mul(dy, a[3 + k])), mul(dz, a[6 + k]));
-      f[k] = sub(f[k], rnd(f[k]));
-    }
-    T d[3];
-    for (int k = 0; k < 3; ++k)
-      d[k] = add(add(mul(f[0], b[k]), mul(f[1], b[3 + k])),
-                 mul(f[2], b[6 + k]));
-    dx = d[0];
-    dy = d[1];
-    dz = d[2];
-  }
 }
 
 template <typename T, bool kTri>

@@ -59,14 +59,14 @@
 //   A zero sigma, epsilon or lambda on either atom means no interaction
 //   (pairwise._lj_shortcut); weight_special scales the 1-4 pairs' force.
 // - The box reaches the kernel as the device buffers of its mic_tensors,
-//   and the minimum image is its mic_parts, operation for operation: in an
-//   Orthorhombic box d - rint(d / safe) * mult per axis, an open axis
-//   having safe 1 and mult 0; in a Triclinic one (a template flag) the
-//   fractional rounding f = d inv, f - rint(f), (f - rint(f)) basis, with
-//   inv and basis row-major 3 x 3. Nothing is copied from the host.
+//   and the minimum image is its mic_parts, operation for operation
+//   (mic.cuh; a Triclinic box is a template flag). Nothing is copied from
+//   the host.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mic.cuh"
 
 namespace {
 
@@ -85,78 +85,6 @@ struct TableSpec {
   int virial;             // add the virial to virial[9]
   int triclinic;          // box_a, box_b are (inv, basis), else (safe, mult)
 };
-
-// the geometry rounds each operation on its own, as PyTorch's elementwise
-// ops round (the _rn intrinsics: no FMA contraction), so that r, and the
-// cutoff test on it, are the autograd engine's to the bit
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float rnd(float a) { return rintf(a); }
-__device__ __forceinline__ float root(float a) { return sqrtf(a); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ double rnd(double a) { return rint(a); }
-__device__ __forceinline__ double root(double a) { return sqrt(a); }
-
-// d - rint(d / safe) * mult; where |d| < safe / 4 the quotient rounds
-// below 1/2, so rint gives 0 and the result is d: the division runs only
-// for the pairs that may cross the box
-template <typename T>
-__device__ __forceinline__ T mic_axis(T d, T safe, T mult, T quarter) {
-  if (fabs(d) < quarter) return d;
-  return sub(d, mul(rnd(div(d, safe)), mult));
-}
-
-// the box in registers: (safe, mult, safe / 4) of an orthorhombic box,
-// (inv, basis) of a triclinic one (row-major 3 x 3), from its mic_tensors
-template <typename T, bool kTri>
-__device__ __forceinline__ void load_box(T* box, const T* __restrict__ a,
-                                         const T* __restrict__ b) {
-  if (!kTri) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      box[k] = __ldg(a + k);
-      box[3 + k] = __ldg(b + k);
-      box[6 + k] = mul(box[k], T(0.25));
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      box[k] = __ldg(a + k);
-      box[9 + k] = __ldg(b + k);
-    }
-  }
-}
-
-// minimum image of (dx, dy, dz) as the box's mic_parts computes it
-template <typename T, bool kTri>
-__device__ __forceinline__ void mic(T& dx, T& dy, T& dz, const T* box) {
-  if (!kTri) {
-    dx = mic_axis(dx, box[0], box[3], box[6]);
-    dy = mic_axis(dy, box[1], box[4], box[7]);
-    dz = mic_axis(dz, box[2], box[5], box[8]);
-    return;
-  }
-  const T* a = box;
-  const T* b = box + 9;
-  T f[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    f[k] = add(add(mul(dx, a[k]), mul(dy, a[3 + k])), mul(dz, a[6 + k]));
-    f[k] = sub(f[k], rnd(f[k]));
-  }
-  T d[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    d[k] = add(add(mul(f[0], b[k]), mul(f[1], b[3 + k])), mul(f[2], b[6 + k]));
-  dx = d[0];
-  dy = d[1];
-  dz = d[2];
-}
 
 // a force added to row j of the accumulator: float32 rows are padded to 4
 // floats and take one vector atomic add (float4, sm_90), float64 rows three

@@ -23,17 +23,19 @@
 // Rounding: the same operations as the PyTorch solve in the same order
 // where it is written term by term (the cofactor solve, the Newton
 // update); dot products and the moves' sums are accumulated in the order
-// the PyTorch code adds them. The minimum image is the box's displacement
-// (boundary.mic_tensors gives a and b): in an orthorhombic box d -
-// rint(d / a) * b per axis (a the side, b the side or 0 on an open axis);
-// in a triclinic one the fractional rounding f = d inv, d' = (f - rint(f))
-// basis (a = inv, b = basis, row-major 3 x 3), which is the shortest image
-// for a triangle's sides, far shorter than half the box's smallest width
-// (so also where the box searches the 27 images, approx_images=False).
+// the PyTorch code adds them. The minimum image is mic.cuh's, the box's
+// mic_parts over its mic_tensors: in an orthorhombic box it is the
+// displacement's to the bit; in a triclinic one the displacement sums the
+// fractional products by matrix products, so the last bits may differ. It
+// is the shortest image for a triangle's sides, far shorter than half the
+// box's smallest width (so also where the box searches the 27 images,
+// approx_images=False).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mic.cuh"
 
 namespace {
 
@@ -54,28 +56,13 @@ __device__ __forceinline__ T dot(const V3<T>& a, const V3<T>& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z;
 }
 
-// x_i - x_j by the minimum image: of an orthorhombic box (a, b (3,)) or of
-// a triclinic one (kTri: a the basis's inverse, b the basis, row-major)
+// x_i - x_j by the minimum image over the box as load_box lays it out
 template <typename T, bool kTri>
-__device__ __forceinline__ V3<T> mic(const V3<T>& xi, const V3<T>& xj,
-                                     const T* __restrict__ a,
-                                     const T* __restrict__ b) {
-  V3<T> d{xi.x - xj.x, xi.y - xj.y, xi.z - xj.z};
-  if (!kTri) {
-    d.x -= rint(d.x / a[0]) * b[0];
-    d.y -= rint(d.y / a[1]) * b[1];
-    d.z -= rint(d.z / a[2]) * b[2];
-    return d;
-  }
-  T f[3];
-  #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    f[k] = d.x * a[k] + d.y * a[3 + k] + d.z * a[6 + k];
-    f[k] -= rint(f[k]);
-  }
-  return {f[0] * b[0] + f[1] * b[3] + f[2] * b[6],
-          f[0] * b[1] + f[1] * b[4] + f[2] * b[7],
-          f[0] * b[2] + f[1] * b[5] + f[2] * b[8]};
+__device__ __forceinline__ V3<T> image(const V3<T>& xi, const V3<T>& xj,
+                                       const T* box) {
+  V3<T> d{sub(xi.x, xj.x), sub(xi.y, xj.y), sub(xi.z, xj.z)};
+  mic<T, kTri>(d.x, d.y, d.z, box);
+  return d;
 }
 
 template <typename T>
@@ -136,12 +123,14 @@ __global__ void triangle_shake_kernel(
     im[s] = inv_mass(masses, at[s]);
     d0[s] = dists[3 * c + s];
   }
+  T box[18];
+  load_box<T, kTri>(box, box_a, box_b);
   V3<T> rref[3], drs[3];
   T cst[3][3];
   #pragma unroll
   for (int s = 0; s < 3; ++s) {
-    rref[s] = mic<T, kTri>(p0[pi(s)], p0[pj(s)], box_a, box_b);
-    drs[s] = mic<T, kTri>(p1[pi(s)], p1[pj(s)], box_a, box_b);
+    rref[s] = image<T, kTri>(p0[pi(s)], p0[pj(s)], box);
+    drs[s] = image<T, kTri>(p1[pi(s)], p1[pj(s)], box);
   }
   #pragma unroll
   for (int s = 0; s < 3; ++s)
@@ -215,11 +204,13 @@ __global__ void triangle_rattle_kernel(
     v[s] = load3(v_in, at[s]);
     im[s] = inv_mass(masses, at[s]);
   }
+  T box[18];
+  load_box<T, kTri>(box, box_a, box_b);
   V3<T> drs[3];
   T r[3], C[3][3], ks[3];
   #pragma unroll
   for (int s = 0; s < 3; ++s) {
-    drs[s] = mic<T, kTri>(p[pi(s)], p[pj(s)], box_a, box_b);
+    drs[s] = image<T, kTri>(p[pi(s)], p[pj(s)], box);
     const V3<T> dv{v[pi(s)].x - v[pj(s)].x, v[pi(s)].y - v[pj(s)].y,
                    v[pi(s)].z - v[pj(s)].z};
     r[s] = dot(dv, drs[s]);

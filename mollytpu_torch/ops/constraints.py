@@ -23,7 +23,7 @@ walk.
 On a CUDA card a TRIANGLE bucket (rigid water), in any box, is solved by
 ``csrc/rigid_triangles.cu``, one thread per triangle running the same
 Newton iterations and closed-form solves in one launch a call
-(``TRIANGLE_LAUNCHES`` counts them); coordinates on the card in another
+(``native.LAUNCHES`` counts them); coordinates on the card in another
 type than float32 or float64 raise. Every other bucket, and every bucket
 on the CPU, takes the PyTorch solve, which is the kernel's twin.
 
@@ -60,9 +60,6 @@ def _count(kind, sweeps):
     SWEEPS[kind + "_sweeps"] += sweeps
 
 
-#: launches of csrc/rigid_triangles.cu's kernels, counted on the host
-TRIANGLE_LAUNCHES = 0
-
 _SIG = {"triangle_shake_launch": [ctypes.c_void_p] * 8 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p],
@@ -78,23 +75,13 @@ def _on_kernel(bucket, x):
 
 def _triangle_launch(fn, *args, x, boundary):
     """Launch ``fn`` of csrc/rigid_triangles.cu on the current stream of
-    x's device in ``boundary``'s box (the args hold its ``mic_tensors``);
-    tensors go by their data pointers (None stays null)."""
-    global TRIANGLE_LAUNCHES
+    x's device in ``boundary``'s box (the args hold its ``mic_tensors``)."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError("the rigid-triangle kernel takes float32 or float64 "
                         f"coordinates, not {x.dtype}")
-    lib = native.load("rigid_triangles", _SIG)
-    tri = int(getattr(boundary, "basis", None) is not None)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    with torch.cuda.device(x.device):
-        err = getattr(lib, fn)(*ptrs, tri, int(x.dtype == torch.float64),
-                               torch.cuda.current_stream(x.device)
-                               .cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} failed: CUDA error {err}")
-    TRIANGLE_LAUNCHES += 1
+    native.launch("rigid_triangles", fn, _SIG, *args,
+                  int(getattr(boundary, "basis", None) is not None),
+                  int(x.dtype == torch.float64), device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)

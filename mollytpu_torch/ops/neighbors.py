@@ -22,8 +22,8 @@ scalar; the simulation loop reads it at the end of a chunk and raises.
 coordinates: CPU tensors go to ``find_plain``, the plain PyTorch twin;
 CUDA tensors to the hand-written kernel csrc/cell_neighbors.cu, which
 gives the twin's table element for element without the (N, 27 x capacity)
-candidate tensors and counts its launches in ``FIND_LAUNCHES``. There is
-no fallback between the two.
+candidate tensors and counts its launches in ``native.LAUNCHES``. There
+is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -35,10 +35,8 @@ import math
 import numpy as np
 import torch
 
+from ..boundary import pair_geometry
 from . import native
-
-#: launches of the cell-list kernel (one per CUDA find) since import
-FIND_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,15 +98,6 @@ def _compact_rows(cand_j, valid, special, k_max, n_atoms):
             spec.view(n, k_max + 1)[:, :k_max].contiguous(), overflow)
 
 
-def _sq_distances(coords, boundary, js):
-    """Minimum-image r^2 from each row atom to js, component by component
-    in JAX's order (mic_parts, then x^2 + y^2 + z^2)."""
-    dx, dy, dz = boundary.mic_parts(tuple(coords[:, k][js]
-                                          - coords[:, k][:, None]
-                                          for k in range(3)))
-    return dx * dx + dy * dy + dz * dz
-
-
 @dataclasses.dataclass(frozen=True)
 class NoNeighborFinder:
     """All pairs interact at every step: no table, the dense engine."""
@@ -133,7 +122,7 @@ class DistanceNeighborFinder:
         n = coords.shape[0]
         js = torch.arange(n, device=coords.device)
         jj = js[None, :].expand(n, n)
-        d2 = _sq_distances(coords, boundary, jj)
+        _, d2 = pair_geometry(coords, boundary, jj)
         valid = _owned(js[:, None], jj) & (d2 < self.dist_cutoff ** 2)
         excl, spec = _pair_flags(exclusions, jj)
         idx, special, overflow = _compact_rows(
@@ -269,7 +258,7 @@ class CellListNeighborFinder:
         js = table[ncid.reshape(-1)].view(n, m * cap)
 
         safe_j = torch.clamp(js, max=n - 1)
-        d2 = _sq_distances(coords, boundary, safe_j)
+        _, d2 = pair_geometry(coords, boundary, safe_j)
         ii = arange[:, None]
         in_range = (js < n) & _owned(ii, js) & (d2 < self.dist_cutoff ** 2)
         excl, spec = _pair_flags(exclusions, safe_j)
@@ -324,7 +313,6 @@ def _find_cuda(finder, coords, boundary, exclusions, step_n):
     (_cells) and sorted stably by cell in PyTorch, and the table written
     whole by csrc/cell_neighbors.cu's cell_neighbors_kernel, on the
     current stream, with no host read."""
-    global FIND_LAUNCHES
     n = coords.shape[0]
     dev = coords.device
     dtype = coords.dtype
@@ -367,20 +355,9 @@ def _find_cuda(finder, coords, boundary, exclusions, step_n):
     idx = torch.empty((n, k_max), dtype=torch.int32, device=dev)
     special = torch.empty((n, k_max), dtype=torch.bool, device=dev)
     over = torch.zeros((2,), dtype=torch.int32, device=dev)
-    lib = native.load("cell_neighbors", _SIG)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # the launcher launches on the calling thread's current device
-    with torch.cuda.device(dev):
-        err = lib.cell_neighbors_launch(
-            ctypes.addressof(spec), coords.data_ptr(), box_a.data_ptr(),
-            box_b.data_ptr(), order.data_ptr(), start.data_ptr(),
-            excl.data_ptr() if excl_w else None,
-            spec_t.data_ptr() if spec_w else None, idx.data_ptr(),
-            special.data_ptr(), over.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"cell_neighbors kernel launch failed: CUDA "
-                           f"error {err}")
-    FIND_LAUNCHES += 1
+    native.launch("cell_neighbors", "cell_neighbors_launch", _SIG, spec,
+                  coords, box_a, box_b, order, start, excl, spec_t, idx,
+                  special, over, device=dev)
     return Neighbors(idx, special, over.sum(dtype=torch.int32), int(step_n))
 
 

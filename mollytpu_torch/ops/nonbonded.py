@@ -16,7 +16,7 @@ engines are XLA, not Pallas.
 LennardJones alone with a DistanceCutoff, Lorentz and geometric mixing,
 in an Orthorhombic or Triclinic box, on float32 or float64 inputs that
 track no gradient (``lj_table_admits``), runs the hand-written kernel
-csrc/lj_table.cu in one launch, counted in ``TABLE_LAUNCHES``; every
+csrc/lj_table.cu in one launch, counted in ``native.LAUNCHES``; every
 other call runs the autograd engine, ``neighbor_forces_plain``, which is
 also the kernel's twin. There is no fallback between the two.
 """
@@ -27,16 +27,12 @@ import ctypes
 
 import torch
 
-from ..boundary import Orthorhombic, Triclinic
+from ..boundary import Orthorhombic, Triclinic, pair_geometry
 from ..config import atom_tensors, tracks_grad
 from . import native
 from .cutoffs import DistanceCutoff
 from .mixing import GeometricMixing, LorentzMixing
 from .pairwise import LennardJones
-
-#: launches of the Lennard-Jones table kernel (one per neighbor_forces
-#: call it takes) since import
-TABLE_LAUNCHES = 0
 
 
 class _PairView:
@@ -102,18 +98,6 @@ def dense_pair_mask(n_atoms, exclusions, device=None):
     return mask
 
 
-def _geometry(coords, boundary, js=None):
-    """Per-component minimum-image dr[d][i, c] = x_j - x_i and r^2, over
-    all j (js None: (N, N)) or the table columns js (N, K)."""
-    comps = [coords[:, k] for k in range(coords.shape[1])]
-    if js is None:
-        diffs = tuple(c[None, :] - c[:, None] for c in comps)
-    else:
-        diffs = tuple(c[js] - c[:, None] for c in comps)
-    drs = boundary.mic_parts(diffs)
-    return drs, drs[0] * drs[0] + drs[1] * drs[1] + drs[2] * drs[2]
-
-
 def _virial(coef, drs, scale):
     """-(scale) sum coef dr_a dr_b: the pair virial in JAX's convention."""
     return (-scale) * torch.stack([torch.stack([(coef * a * b).sum()
@@ -125,7 +109,7 @@ def dense_energy(inters, atoms, coords, boundary, pair_mask):
     """All-pairs energy: half the sum over ordered pairs."""
     if not inters:
         return torch.zeros((), dtype=coords.dtype, device=coords.device)
-    _, d2 = _geometry(coords, boundary)
+    _, d2 = pair_geometry(coords, boundary)
     live = pair_mask != 1
     special = pair_mask == 2
     r = torch.sqrt(torch.where(live, d2, 1.0))
@@ -144,7 +128,7 @@ def dense_forces(inters, atoms, coords, boundary, pair_mask, velocities=None,
     if not inters:
         return forces, vir
     cons, veldep = _split_inters(inters)
-    drs, d2 = _geometry(coords, boundary)
+    drs, d2 = pair_geometry(coords, boundary)
     live = pair_mask != 1
     special = pair_mask == 2
     r = torch.sqrt(torch.where(live, d2, 1.0))
@@ -195,7 +179,7 @@ def neighbor_energy(inters, atoms, coords, boundary, neighbors):
     if not inters or neighbors is None:
         return torch.zeros((), dtype=coords.dtype, device=coords.device)
     live, safe_j = _table(coords, neighbors)
-    _, d2 = _geometry(coords, boundary, safe_j)
+    _, d2 = pair_geometry(coords, boundary, safe_j)
     r = torch.sqrt(torch.where(live, d2, 1.0))
     e = _pair_energy(inters, torch.where(live, r, 1.0),
                      _PairView(atoms, lambda t: t[:, None]),
@@ -268,7 +252,6 @@ def lj_table_forces(lj, atoms, coords, boundary, neighbors,
     adds to (the virial stays 0 without ``needs_virial``). In float32 the
     buffer's force rows are padded to 4 (one vector atomic add a pair), so
     the forces are a strided view."""
-    global TABLE_LAUNCHES
     n = coords.shape[0]
     dev, dtype = coords.device, coords.dtype
     if n >= 2 ** 31 - 1:
@@ -292,19 +275,9 @@ def lj_table_forces(lj, atoms, coords, boundary, neighbors,
                       f64=int(dtype == torch.float64),
                       virial=int(bool(needs_virial)),
                       triclinic=int(type(boundary) is Triclinic))
-    lib = native.load("lj_table", _TABLE_SIG)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # the launcher launches on the calling thread's current device
-    with torch.cuda.device(dev):
-        err = lib.lj_table_launch(
-            ctypes.addressof(spec), coords.data_ptr(), box_a.data_ptr(),
-            box_b.data_ptr(), sigma.data_ptr(), epsilon.data_ptr(),
-            lam.data_ptr() if lam is not None else None, idx.data_ptr(),
-            special.data_ptr() if weighted else None, out.data_ptr(),
-            out[width * n:].data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"lj_table kernel launch failed: CUDA error {err}")
-    TABLE_LAUNCHES += 1
+    native.launch("lj_table", "lj_table_launch", _TABLE_SIG, spec, coords,
+                  box_a, box_b, sigma, epsilon, lam, idx, special, out,
+                  out[width * n:], device=dev)
     return out[:width * n].view(n, width)[:, :3], out[width * n:].view(3, 3)
 
 
@@ -320,7 +293,7 @@ def neighbor_forces_plain(inters, atoms, coords, boundary, neighbors,
         return forces, vir
     cons, veldep = _split_inters(inters)
     live, safe_j = _table(coords, neighbors)
-    drs, d2 = _geometry(coords, boundary, safe_j)
+    drs, d2 = pair_geometry(coords, boundary, safe_j)
     r = torch.sqrt(torch.where(live, d2, 1.0))
     ai = _PairView(atoms, lambda t: t[:, None])
     aj = _PairView(atoms, lambda t: t[safe_j])

@@ -5,9 +5,9 @@ FusedSpec, build_fused_spec, _pair_terms, _pair_terms_alch,
 pallas_block_nonbonded and _far_pair_corrections).
 
 ``pair_nonbonded`` dispatches on the device of its inputs: CPU tensors go to
-``pair_nonbonded_plain``, CUDA tensors to the kernel, which counts its
-launches in ``LAUNCHES``, per compiled instance family in
-``INSTANCE_LAUNCHES``, and those with energy and virial per family in
+``pair_nonbonded_plain``, CUDA tensors to the kernel, whose launches
+``native.LAUNCHES["pair_nonbonded"]`` counts, per compiled instance family
+``INSTANCE_LAUNCHES``, and those with energy and virial per family
 ``ENERGY_LAUNCHES``. There is no fallback between the two.
 
 Every mode of the TPU kernel is ported: LJ with no / distance /
@@ -58,10 +58,9 @@ from .pairwise import (Coulomb, CoulombEwald, CoulombEwaldScaled,
                        LennardJonesSoftCoreBeutler,
                        LennardJonesSoftCoreGapsys, rf_constants)
 
-#: kernel launches since the count was last reset (main-path accounting)
-LAUNCHES = 0
-#: the same launches per compiled instance family (``instance_family``;
-#: a kernel probe's launches under "<family>+<probe>")
+#: the kernel's launches (native.LAUNCHES["pair_nonbonded"]) per compiled
+#: instance family (``instance_family``; a kernel probe's launches under
+#: "<family>+<probe>")
 INSTANCE_LAUNCHES = collections.Counter()
 #: the launches of INSTANCE_LAUNCHES that computed energy and virial
 ENERGY_LAUNCHES = collections.Counter()
@@ -73,8 +72,8 @@ _LAST_STREAM = {}
 
 
 def reset_launch_counts():
-    global LAUNCHES
-    LAUNCHES = 0
+    """Set the kernel's launch counts to 0 (main-path accounting)."""
+    native.LAUNCHES["pair_nonbonded"] = 0
     INSTANCE_LAUNCHES.clear()
     ENERGY_LAUNCHES.clear()
 
@@ -776,7 +775,6 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
     tensors lie on (f32 only). A forces-only call issues one fill of the
     force buffer and the launch; energy and virial are then None.
     ``probe`` "preponly" launches nothing (zeros out)."""
-    global LAUNCHES
     dev = blockpairs.pos4.device
     forces = torch.zeros((n_atoms, 3), dtype=torch.float32, device=dev)
     ev = (torch.zeros((7,), dtype=torch.float64, device=dev)
@@ -784,15 +782,10 @@ def _pair_nonbonded_cuda(spec, blockpairs, boundary, n_atoms,
     args = launch_args(spec, blockpairs, boundary, n_atoms, lam_role, forces,
                        ev, probe)
     if probe != "preponly":
-        lib = native.load("pair_nonbonded", _SIG)
-        # the launcher copies the box row and launches on the calling
-        # thread's current device: make that the tensors' card
-        with torch.cuda.device(dev):
-            err = lib.pair_nonbonded_launch(*args[:-1])
-        if err != 0:
-            raise RuntimeError(f"pair_nonbonded kernel launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES += 1
+        # the stream launch_args ordered is the current one native.launch
+        # appends
+        native.launch("pair_nonbonded", "pair_nonbonded_launch", _SIG,
+                      *args[:-2], device=dev)
         family = instance_family(spec, boundary) + (
             f"+{probe}" if probe in KERNEL_PROBES else "")
         INSTANCE_LAUNCHES[family] += 1

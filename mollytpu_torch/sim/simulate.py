@@ -41,6 +41,7 @@ import time
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..boundary import pair_geometry
 from ..forces import forces_virial
 from ..ops.blockpairs import unlisted_min_distance
 from ..ops.celltiles import CellTiles, uncovered_min_distance
@@ -82,10 +83,7 @@ def missing_min_distance(old, new, coords, boundary, cutoff):
                       max=old_keys.numel() - 1)
     listed = (old_keys[pos] == new_keys).view(new.idx.shape)
     safe_j = torch.clamp(new.idx, max=n - 1).to(torch.int64)
-    dx, dy, dz = boundary.mic_parts(tuple(coords[:, k][safe_j]
-                                          - coords[:, k][:, None]
-                                          for k in range(3)))
-    r = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    r = torch.sqrt(pair_geometry(coords, boundary, safe_j)[1])
     missing = (new.idx < n) & ~listed & (r < cutoff)
     return torch.where(missing, r, float("inf")).amin()
 

@@ -21,6 +21,7 @@ import torch
 
 import mollytpu_torch as pt
 from mollytpu_torch.models import ljbench
+from mollytpu_torch.ops import native
 from mollytpu_torch.ops import neighbors as nb_mod
 
 RADIUS = 0.6
@@ -111,9 +112,9 @@ def case_inputs(case, dtype):
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_table_equals_the_twin(case, dtype):
     finder, coords, box, excl = case_inputs(case, dtype)
-    before = nb_mod.FIND_LAUNCHES
+    before = native.LAUNCHES["cell_neighbors"]
     got = finder.find(coords, box, excl, 4)
-    assert nb_mod.FIND_LAUNCHES == before + 1
+    assert native.LAUNCHES["cell_neighbors"] == before + 1
     want = finder.find_plain(coords, box, excl, 4)
     torch.cuda.synchronize()
     assert got.idx.dtype == torch.int32 and got.special.dtype == torch.bool
@@ -151,13 +152,13 @@ def test_find_makes_no_blocking_call():
         300, device=dev)))
     finders = [pt.CellListNeighborFinder.setup(b, RADIUS, 300)
                for _, b, _ in cases]
-    before = nb_mod.FIND_LAUNCHES
+    before = native.LAUNCHES["cell_neighbors"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         tables = [f.find(c, b, x) for f, (c, b, x) in zip(finders, cases)]
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert nb_mod.FIND_LAUNCHES == before + 3
+    assert native.LAUNCHES["cell_neighbors"] == before + 3
     assert nb_mod.find_engine(finders[0], cases[0][0]) == "cuda"
     for f, (c, b, x), t in zip(finders, cases, tables):
         assert torch.equal(t.idx, f.find_plain(c, b, x).idx)
@@ -166,7 +167,7 @@ def test_find_makes_no_blocking_call():
 def test_capacity_past_shared_memory_is_refused():
     finder, coords, box, excl = case_inputs("fluid-ortho", torch.float64)
     big = dataclasses.replace(finder, cell_capacity=2000)
-    before = nb_mod.FIND_LAUNCHES
+    before = native.LAUNCHES["cell_neighbors"]
     with pytest.raises(ValueError, match="shared memory"):
         big.find(coords, box, excl)
-    assert nb_mod.FIND_LAUNCHES == before
+    assert native.LAUNCHES["cell_neighbors"] == before

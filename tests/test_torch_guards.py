@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import mollytpu_torch as pt
-from mollytpu_torch.ops import pair_kernel
+from mollytpu_torch.ops import native, pair_kernel
 from torch_parity import CPU
 from torch_parity import one_torch_thread  # noqa: F401
 
@@ -85,9 +85,9 @@ def test_cpu_tensors_do_not_count_as_launches():
     spec = pair_kernel.FusedSpec(lj_mode=1, lj_rc=0.9, lj_w=0.5,
                                  coul_mode=3, coul_rc=0.9, ke=138.935,
                                  alpha=3.0, coul_w=0.8333, cut_max=0.9)
-    before = pair_kernel.LAUNCHES
+    before = native.LAUNCHES["pair_nonbonded"]
     f, e, v = pair_kernel.pair_nonbonded(spec, nb, boundary, n, True)
-    assert pair_kernel.LAUNCHES == before
+    assert native.LAUNCHES["pair_nonbonded"] == before
     assert f.shape == (n, 3) and torch.isfinite(f).all()
 
 
@@ -103,10 +103,10 @@ def test_cuda_wrapper_refuses_cpu_inputs():
     spec = pair_kernel.FusedSpec(lj_mode=1, lj_rc=0.9, lj_w=0.5,
                                  coul_mode=3, coul_rc=0.9, ke=138.935,
                                  alpha=3.0, coul_w=0.8333, cut_max=0.9)
-    before = pair_kernel.LAUNCHES
+    before = native.LAUNCHES["pair_nonbonded"]
     with pytest.raises(ValueError, match="CUDA"):
         pair_kernel._pair_nonbonded_cuda(spec, nb, boundary, n)
-    assert pair_kernel.LAUNCHES == before
+    assert native.LAUNCHES["pair_nonbonded"] == before
 
 
 def test_resolve_device(monkeypatch):

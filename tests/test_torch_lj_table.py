@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import mollytpu_torch as pt
+from mollytpu_torch.ops import native
 from mollytpu_torch.ops import nonbonded as tnb
 from torch_parity import CPU, one_torch_thread  # noqa: F401
 
@@ -134,12 +135,12 @@ def test_dispatch_rule_reads_the_inputs(name):
                                   "lj-open-axis", "triclinic"))
 def test_cpu_call_runs_the_engine_and_launches_nothing(name, needs_virial):
     inters, atoms, coords, boundary, nbs = case_inputs(name)
-    before = tnb.TABLE_LAUNCHES
+    before = native.LAUNCHES["lj_table"]
     f, v = tnb.neighbor_forces(inters, atoms, coords, boundary, nbs,
                                needs_virial=needs_virial)
     f0, v0 = tnb.neighbor_forces_plain(inters, atoms, coords, boundary, nbs,
                                        needs_virial=needs_virial)
-    assert tnb.TABLE_LAUNCHES == before
+    assert native.LAUNCHES["lj_table"] == before
     assert torch.equal(f, f0) and torch.equal(v, v0)
     assert bool(f.abs().sum() > 0)
     assert bool(v.abs().sum() > 0) == needs_virial

@@ -32,6 +32,7 @@ import torch
 
 import mollytpu_torch as pt
 from mollytpu_torch.models import ljbench
+from mollytpu_torch.ops import native
 from mollytpu_torch.ops import nonbonded as tnb
 
 F_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
@@ -134,10 +135,10 @@ def frame(name, dtype):
 def test_kernel_equals_the_engine(name, dtype, needs_virial):
     inters, atoms, coords, box, nb = frame(name, dtype)
     assert tnb.lj_table_admits(inters, atoms, coords, box, nb)
-    before = tnb.TABLE_LAUNCHES
+    before = native.LAUNCHES["lj_table"]
     f, v = tnb.neighbor_forces(inters, atoms, coords, box, nb,
                                needs_virial=needs_virial)
-    assert tnb.TABLE_LAUNCHES == before + 1
+    assert native.LAUNCHES["lj_table"] == before + 1
     f0, v0 = tnb.neighbor_forces_plain(inters, atoms, coords, box, nb,
                                        needs_virial=needs_virial)
     torch.cuda.synchronize()
@@ -216,11 +217,11 @@ def _refused(name, dtype):
 def test_refused_calls_launch_nothing(name):
     inters, atoms, coords, box, nb = _refused(name, torch.float32)
     assert not tnb.lj_table_admits(inters, atoms, coords, box, nb)
-    before = tnb.TABLE_LAUNCHES
+    before = native.LAUNCHES["lj_table"]
     f, _ = tnb.neighbor_forces(inters, atoms, coords, box, nb,
                                needs_virial=True)
     torch.cuda.synchronize()
-    assert tnb.TABLE_LAUNCHES == before
+    assert native.LAUNCHES["lj_table"] == before
     assert bool(torch.isfinite(f).all())
     # the engine keeps the graph of a gradient-tracking input
     assert f.requires_grad == name.startswith("grad-")

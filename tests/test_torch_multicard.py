@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import mollytpu_torch as pt
-from mollytpu_torch.ops import pair_kernel
+from mollytpu_torch.ops import native
 from mollytpu_torch.parallel.replicas import ReplicaMesh, mesh_size_for
 
 TEMPS = [300.0, 300.6, 301.2, 301.8]
@@ -45,9 +45,9 @@ def test_remd_over_cards_matches_one_card(tmp_path):
     runs = []
     for mesh in (None, card0):
         gen = torch.Generator(device=sys.device).manual_seed(11)
-        before = pair_kernel.LAUNCHES
+        before = native.LAUNCHES["pair_nonbonded"]
         runs.append(remd.simulate(sys, 2, generator=gen, mesh=mesh))
-        assert pair_kernel.LAUNCHES > before
+        assert native.LAUNCHES["pair_nonbonded"] > before
     (ens, info), (ens0, info0) = runs
     # the replicas lay on the gcd rule's cards (nothing else of this test
     # allocates beyond card 0)

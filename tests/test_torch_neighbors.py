@@ -224,14 +224,15 @@ def test_maybe_rebuild_on_cadence():
 
 def test_cpu_find_takes_the_twin_and_tags_its_span_torch(monkeypatch):
     """On the CPU, CellListNeighborFinder.find is its plain twin
-    (find_plain): the kernel's FIND_LAUNCHES does not move, and the loop's
+    (find_plain): the kernel's launch count does not move, and the loop's
     ``neighbors.find`` span names the engine "torch"."""
+    from mollytpu_torch.ops import native
     from mollytpu_torch.ops import neighbors as nb_mod
     from mollytpu_torch.sim import simulate
     (_, _, _), (tc, tb, tx) = inputs("triclinic")
     finder = pt.CellListNeighborFinder.setup(tb, RADIUS, tc.shape[0],
                                              n_steps=5)
-    before = nb_mod.FIND_LAUNCHES
+    before = native.LAUNCHES["cell_neighbors"]
     a = finder.find(tc, tb, tx, 3)
     b = finder.find_plain(tc, tb, tx, 3)
     assert torch.equal(a.idx, b.idx) and torch.equal(a.special, b.special)
@@ -254,4 +255,4 @@ def test_cpu_find_takes_the_twin_and_tags_its_span_torch(monkeypatch):
     pt.run_chunk(_Drift(0.001), sys, nb, {}, 0, 10)
     assert [args for name, args in seen
             if name == "neighbors.find"] == ["torch", "torch"]
-    assert nb_mod.FIND_LAUNCHES == before
+    assert native.LAUNCHES["cell_neighbors"] == before

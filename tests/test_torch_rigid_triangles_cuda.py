@@ -16,7 +16,7 @@ import torch
 
 import mollytpu_torch as pt
 from mollytpu_torch.models import gromacs, waterbox
-from mollytpu_torch.ops import constraints
+from mollytpu_torch.ops import constraints, native
 
 #: float32: a few ulps of a 3 nm coordinate; float64: rounding
 TOL = {torch.float32: 2e-6, torch.float64: 1e-12}
@@ -58,9 +58,9 @@ def tile_on(dev, dtype, tmp_path, triclinic=False):
 
 def both(monkeypatch, call):
     """(kernel's result, twin's result, kernel launches in the call)."""
-    before = constraints.TRIANGLE_LAUNCHES
+    before = native.LAUNCHES["rigid_triangles"]
     got = call()
-    launches = constraints.TRIANGLE_LAUNCHES - before
+    launches = native.LAUNCHES["rigid_triangles"] - before
     with monkeypatch.context() as m:
         m.setattr(constraints, "_on_kernel", lambda *a: False)
         want = call()
