@@ -283,6 +283,18 @@ Phases, each printing one line or more before the next starts:
    (forces-only and with the virial, gated at TOL_TABLE), its device ms
    (torch.profiler), the whole call's, the engine's and the bound of its
    bytes.
+17. the stale check's kernel (csrc/table_check.cu), which every exact
+   check of a neighbor table on the card launches (missing_min_distance).
+   Over GROMACS-PME, LJ-bench, CellTiles-LJ, MC-LJ and Gradients,
+   native.LAUNCHES["table_check"] is set to 0 before each and read after
+   it (gates: one launch per neighbor-table check on the card, no call of
+   the twin missing_min_distance_plain there, checks on LJ-bench and
+   MC-LJ). Then Check-kernel, on the Cell-kernel phase's frames: the
+   kernel against the twin on the same card tensors, the scalar bit for
+   bit (gated), for the frame's table against itself and against the
+   table of the frame moved by CHECK_SHIFT, with the whole check's
+   CUDA-event time, the kernel's (torch.profiler), the twin's and the
+   bound of the two tables' bytes.
 
 The second-to-last line is a JSON object {"kernels": [...]}: the five
 main-path instance families (K1a's launches those of the PME, Bonded-PME
@@ -301,8 +313,10 @@ each Cell-kernel frame (its launches those of the five phases of 14, by
 phase in launches_by_path), then each rigid-triangle kernel on each
 Triangle-kernel frame (its launches those of the paths of 15, by path in
 launches_by_path), then the table kernel on each Table-kernel frame (its
-launches those of the four phases of 16, by phase in launches_by_path);
-the last is
+launches those of the four phases of 16, by phase in launches_by_path),
+then the table-check kernel on each Check-kernel frame (its launches
+those of the five phases of 17, by phase in launches_by_path); the last
+is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before either is printed; so does a machine without a CUDA card.
 """
@@ -603,6 +617,12 @@ CELL_BIG, CELL_MELT, CELL_EVERY = 40, 100, 5
 #: frames of the cell-list kernel's phase
 TOL_TABLE = {"float32": 2e-5, "float64": 1e-12}
 TABLE_INSTANCES = 8
+#: the stale check's kernel (csrc/table_check.cu) against its twin
+#: (missing_min_distance_plain) on the same card tensors, on the frames of
+#: the cell-list kernel's phase: the frame's table against itself (nothing
+#: missing, as on a sound run) and against the table of the frame with
+#: every coordinate moved by a normal of CHECK_SHIFT nm (pairs missing)
+CHECK_SHIFT = 0.05
 #: the rigid-triangle kernel (csrc/rigid_triangles.cu) against its twin
 #: (SHAKERattle's PyTorch solve, constraints._on_kernel off) on the same
 #: card tensors: every atom of a frame moved by up to TRI_MOVE nm for a
@@ -3352,6 +3372,127 @@ def table_kernel_phase(lj_end, frames):
     return out
 
 
+@contextlib.contextmanager
+def table_checks(label):
+    """Over the block, with native.LAUNCHES["table_check"] set to 0 first,
+    counts the neighbor-table checks (missing_min_distance) on card
+    coordinates and its twin's (missing_min_distance_plain) calls on card
+    coordinates. Gates after it: every such check launched the
+    table-check kernel once, and none took the twin. Yields the counts
+    (``launches`` is filled in at the end)."""
+    from mollytpu_torch.ops import native
+    from mollytpu_torch.sim import simulate
+    real = {name: getattr(simulate, name) for name in (
+        "missing_min_distance", "missing_min_distance_plain")}
+    counts = {"checks": 0, "twin": 0}
+
+    def counting(name, key):
+        def call(old, new, coords, *args, **kw):
+            counts[key] += int(coords.is_cuda)
+            return real[name](old, new, coords, *args, **kw)
+        return call
+
+    native.LAUNCHES["table_check"] = 0
+    simulate.missing_min_distance = counting("missing_min_distance",
+                                             "checks")
+    simulate.missing_min_distance_plain = counting(
+        "missing_min_distance_plain", "twin")
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(simulate, name, fn)
+    counts["launches"] = native.LAUNCHES["table_check"]
+    print(f"{label}: table-check kernel launches over the phase "
+          f"{counts['launches']} for {counts['checks']} neighbor-table "
+          f"checks on the card, {counts['twin']} twin calls on the card",
+          flush=True)
+    if counts["launches"] != counts["checks"] or counts["twin"]:
+        raise RuntimeError(f"{label}: a neighbor-table check on the card "
+                           "did not launch the table-check kernel once")
+
+
+def table_check_compare(label, system):
+    """The stale check's kernel on ``system``'s frame against its twin on
+    the same card tensors, the scalar bit for bit (gated): the frame's
+    table against itself (inf) and against the table of the frame moved by
+    CHECK_SHIFT (a pair missing inside the cutoff). Times of the first
+    check: the whole call's (CUDA events around 25 back-to-back calls: the
+    inf fill and the launch), the kernel's (torch.profiler over 25 calls),
+    the twin's (median of 25) and the bound of the bytes: the two (N, K)
+    int32 tables and the coordinates read once."""
+    import torch
+    import mollytpu_torch as pt
+    from mollytpu_torch.sim import simulate
+    x, box = system.coords, system.boundary
+    cut = simulate.list_cutoff(system)
+    nb = pt.find_neighbors(system.neighbor_finder, x, box, system.exclusions)
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 1700)
+    moved = box.wrap(x + CHECK_SHIFT * torch.randn(
+        x.shape, generator=gen, dtype=x.dtype, device=x.device))
+    far = pt.find_neighbors(system.neighbor_finder, moved, box,
+                            system.exclusions)
+    values = {}
+    for name, old in (("itself", nb), ("moved", far)):
+        got = simulate.missing_min_distance(old, nb, x, box, cut)
+        want = simulate.missing_min_distance_plain(old, nb, x, box, cut)
+        values[name] = (got.cpu().numpy().tobytes()
+                        == want.cpu().numpy().tobytes(), float(got),
+                        float(want))
+    del far, moved
+
+    def call():
+        return simulate.missing_min_distance(nb, nb, x, box, cut)
+
+    def twin():
+        return simulate.missing_min_distance_plain(nb, nb, x, box, cut)
+
+    call_ms = burst_ms(call)
+    kernel_ms, calls = profiled(call, 25, kernel="table_check_kernel")
+    plain_ms = _time(twin)
+    torch.cuda.empty_cache()
+    n, k = nb.idx.shape
+    n_bytes = 2 * 4 * n * k + 3 * n * x.element_size()
+    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    print(f"{label}: table-check kernel against its twin on the same card "
+          "tensors: " + ", ".join(
+              f"the table against {name} {g!r} / {w!r} ("
+              f"{'bit for bit' if same else 'DIFFERENT'})"
+              for name, (same, g, w) in values.items())
+          + f" (K {k}, cutoff {cut} nm); table_check_kernel "
+          f"{kernel_ms:.4f} ms, the whole check {call_ms:.4f} ms "
+          f"({calls:g} device calls), the twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB over 3.35 TB/s)",
+          flush=True)
+    if not all(same for same, _, _ in values.values()):
+        raise RuntimeError(f"{label}: the table-check kernel's scalar "
+                           "differs from the twin's")
+    if values["itself"][1] != math.inf or not values["moved"][1] < cut:
+        raise RuntimeError(f"{label}: the check missed a pair or found one "
+                           "in a table against itself")
+    if not kernel_ms > 0.0:
+        raise RuntimeError(f"{label}: the profiler saw no "
+                           "table_check_kernel")
+    return dict(max_abs_err=0.0, ms=kernel_ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
+
+
+def table_check_phase(lj_end, frames):
+    """Check-kernel: table_check_compare on LJ-bench's end frame (f32) and
+    on the Cell-kernel phase's in.lj at 256,000 atoms (f32 and f64).
+    Returns {frame: the kernels-line numbers}."""
+    big, big64 = frames
+    out = {}
+    for frame, system in (
+            (f"LJ-bench's end frame, {lj_end.n_atoms:,} atoms, f32", lj_end),
+            (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
+             "f32", big),
+            (f"in.lj at {big.n_atoms:,} atoms melted {CELL_MELT} steps, "
+             "f64", big64)):
+        out[frame] = table_check_compare(f"Check-kernel ({frame})", system)
+    return out
+
+
 def lj_bench_path(dev, line):
     """LJ-bench: LAMMPS's in.lj at 32,000 atoms on the general pair path.
     Gates: the lattice energy (f32 and f64), no overflow and no stale list
@@ -5358,7 +5499,7 @@ def main():
     small_modes(dev)
     small_alch_modes(dev)
     stats, runs, probes, pme_eval, more, finds = {}, {}, [], {}, {}, {}
-    triangles = {}
+    triangles, checks = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         for label, method, angles, n_chunks, family in MAIN_PATHS:
             with triangle_solves(label) as triangles[label]:
@@ -5416,6 +5557,7 @@ def main():
         for label, r in (("TIP4P-Ew-PME", tip4p), ("LINCS-PME", lincs)):
             runs[label] = {k: r[k] for k in ("launches", "ms", "ns_day")}
         with cell_finds("GROMACS-PME") as finds["GROMACS-PME"], \
+                table_checks("GROMACS-PME") as checks["GROMACS-PME"], \
                 triangle_solves("GROMACS-PME") as triangles["GROMACS-PME"]:
             gmx = gromacs_path(dev, workdir, line)
         setup_options_phase(dev, workdir)
@@ -5447,23 +5589,31 @@ def main():
     table_build()
     tables = {}
     with cell_finds("LJ-bench") as finds["LJ-bench"], \
+            table_checks("LJ-bench") as checks["LJ-bench"], \
             table_calls("LJ-bench", True) as tables["LJ-bench"]:
         lj = lj_bench_path(dev, line)
-    with cell_finds("CellTiles-LJ") as finds["CellTiles-LJ"]:
+    with cell_finds("CellTiles-LJ") as finds["CellTiles-LJ"], \
+            table_checks("CellTiles-LJ") as checks["CellTiles-LJ"]:
         tiles_lj = celltiles_lj_phase(dev, line, lj["cadence"])
     with cell_finds("MC-LJ") as finds["MC-LJ"], \
+            table_checks("MC-LJ") as checks["MC-LJ"], \
             table_calls("MC-LJ", False) as tables["MC-LJ"]:
         mc = mc_lj_phase(lj["end"])
     # the gradient passes track epsilon and stay on the engine; the central
     # difference's passes, under no_grad, take the kernel
     with cell_finds("Gradients") as finds["Gradients"], \
+            table_checks("Gradients") as checks["Gradients"], \
             table_calls("Gradients", None) as tables["Gradients"]:
         grads = gradient_phase(lj["liquid64"], pme_end)
     if not tables["Gradients"]["refused"]:
         raise RuntimeError("Gradients: no gradient pass reached the engine")
+    if not (checks["LJ-bench"]["checks"] and checks["MC-LJ"]["checks"]):
+        raise RuntimeError("LJ-bench or MC-LJ made no neighbor-table check "
+                           "on the card")
     big_frames = big_lj_frames(dev)
     cell_kernel = cell_kernel_phase(lj["end"], big_frames)
     table_kernel = table_kernel_phase(lj["end"], big_frames)
+    table_check = table_check_phase(lj["end"], big_frames)
     del big_frames
     forms_phase(dev)
     with table_calls("DPD", False) as tables["DPD"]:
@@ -5626,6 +5776,17 @@ def main():
         "library_ms": None}
         for frame, r in triangle_kernel.items() for kind in ("shake",
                                                              "rattle")]
+    kernels += [{
+        "name": f"table_check_kernel (missing_min_distance, the exact stale "
+                f"check of a neighbor table) on {frame}", "route": "cuda",
+        "source": "mollytpu_torch/csrc/table_check.cu",
+        "replaces": "none: XLA, mollytpu/sim/simulate.py's stale-list check",
+        "launches": sum(c["launches"] for c in checks.values()),
+        "launches_by_path": {label: c["launches"]
+                             for label, c in checks.items()},
+        **{k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                             "bound_ms", "bound_by")},
+        "library_ms": None} for frame, r in table_check.items()]
     print(f"chip_smoke.py: the whole run took "
           f"{time.perf_counter() - t_start:.1f} s (the kernels' build "
           "included)", flush=True)

@@ -32,7 +32,8 @@ _LOADED = {}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 #: launches through ``launch`` since import, per library name
-#: ("pair_nonbonded", "cell_neighbors", "lj_table", "rigid_triangles")
+#: ("pair_nonbonded", "cell_neighbors", "lj_table", "rigid_triangles",
+#: "table_check")
 LAUNCHES = collections.Counter()
 
 

@@ -13,9 +13,12 @@ old list left out, which must lie beyond the cutoff. On a neighbor table
 (ops.neighbors.Neighbors), every pair the table built at the same
 coordinates holds inside the cutoff must be in the old one
 (``missing_min_distance``); at the end of a chunk a table is built for
-the check alone. On cell tiles (ops.celltiles.CellTiles) the same holds
-for every pair that tiles built at those coordinates place inside the
-cutoff: it must be covered by the old table and its stencil
+the check alone. On CUDA tensors that check is the hand-written kernel
+csrc/table_check.cu, one launch counted in ``native.LAUNCHES``; on CPU
+tensors its plain PyTorch twin, ``missing_min_distance_plain``. There is
+no fallback between the two. On cell tiles (ops.celltiles.CellTiles) the
+same holds for every pair that tiles built at those coordinates place
+inside the cutoff: it must be covered by the old table and its stencil
 (``uncovered_min_distance``). A table that overflowed its capacity raises
 the JAX package's RuntimeError at the end of the chunk. A box scaled between
 rebuilds moves atoms by up to (mu - 1) L / 2, which the skin must absorb;
@@ -34,6 +37,7 @@ per record.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import sys as _sys
 import time
@@ -41,8 +45,9 @@ import time
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..boundary import pair_geometry
+from ..boundary import Orthorhombic, Triclinic, pair_geometry
 from ..forces import forces_virial
+from ..ops import native
 from ..ops.blockpairs import unlisted_min_distance
 from ..ops.celltiles import CellTiles, uncovered_min_distance
 from ..ops.neighbors import (Neighbors, find_engine, find_neighbors,
@@ -72,9 +77,18 @@ def list_cutoff(sys):
 def missing_min_distance(old, new, coords, boundary, cutoff):
     """The closest atom pair that the table ``new``, built at ``coords``,
     holds inside ``cutoff`` and the table ``old`` does not, as a device
-    scalar (inf when there is none). Both tables place a pair in the same
-    row (the balanced ownership), so a pair is looked up by its key
-    row * (N + 1) + column among the old table's sorted keys."""
+    scalar (inf when there is none). On CUDA tensors csrc/table_check.cu
+    computes it; on CPU tensors ``missing_min_distance_plain``."""
+    if coords.is_cuda:
+        return _missing_min_distance_cuda(old, new, coords, boundary, cutoff)
+    return missing_min_distance_plain(old, new, coords, boundary, cutoff)
+
+
+def missing_min_distance_plain(old, new, coords, boundary, cutoff):
+    """The plain PyTorch twin of the kernel, on any device. Both tables
+    place a pair in the same row (the balanced ownership), so a pair is
+    looked up by its key row * (N + 1) + column among the old table's
+    sorted keys."""
     n = coords.shape[0]
     rows = torch.arange(n, device=coords.device, dtype=torch.int64)[:, None]
     old_keys = torch.sort((rows * (n + 1) + old.idx).reshape(-1))[0]
@@ -86,6 +100,66 @@ def missing_min_distance(old, new, coords, boundary, cutoff):
     r = torch.sqrt(pair_geometry(coords, boundary, safe_j)[1])
     missing = (new.idx < n) & ~listed & (r < cutoff)
     return torch.where(missing, r, float("inf")).amin()
+
+
+class _CheckSpec(ctypes.Structure):
+    """The launcher's spec, field for field csrc/table_check.cu's
+    CheckSpec."""
+
+    _fields_ = [("cutoff", ctypes.c_double)] + [
+        (name, ctypes.c_int) for name in ("n_atoms", "k_old", "k_new", "f64",
+                                          "triclinic")]
+
+
+_CHECK_SIG = {"table_check_launch": [ctypes.c_void_p] * 8}
+
+#: the widest old table the kernel takes: a row's hash set of twice its
+#: width, rounded up to a power of 2, in one block's shared memory
+_CHECK_MAX_OLD = 16384
+
+
+def _missing_min_distance_cuda(old, new, coords, boundary, cutoff):
+    """missing_min_distance on a CUDA card: a scalar filled with inf and
+    lowered by one launch of csrc/table_check.cu on the current stream,
+    with no host read. The coordinates are taken detached. Raises on what
+    the kernel does not take."""
+    n = coords.shape[0]
+    dev, dtype = coords.device, coords.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the table check takes float32 or float64 "
+                        f"coordinates, got {dtype}")
+    if coords.dim() != 2 or coords.shape[1] != 3 or not 0 < n < 2 ** 31 - 1:
+        raise ValueError(f"the table check takes (N, 3) coordinates with "
+                         f"0 < N < 2^31 - 1, got {tuple(coords.shape)}")
+    if type(boundary) not in (Orthorhombic, Triclinic):
+        raise TypeError(f"the table check takes an Orthorhombic or Triclinic "
+                        f"box, got {type(boundary).__name__}")
+    box_a, box_b = boundary.mic_tensors(dtype)
+    for name, t in (("old", old.idx), ("new", new.idx), ("box", box_a),
+                    ("box", box_b)):
+        if t.device != dev:
+            raise ValueError(f"the table check's {name} tensor is on "
+                             f"{t.device}, the coordinates on {dev}")
+    for name, t in (("old", old.idx), ("new", new.idx)):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != n:
+            raise ValueError(f"the table check takes (N, K) int32 tables of "
+                             f"N = {n} rows; the {name} table is "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if old.idx.shape[1] > _CHECK_MAX_OLD:
+        raise ValueError(f"the table check takes old tables up to "
+                         f"{_CHECK_MAX_OLD} wide (its hash set of a row "
+                         f"fills a block's shared memory), got "
+                         f"{old.idx.shape[1]}")
+    out = torch.full((), float("inf"), dtype=dtype, device=dev)
+    spec = _CheckSpec(cutoff=float(cutoff), n_atoms=n,
+                      k_old=int(old.idx.shape[1]),
+                      k_new=int(new.idx.shape[1]),
+                      f64=int(dtype == torch.float64),
+                      triclinic=int(type(boundary) is Triclinic))
+    native.launch("table_check", "table_check_launch", _CHECK_SIG, spec,
+                  coords.detach().contiguous(), box_a, box_b,
+                  old.idx.contiguous(), new.idx.contiguous(), out, device=dev)
+    return out
 
 
 def list_check(sys, neighbors, cutoff, new=None):

@@ -19,9 +19,10 @@ import torch
 from mollytpu_torch.models import gromacs, ljbench, waterbox
 from mollytpu_torch.ops import native, pair_kernel
 from mollytpu_torch.ops.nonbonded import neighbor_forces
+from mollytpu_torch.sim.simulate import missing_min_distance
 
 KERNELS = ("pair_nonbonded", "cell_neighbors", "lj_table",
-           "rigid_triangles")
+           "rigid_triangles", "table_check")
 
 
 @pytest.fixture(autouse=True)
@@ -71,15 +72,18 @@ def test_build_rebuilds_when_an_included_header_changes(name, tmp_path,
 def one_launch(name, dev, tmp_path):
     """A call that launches kernel ``name`` once: the pair kernel and the
     rigid-triangle kernel on the committed SPC tile (1,000 rigid waters,
-    PME on the cluster-pair list), the cell-list and table kernels on
-    in.lj at 500 atoms."""
-    if name in ("cell_neighbors", "lj_table"):
+    PME on the cluster-pair list), the cell-list, table and table-check
+    kernels on in.lj at 500 atoms."""
+    if name in ("cell_neighbors", "lj_table", "table_check"):
         s = ljbench.lj_bench_system(5, torch.float32, dev, n_steps=5)
         find = (lambda: s.neighbor_finder.find(s.coords, s.boundary,
                                                s.exclusions))
         if name == "cell_neighbors":
             return find
         nb = find()
+        if name == "table_check":
+            return lambda: missing_min_distance(nb, nb, s.coords, s.boundary,
+                                                ljbench.CUTOFF)
         return lambda: neighbor_forces(s.pairwise_inters, s.atoms, s.coords,
                                        s.boundary, nb)
     gro = gromacs.read_gro(waterbox.SPC_TILE)

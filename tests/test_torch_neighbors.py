@@ -5,9 +5,13 @@ element (exclusions and 1-4 pairs, orthorhombic and triclinic boxes, a
 grid of 2 cells on an axis), ``setup`` sizes the finder as JAX does with
 and without coordinates, overflow is reported as JAX reports it and
 raised by the simulation loop, and the loop's exact stale-list check
-raises on a table made stale on purpose.
+raises on a table made stale on purpose. The check's plain twin
+(missing_min_distance_plain) gives a brute-force walk over all pairs'
+answer in float32 and float64, and on the CPU the check takes the twin
+and launches no kernel.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -20,7 +24,9 @@ import mollytpu as mt
 from mollytpu.ops.neighbors import find_neighbors as jax_find_neighbors
 
 import mollytpu_torch as pt
-from mollytpu_torch.sim.simulate import missing_min_distance
+from mollytpu_torch.boundary import pair_geometry
+from mollytpu_torch.sim.simulate import (missing_min_distance,
+                                         missing_min_distance_plain)
 from torch_parity import CPU, np64, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -256,3 +262,100 @@ def test_cpu_find_takes_the_twin_and_tags_its_span_torch(monkeypatch):
     assert [args for name, args in seen
             if name == "neighbors.find"] == ["torch", "torch"]
     assert native.LAUNCHES["cell_neighbors"] == before
+
+
+#: kinds of the twin's check: an old table of another width built at
+#: moved coordinates, an old table of sentinels only, the new table
+#: against itself, and one pair planted 0.25 nm apart and left out
+CHECK_KINDS = ("other-width", "sentinels-only", "self", "planted")
+
+
+def _check_inputs(name, kind, dtype):
+    """(old table, new table, coords, box) on the CPU in ``dtype``: the
+    fluid, its table at radius 0.6 and width 64, and the old table of
+    ``kind``."""
+    coords, _, _ = fluid(name)
+    n = coords.shape[0]
+    _, box = _boxes(name)
+    box = box.to(dtype=dtype)
+    x = torch.as_tensor(coords, dtype=dtype)
+    excl = pt.Exclusions.empty(n, device=CPU)
+    if kind == "planted":
+        # atom 1 0.25 nm from atom 0 along the box's first vector
+        a = box.box_matrix()[0] if name == "triclinic" else torch.tensor(
+            [1.0, 0.0, 0.0], dtype=dtype)
+        x = x.clone()
+        x[1] = x[0] + 0.25 * a / torch.linalg.vector_norm(a)
+    new = pt.find_neighbors(pt.DistanceNeighborFinder(RADIUS, 1, 64), x,
+                            box, excl)
+    if kind == "self":
+        return new, new, x, box
+    if kind == "sentinels-only":
+        return dataclasses.replace(new, idx=torch.full(
+            (n, 7), n, dtype=torch.int32)), new, x, box
+    if kind == "planted":
+        idx = new.idx.clone()
+        idx[(idx == 0) & (torch.arange(n)[:, None] == 1)] = n
+        idx[(idx == 1) & (torch.arange(n)[:, None] == 0)] = n
+        return dataclasses.replace(new, idx=idx), new, x, box
+    rng = np.random.default_rng(7)
+    moved = box.wrap(x + torch.as_tensor(rng.uniform(-0.1, 0.1, (n, 3)),
+                                         dtype=dtype))
+    old = pt.find_neighbors(pt.DistanceNeighborFinder(0.45, 1, 40), moved,
+                            box, excl)
+    return old, new, x, box
+
+
+def _brute_missing(old, new, coords, box, cutoff):
+    """The least r < cutoff (the cutoff in the working type) over every
+    atom pair (i, j), j in row i of ``new`` and not in row i of ``old``,
+    walked pair by pair over the all-pairs distances; inf for none."""
+    n = coords.shape[0]
+    r = torch.sqrt(pair_geometry(coords, box)[1])
+    cut = torch.tensor(cutoff, dtype=coords.dtype)
+    best = float("inf")
+    for i in range(n):
+        held = set(old.idx[i].tolist())
+        for j in new.idx[i].tolist():
+            if j < n and j not in held and bool(r[i, j] < cut):
+                best = min(best, float(r[i, j]))
+    return best
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64),
+                         ids=("f32", "f64"))
+@pytest.mark.parametrize("kind", CHECK_KINDS)
+@pytest.mark.parametrize("name", BOXES)
+def test_plain_check_matches_brute_force(name, kind, dtype):
+    old, new, x, box = _check_inputs(name, kind, dtype)
+    got = missing_min_distance_plain(old, new, x, box, 0.5)
+    assert got.shape == () and got.dtype == dtype
+    want = _brute_missing(old, new, x, box, 0.5)
+    assert float(got) == want
+    if kind == "self":
+        assert want == float("inf")
+    else:
+        assert want < 0.5
+    if kind == "other-width":
+        assert old.idx.shape[1] != new.idx.shape[1]
+    if kind == "planted":
+        assert want == pytest.approx(0.25, rel=1e-6)
+
+
+def test_cpu_check_takes_the_twin_and_launches_no_kernel():
+    """On CPU tensors missing_min_distance is its twin, and neither it nor
+    a chunk's checks move native.LAUNCHES["table_check"]."""
+    from mollytpu_torch.ops import native
+    before = native.LAUNCHES["table_check"]
+    old, new, x, box = _check_inputs("ortho", "other-width", torch.float32)
+    got = missing_min_distance(old, new, x, box, 0.5)
+    want = missing_min_distance_plain(old, new, x, box, 0.5)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    sys = _lj_system(pt.CellListNeighborFinder.setup(
+        pt.rectangular((2.5, 2.0, 1.3), dtype=torch.float64, device=CPU),
+        RADIUS, 300, n_steps=5))
+    nb = pt.find_neighbors(sys.neighbor_finder, sys.coords, sys.boundary,
+                           sys.exclusions)
+    *_, closest = pt.run_chunk(_Drift(0.005), sys, nb, {}, 0, 12)
+    assert closest == float("inf")
+    assert native.LAUNCHES["table_check"] == before
