@@ -100,6 +100,7 @@ from .free_energy.bias import (BiasPotential, FlatBottomSquareBias,
                                SquareBias)
 from .free_energy.extended_ensemble import (ActiveThermoState,
                                             ExtendedStateSpace)
+from .free_energy.coupling import PerturbedTerms, couple_molecule
 from .free_energy.awh import (AWHPMFBackend, AWHSimulation, AWHState,
                               GridAWH, GridAWHState, GridBias)
 from .free_energy.pmf import (

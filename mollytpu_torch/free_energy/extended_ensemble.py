@@ -5,10 +5,16 @@ A discrete space of thermodynamic states (lambda grids, temperature
 ladders, umbrella windows as per-state bias potentials) with an active-state
 cursor, consumed by the AWH and TSS drivers. Switching state returns a
 System with new per-atom lambdas and the state's bias attached. The K-state
-energy sweep evaluates one potential energy where the selected lambdas are
-equal, else the AlchemicalPartition's cross energies (the shared part once,
-the perturbed part per lambda on one list), and adds each state's bias
-energy on top.
+energy sweep (the span ``fep.cross``) evaluates one potential energy where
+the selected lambdas are equal, else the cross energies: those of the
+space's PerturbedTerms where it has them (free_energy/coupling.py: U at the
+running lambda plus the change of the lambda-dependent terms, in float64),
+else the AlchemicalPartition's (the shared part once, the perturbed part
+per lambda on one list); and adds each state's bias energy on top.
+
+``STATE_EVALUATIONS`` counts the states whose energy the sweep evaluated,
+by path: "whole" (a whole-system energy per lambda, or one for states of
+one lambda) and "perturbed" (the lambda-dependent terms), on the host.
 """
 
 from __future__ import annotations
@@ -20,25 +26,33 @@ import numpy as np
 import torch
 
 from ..forces import potential_energy
+from ..tracing import span
 from ..units import KB
 from .thermo import AlchemicalPartition, ThermoState, set_lambda
+
+#: path -> states whose energy state_energies evaluated on it
+STATE_EVALUATIONS = {"whole": 0, "perturbed": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class ExtendedStateSpace:
     """Discrete space of ThermoStates, optionally with a per-state bias
-    potential (a BiasPotential or another general interaction, or None)
-    and a boolean ``atom_mask`` of the atoms whose lambda the states set
-    (None: every atom)."""
+    potential (a BiasPotential or another general interaction, or None),
+    a boolean ``atom_mask`` of the atoms whose lambda the states set
+    (None: every atom) and, optionally, the PerturbedTerms set up on that
+    mask, which the cross energies then take."""
 
     states: Tuple[ThermoState, ...]
     biases: Tuple = None
     atom_mask: torch.Tensor = None
+    perturbed_terms: object = None
 
     @classmethod
-    def lambda_grid(cls, lambdas, temperature=300.0, atom_mask=None):
+    def lambda_grid(cls, lambdas, temperature=300.0, atom_mask=None,
+                    perturbed_terms=None):
         return cls(tuple(ThermoState(lam=float(l), temperature=temperature)
-                         for l in lambdas), atom_mask=atom_mask)
+                         for l in lambdas), atom_mask=atom_mask,
+                   perturbed_terms=perturbed_terms)
 
     @classmethod
     def temperature_ladder(cls, temperatures, lam=1.0):
@@ -95,6 +109,10 @@ class ExtendedStateSpace:
         state bias attached). The energies are added in float64: the JAX
         package adds the biases in the system's dtype, where a float32
         total of ~1e5 kJ/mol rounds each window's bias to 0.016 kJ/mol."""
+        with span("fep.cross"):
+            return self._state_energies(sys, neighbors, indices)
+
+    def _state_energies(self, sys, neighbors, indices):
         lams = self.lambdas()
         sel = (list(range(self.n_states)) if indices is None
                else [int(i) for i in indices])
@@ -103,9 +121,15 @@ class ExtendedStateSpace:
             e = potential_energy(set_lambda(sys, float(lams_sel[0]),
                                             self.atom_mask), neighbors)
             es = e.double().expand(len(sel))
+            path = "whole"
+        elif self.perturbed_terms is not None:
+            es = self.perturbed_terms.energies(sys, neighbors, lams_sel)
+            path = "perturbed"
         else:
             es = AlchemicalPartition(self.atom_mask).cross_energies(
                 sys, lams_sel, neighbors).double()
+            path = "whole"
+        STATE_EVALUATIONS[path] += len(sel)
         if self.biases is not None:
             zero = torch.zeros((), dtype=torch.float64, device=sys.device)
             es = es + torch.stack([

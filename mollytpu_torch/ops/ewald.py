@@ -417,6 +417,63 @@ class PME:
                 3, dtype=coords.dtype, device=coords.device)
         return forces, vir
 
+    def charge_change_energy(self, coords, boundary, q, index, dq):
+        """(K,) E(q + dq_k) - E(q) in float64, exactly, where the charges
+        ``q`` (N,) change by the rows of ``dq`` (K, S) on the atoms
+        ``index`` (S,) alone: every term of ``energy`` is a quadratic in
+        the change. The reciprocal sum on the same mesh and splines,
+
+            E_recip(q + dq) = E_recip(q) + ke (dq . phi + dq . psi dq / 2),
+
+        phi (S,) the convolved potential of ``q`` at each changed atom and
+        psi (S, S) their mesh interaction, psi_ab = sum over the stencil
+        points p of atom a and p' of b of their weights times h(p - p'),
+        h = fftn(eterm) the mesh's real-space kernel (built once per box);
+        the self and background terms; and the excluded pairs
+        (``excl_i``, ``excl_j``)."""
+        f64 = torch.float64
+        x, q, dq = coords.to(f64), q.to(f64), dq.to(f64)
+        ke, alpha, K = self._ke, self.alpha, self.mesh_dims
+        grid, (flat, theta, _, _) = self._spread(x, boundary, q)
+        eterm, h = self._kernels64(boundary)
+        phi = (torch.fft.ifftn(torch.fft.fftn(grid) * eterm)
+               * (K[0] * K[1] * K[2])).real.reshape(-1)
+        th = theta[index]
+        w = (th[:, 0, :, None, None] * th[:, 1, None, :, None]
+             * th[:, 2, None, None, :]).reshape(index.shape[0], -1)
+        pts = flat[index].reshape(index.shape[0], -1)
+        g = (pts // (K[1] * K[2]), (pts // K[2]) % K[1], pts % K[2])
+        diff = [(a[:, :, None, None] - a[None, None, :, :]) % k
+                for a, k in zip(g, K)]
+        psi = torch.einsum("ap,bq,apbq->ab", w, w,
+                           h[(diff[0] * K[1] + diff[1]) * K[2] + diff[2]])
+        e = ke * (dq @ (phi[pts] * w).sum(dim=1)
+                  + 0.5 * torch.einsum("ks,st,kt->k", dq, psi, dq))
+        e = e - ke * alpha / math.sqrt(math.pi) * (
+            2.0 * q[index] * dq + dq * dq).sum(dim=1)
+        qt, dt = q.sum(), dq.sum(dim=1)
+        e = e - ke * math.pi / (2.0 * alpha ** 2) * (
+            2.0 * qt * dt + dt * dt) / boundary.volume().to(f64)
+        if self.excl_i.shape[0] == 0:
+            return e
+        d = torch.zeros((dq.shape[0], q.shape[0]), dtype=f64,
+                        device=x.device).index_copy_(1, index, dq)
+        _, _, r, _, erf_ar = _exclusion_terms(q, x, boundary, alpha,
+                                              self.excl_i, self.excl_j)
+        qi, qj = q[self.excl_i], q[self.excl_j]
+        di, dj = d[:, self.excl_i], d[:, self.excl_j]
+        return e - ke * (erf_ar / r * (qi * dj + di * qj + di * dj)).sum(
+            dim=1)
+
+    def _kernels64(self, boundary):
+        """(eterm, h = fftn(eterm).real flattened) in float64, once per
+        box."""
+        def make():
+            eterm = self._make_influence(boundary, torch.float64)[0]
+            return eterm, torch.fft.fftn(eterm).real.reshape(-1)
+        key = ("pme-kernels64", self.mesh_dims, self.order, self.alpha)
+        return _cached(boundary, key, make)
+
     def _gather(self, phi, cache, q):
         """The forces of the convolved grid ``phi`` on the charges, from
         the stencil cache of ``_spread``."""

@@ -22,7 +22,8 @@ from torch.profiler import record_function
 SPANS = ("md.chunk", "md.step", "neighbors.find", "neighbors.check",
          "md.finish", "forces", "forces.pairs", "forces.bonded",
          "forces.general", "md.constraints", "forces.pme", "pme.spread",
-         "pme.solve", "pme.gather", "forces.excl", "md.couple")
+         "pme.solve", "pme.gather", "forces.excl", "md.couple",
+         "fep.cross")
 
 _OFF = contextlib.nullcontext()
 _on = False
